@@ -33,7 +33,6 @@ is visible or when the package is not beside this script. Phases:
 from __future__ import annotations
 
 import json
-import math
 import statistics
 import subprocess
 import sys
@@ -77,14 +76,22 @@ def bound_ms(nbytes: int) -> float:
     return nbytes / H100_BYTES_PER_S * 1e3
 
 
-def float_close(got, ref, terms: int, vmax: float) -> float:
-    """Max |got - ref|; fails past rtol 1e-5 / atol 1e-5·max|v|·√n, with n
-    the rows of the largest group (the terms of the longest sum): the
-    kernel sums in another order than the plain version."""
-    diff = (got.double() - ref.double()).abs()
-    tol = 1e-5 * ref.double().abs() + 1e-5 * vmax * math.sqrt(terms)
+def float_close(got, ref, counts, vmax: float, mean: bool = False) -> float:
+    """Max |got - ref|; fails past rtol 1e-5 / atol 1e-5·max|v|·√n for a
+    group's sum of n rows (the kernel sums in another order than the plain
+    version), and that atol over n, 1e-5·max|v|/√n, for its mean.
+    ``counts`` holds the rows of each group, in the results' row order."""
+    import torch
+
+    got, ref = got.double(), ref.double()
+    n = torch.as_tensor(counts).to(ref.device).double().clamp(min=1)
+    n = n.reshape(-1, *([1] * (ref.ndim - 1)))
+    diff = (got - ref).abs()
+    tol = 1e-5 * ref.abs() + 1e-5 * vmax * (n.rsqrt() if mean else n.sqrt())
     if not bool((diff <= tol).all()):
-        fail(f"float result off by {float(diff.max())} (tolerance {float(tol.min())})")
+        worst = int((diff - tol).argmax())
+        fail(f"float result off by {float(diff.flatten()[worst])} where the tolerance "
+             f"is {float(tol.flatten()[worst])}")
     return float(diff.max()) if diff.numel() else 0.0
 
 
@@ -98,13 +105,6 @@ def exact(got, ref, what: str) -> None:
 # ---------------------------------------------------------------------------
 # phase 1: kernels against their plain versions
 # ---------------------------------------------------------------------------
-
-def largest_group(ids) -> int:
-    """Rows of the most frequent id (a tensor or a numpy array)."""
-    import torch
-
-    return int(torch.bincount(torch.as_tensor(ids).long()).max())
-
 
 def segment_inputs(n: int, groups: int, dev):
     import torch
@@ -127,12 +127,15 @@ def check_segment_reduce(dev, n: int, groups: int) -> dict:
     cols = {"v_sum": v, "v_mean": v, "w": w, "c": c}
     got = ksr.segment_reduce(ops, groups, cols, ids)
     ref = ksr.segment_reduce_plain(ops, groups, cols, ids)
+    _, kernel_counts = ksr.segment_reduce_tables(ops, groups, cols, ids)
+    counts = torch.bincount(ids.long(), minlength=groups).to(torch.int32)
     torch.cuda.synchronize()
     exact(got["w"], ref["w"], "segment_reduce max")
     exact(got["c"], ref["c"], "segment_reduce int32 sum")
-    vmax, terms = float(v.abs().max()), largest_group(ids)
-    err = max(float_close(got["v_sum"], ref["v_sum"], terms, vmax),
-              float_close(got["v_mean"], ref["v_mean"], terms, vmax))
+    exact(kernel_counts, counts, "segment_reduce count table")
+    vmax = float(v.abs().max())
+    err = max(float_close(got["v_sum"], ref["v_sum"], counts, vmax),
+              float_close(got["v_mean"], ref["v_mean"], counts, vmax, mean=True))
     again = ksr.segment_reduce(ops, groups, cols, ids)
     for k in got:
         if not torch.equal(got[k], again[k]):
@@ -165,7 +168,8 @@ def check_segment_sum(dev, n: int, groups: int) -> dict:
     got = seg.segment_sum_kernel(w, ids, groups)
     ref = seg.segment_sum_plain(w, ids, groups)
     torch.cuda.synchronize()
-    err = float_close(got, ref, largest_group(ids), float(w.abs().max()))
+    err = float_close(got, ref, torch.bincount(ids.long(), minlength=groups),
+                      float(w.abs().max()))
     if not torch.equal(got, seg.segment_sum_kernel(w, ids, groups)):
         fail("segment_sum is not deterministic")
     idx = ids.long()
@@ -207,9 +211,11 @@ def check_ragged_gather(dev, n_rows: int) -> dict:
         st = np.zeros(bucket_rows(len(idx)), np.int32)
         st[:len(idx)] = starts[idx]
         groups.append((int(L), torch.from_numpy(st).to(dev)))
+    err = 0.0
     for L, st in groups:
-        got = krg.ragged_gather_rows(flat_dev, st, L)
-        exact(got, krg.gather_plain(flat_dev, st, L), f"ragged_gather length {L}")
+        got, plain = krg.ragged_gather_rows(flat_dev, st, L), krg.gather_plain(flat_dev, st, L)
+        exact(got, plain, f"ragged_gather length {L}")
+        err = max(err, float((got.double() - plain.double()).abs().max()))
 
     def run(fn):
         return lambda: [fn(flat_dev, st, L) for L, st in groups]
@@ -220,7 +226,7 @@ def check_ragged_gather(dev, n_rows: int) -> dict:
     out_bytes = sum(int(st.shape[0]) * L * 4 for L, st in groups)
     nbytes = 2 * out_bytes + sum(int(st.shape[0]) * 4 for _, st in groups)
     return {
-        "max_abs_err": 0.0,
+        "max_abs_err": err,
         "ms": time_ms(run(krg.ragged_gather_rows)),
         "plain_ms": time_ms(run(krg.gather_plain)),
         "library_ms": time_ms(run(library)),
@@ -305,8 +311,9 @@ def main_path(tft, dev) -> dict:
     got = agg.column_values("scores")
     want = np.zeros((10, 10))
     np.add.at(want, labels, sf.column_values("scores").astype(np.float64))
-    want = want[np.unique(labels)]
-    float_close(torch.from_numpy(got), torch.from_numpy(want), largest_group(labels), 1.0)
+    present = np.unique(labels)
+    float_close(torch.from_numpy(got), torch.from_numpy(want[present]),
+                np.bincount(labels, minlength=10)[present], 1.0)
     del ff, scored, sf, feats
 
     # the 10M-row aggregate (segment_reduce), and an aggregate of f32 +
@@ -352,15 +359,16 @@ def main_path(tft, dev) -> dict:
     if not all(np.array_equal(big_got.column_values(c), ref.column_values(c))
                for c in ("k", "w", "c")):
         fail("10M-row aggregate: keys, max or int sum")
-    terms, vmax = largest_group(k), float(np.abs(v).max())
+    counts, vmax = np.bincount(k, minlength=groups)[ref.column_values("k")], float(np.abs(v).max())
     for col in ("v", "u"):
         float_close(torch.from_numpy(big_got.column_values(col)),
-                    torch.from_numpy(ref.column_values(col)), terms, vmax)
+                    torch.from_numpy(ref.column_values(col)), counts, vmax, mean=col == "u")
     ref = mixed_agg("cpu")
     if not np.array_equal(mixed_got.column_values("i"), ref.column_values("i")):
         fail("mixed aggregate: int64 sum")
+    counts = np.bincount(k, minlength=groups)[ref.column_values("k")]
     float_close(torch.from_numpy(mixed_got.column_values("v")),
-                torch.from_numpy(ref.column_values("v")), terms, vmax)
+                torch.from_numpy(ref.column_values("v")), counts, vmax)
     return {"launches": launches, "verbs": rates}
 
 

@@ -1,10 +1,12 @@
 """Runtime configuration for tensorframes_tpu_torch.
 
 The knobs the ported verbs read — row-bucketing ladder and the default
-partition count — plus the execution ``device``. Values can be overridden
-via environment variables (``TFTPU_*``) or programmatically via
-:func:`configure`; every verb also takes a ``device=`` argument that
-overrides the configured one for that call.
+partition count — plus the execution ``device``. The bucketing and
+partition knobs can be overridden via environment variables (``TFTPU_*``);
+every field can be set programmatically via :func:`configure`. The device
+is chosen only in code: ``configure(device=...)``, or the ``device=``
+argument every verb takes, which overrides the configured one for that
+call.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ class Config:
     # Where verbs execute: "cuda" (the default) or "cpu". With no GPU
     # present, "cuda" raises at the verb call instead of running on the
     # CPU; the CPU is used only when asked for.
-    device: str = os.environ.get("TFTPU_DEVICE", "cuda")
+    device: str = "cuda"
 
 
 _config = Config()

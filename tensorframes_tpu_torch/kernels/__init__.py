@@ -132,9 +132,16 @@ def _nvcc() -> str:
     )
 
 
+def _run(*cmd) -> subprocess.Popen:
+    return subprocess.Popen(
+        [str(c) for c in cmd], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+    )
+
+
 def _build() -> Path:
-    """Compile every source in parallel and link one shared library;
-    reuse it when the sources and flags are unchanged."""
+    """Compile the sources (one ``nvcc`` each, started together, so the
+    build time is the slowest source's as sources are added) and link one
+    shared library; reuse it while the sources and flags are unchanged."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in _SOURCES:
         h.update((CSRC / s).read_bytes())
@@ -142,34 +149,21 @@ def _build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    procs = []
-    for s in _SOURCES:
-        obj = BUILD_DIR / (Path(s).stem + f"-{os.getpid()}.o")
-        cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o", str(obj)]
-        procs.append((s, obj, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )))
-    log = []
-    for s, obj, p in procs:
-        out, _ = p.communicate()
-        log.append(f"== nvcc {s} (rc {p.returncode})\n{out}")
-        if p.returncode != 0:
-            BUILD_LOG.write_text("\n".join(log))
-            raise RuntimeError(f"nvcc failed on {s}:\n{out}")
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    link = subprocess.run(
-        [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
-         *[str(obj) for _, obj, _ in procs], "-o", str(tmp)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-    )
-    log.append(f"== link (rc {link.returncode})\n{link.stdout}")
-    BUILD_LOG.write_text("\n".join(log))
-    if link.returncode != 0:
-        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    nvcc, tmp = _nvcc(), so.with_suffix(f".{os.getpid()}.tmp")
+    objs = [tmp.with_name(f"{Path(s).stem}-{os.getpid()}.o") for s in _SOURCES]
+    steps = [(f"nvcc {s}", _run(nvcc, *NVCC_FLAGS, "-c", CSRC / s, "-o", o))
+             for s, o in zip(_SOURCES, objs)]
+    steps = [(what, p, p.communicate()[0]) for what, p in steps]
+    if all(p.returncode == 0 for _, p, _ in steps):
+        link = _run(nvcc, *NVCC_FLAGS[:2], "-shared", *objs, "-o", tmp)
+        steps.append(("link", link, link.communicate()[0]))
+    BUILD_LOG.write_text("\n".join(f"== {w} (rc {p.returncode})\n{out}" for w, p, out in steps))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    failed = [(w, out) for w, p, out in steps if p.returncode != 0]
+    if failed:
+        raise RuntimeError(f"{failed[0][0]} failed:\n{failed[0][1]}")
     os.replace(tmp, so)
-    for _, obj, _ in procs:
-        obj.unlink(missing_ok=True)
     return so
 
 

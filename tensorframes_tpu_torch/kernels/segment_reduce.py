@@ -57,7 +57,8 @@ _IDENTITY = {  # min/max seeds of the integer types, as in the TPU kernel
     "int8": (127, -128), "uint8": (255, 0), "bool": (1, 0),
 }
 
-__all__ = ["eligible", "segment_reduce", "segment_reduce_plain", "MAX_SEGMENTS"]
+__all__ = ["eligible", "segment_reduce", "segment_reduce_plain", "segment_reduce_tables",
+           "MAX_SEGMENTS"]
 
 
 def dtype_name(v) -> str:
@@ -175,7 +176,18 @@ def scratch_for(n: int, num_segments: int, chunks: int, device) -> torch.Tensor:
                        dtype=torch.int32, device=device)
 
 
-def _segment_reduce_cuda(ops_key, num_segments, val_cols, seg_ids):
+def segment_reduce_tables(ops_key, num_segments, val_cols, seg_ids):
+    """Launch the kernel on CUDA tensors and return its raw tables before
+    the finalize: ``({name: [S, d] f32 or i32 table}, i32 counts or None)``.
+    Counts come back when a mean is among the ops. An ineligible feed or
+    a CPU tensor raises."""
+    if not eligible(ops_key, val_cols, num_segments):
+        raise ValueError(
+            "segment_reduce: feed not eligible for the kernel (dtype/op set, "
+            f"1-D/2-D values, <= {MAX_SEGMENTS} segments, <= {MAX_COLS} columns, < 2^31 rows)"
+        )
+    if seg_ids.device.type == "cpu":
+        raise ValueError("segment_reduce_tables: the kernel runs on CUDA tensors only")
     meta = _col_meta(ops_key, val_cols)
     device = seg_ids.device
     n = int(seg_ids.shape[0])
@@ -209,8 +221,7 @@ def _segment_reduce_cuda(ops_key, num_segments, val_cols, seg_ids):
         # float sums and float min/max travel as f32 bits, the rest as i32
         raw[x] = words.view(torch.float32) if name in _FLOAT_OK else words
         lane += d
-    counts = out[:, lane] if need_counts else None
-    return _finalize(meta, raw, counts)
+    return raw, (out[:, lane] if need_counts else None)
 
 
 def segment_reduce(
@@ -222,10 +233,6 @@ def segment_reduce(
     :func:`eligible` first; an ineligible CUDA feed raises."""
     if seg_ids.device.type == "cpu":
         return segment_reduce_plain(ops_key, num_segments, val_cols, seg_ids)
-    if not eligible(ops_key, val_cols, num_segments):
-        raise ValueError(
-            "segment_reduce: feed not eligible for the kernel (dtype/op set, "
-            f"1-D/2-D values, <= {MAX_SEGMENTS} segments, <= {MAX_COLS} columns, < 2^31 rows)"
-        )
-    return _segment_reduce_cuda(ops_key, num_segments, val_cols, seg_ids)
+    return _finalize(_col_meta(ops_key, val_cols),
+                     *segment_reduce_tables(ops_key, num_segments, val_cols, seg_ids))
 

@@ -1,4 +1,4 @@
 """Observability: the process-wide metrics registry (counters keep the
-reference package's names, so expositions compare series by series)."""
+reference package's names, so snapshots compare series by series)."""
 
-from .metrics import REGISTRY, counter, gauge, histogram  # noqa: F401
+from .metrics import REGISTRY, counter, histogram  # noqa: F401

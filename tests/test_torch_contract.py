@@ -271,3 +271,45 @@ def test_cpu_tensors_do_not_count_launches():
         tft.aggregate(tft.reduce_sum(tft.block(df, "v", tf_name="v_input"), name="v"),
                       df.group_by("k"), device="cpu")
     assert tft.kernels.LAUNCHES.snapshot() == {k: 0 for k in tft.kernels.KERNELS}
+
+
+# ---------------------------------------------------------------------------
+# the metrics registry
+# ---------------------------------------------------------------------------
+
+def test_metric_names_are_the_reference_packages():
+    from tensorframes_tpu.observability.metrics import REGISTRY as JREG
+    from tensorframes_tpu_torch.observability.metrics import REGISTRY as TREG
+
+    import tensorframes_tpu.kernels  # noqa: F401  (registers the JAX side's kernel counters)
+
+    ref = {d["name"] for d in JREG.snapshot()}
+    port = {d["name"] for d in TREG.snapshot()}
+    assert "tftpu_kernels_dispatch_total" in port
+    assert port <= ref, sorted(port - ref)
+    kernels = {d["labels"]["kernel"] for d in TREG.snapshot()
+               if d["name"] == "tftpu_kernels_dispatch_total"}
+    assert kernels == set(tft.kernels.KERNELS)
+
+
+def test_counter_and_histogram_registry_semantics():
+    from tensorframes_tpu_torch.observability.metrics import MetricsRegistry
+
+    reg = MetricsRegistry()
+    c = reg.counter("t_total", labels={"k": "a"})
+    assert reg.counter("t_total", labels={"k": "a"}) is c
+    c.inc()
+    c.inc(2)
+    with pytest.raises(ValueError, match="cannot decrease"):
+        c.inc(-1)
+    h = reg.histogram("t_seconds", buckets=(0.1, 1.0))
+    for v in (0.05, 0.5, 5.0):
+        h.observe(v)
+    with pytest.raises(ValueError, match="is counter"):
+        reg.histogram("t_total", labels={"k": "b"})
+    snap = {d["name"]: d for d in reg.snapshot()}
+    assert snap["t_total"]["value"] == 3.0 and snap["t_total"]["labels"] == {"k": "a"}
+    assert snap["t_seconds"]["count"] == 3 and snap["t_seconds"]["sum"] == 5.55
+    assert list(snap["t_seconds"]["buckets"].values()) == [1, 2, 3]
+    reg.reset()
+    assert c.value == 0.0 and h.count == 0 and reg.counter("t_total", labels={"k": "a"}) is c

@@ -8,9 +8,9 @@ them::
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_on_card.py
 
 Tolerances: exact for integer sums (i32 wraparound included), counts,
-min/max and the gather; float32 sums and means rtol 1e-5 / atol
-1e-5·max|v|·√n, because the kernel sums in another order than the plain
-version; bfloat16 rtol 1e-2.
+min/max and the gather; float32 sums rtol 1e-5 / atol 1e-5·max|v|·√n for
+a segment of n rows, because the kernel sums in another order than the
+plain version, and means that atol over n; bfloat16 rtol 1e-2.
 """
 
 import numpy as np
@@ -49,6 +49,15 @@ def _values(rng, name, shape, device) -> torch.Tensor:
     return torch.from_numpy(rng.integers(info.min, int(info.max) + 1, shape).astype(name)).to(device)
 
 
+def _float_close(got, want, rtol, vmax, counts, mean):
+    """|got - want| <= rtol·|want| + atol per segment, atol = 1e-5·vmax·√n
+    for a sum of n rows and that over n for a mean."""
+    n = counts.double().clamp(min=1).reshape(-1, *([1] * (want.ndim - 1)))
+    atol = 1e-5 * vmax * (n.rsqrt() if mean else n.sqrt())
+    diff = (got.double() - want.double()).abs()
+    assert bool((diff <= rtol * want.double().abs() + atol).all()), float(diff.max())
+
+
 @pytest.mark.parametrize("name", _DTYPES)
 def test_segment_reduce_kernel_matches_plain_on_card(cuda_device, name):
     n, s = 50_000, 300
@@ -60,17 +69,29 @@ def test_segment_reduce_kernel_matches_plain_on_card(cuda_device, name):
     got = ksr.segment_reduce(ops, s, cols, ids)
     want = ksr.segment_reduce_plain(ops, s, cols, ids)
     again = ksr.segment_reduce(ops, s, cols, ids)
+    counts = torch.bincount(ids.long(), minlength=s)
     for key, op in ops:
         assert torch.equal(got[key], again[key]), f"{key}: not deterministic"
         assert got[key].dtype == want[key].dtype and got[key].shape == want[key].shape, key
         if op in ("reduce_min", "reduce_max") or name not in ("float32", "bfloat16"):
             assert torch.equal(got[key], want[key]), key
         else:
-            vmax = float(cols[key].float().abs().max())
-            torch.testing.assert_close(
-                got[key].float(), want[key].float(),
-                rtol=1e-5 if name == "float32" else 1e-2, atol=1e-5 * vmax * n**0.5,
-            )
+            _float_close(got[key], want[key], 1e-5 if name == "float32" else 1e-2,
+                         float(cols[key].float().abs().max()), counts, op == "reduce_mean")
+
+
+def test_segment_reduce_kernel_counts_exact_on_card(cuda_device):
+    """The count lane that divides the means equals the rows per segment,
+    empty segments (ids skip 7) included."""
+    rng = np.random.default_rng(5)
+    ids_np = rng.integers(0, 4096, 300_000).astype(np.int32)
+    ids_np[ids_np == 7] = 8
+    ids = torch.from_numpy(ids_np).to(cuda_device)
+    cols = {"v": torch.from_numpy(rng.standard_normal(len(ids_np)).astype(np.float32)).to(cuda_device)}
+    _, counts = ksr.segment_reduce_tables((("v", "reduce_mean"),), 4096, cols, ids)
+    assert counts.dtype == torch.int32
+    want = torch.bincount(ids.long(), minlength=4096).to(torch.int32)
+    assert torch.equal(counts, want) and int(counts[7]) == 0
 
 
 def test_segment_reduce_kernel_empty_segments_on_card(cuda_device):
@@ -100,8 +121,8 @@ def test_segment_sum_kernel_matches_plain_on_card(cuda_device):
         got = tseg.segment_sum_kernel(v, ids, s)
         assert torch.equal(got, tseg.segment_sum_kernel(v, ids, s)), "not deterministic"
         want = tseg.segment_sum_plain(v, ids, s)
-        torch.testing.assert_close(got, want, rtol=1e-5,
-                                   atol=1e-5 * float(v.float().abs().max()) * n**0.5)
+        _float_close(got.float(), want.float(), 1e-5 if dtype == torch.float32 else 1e-2,
+                     float(v.float().abs().max()), torch.bincount(ids.long(), minlength=s), False)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.int8, torch.bfloat16])

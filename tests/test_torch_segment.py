@@ -188,3 +188,12 @@ def test_cuda_wrappers_raise_on_ineligible_feed(monkeypatch):
                            {"v": torch.zeros(4, dtype=torch.float64, device="meta")}, ids)
     with pytest.raises(ValueError, match="float32/bfloat16"):
         tseg.segment_sum_kernel(torch.zeros((4, 1), dtype=torch.float64, device="meta"), ids, 2)
+
+
+def test_raw_tables_are_the_kernels_alone():
+    """The raw-table entry point (which hands back the kernel's count lane)
+    has no plain version: CPU tensors raise instead of computing one."""
+    cols = {"v": torch.zeros(4)}
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        ksr.segment_reduce_tables((("v", "reduce_mean"),), 2, cols,
+                                  torch.zeros(4, dtype=torch.int32))
