@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke for tensorframes_tpu_torch: build the CUDA kernels, hold each
 against its plain PyTorch version on the card, then drive the five verbs
-through the package's entry points at full size on one GPU.
+and the decode server through the package's entry points at full size on
+one GPU.
 
     python3 chip_smoke.py
 
@@ -12,20 +13,40 @@ is visible or when the package is not beside this script. Phases:
 1. kernels against their plain versions at the main path's shapes:
    ``segment_reduce`` (10M rows, 4096 groups: f32 sum and mean, f32 [n, 8]
    max, int32 sum), ``segment_sum`` (f32 [10M, 8]) and ``ragged_gather``
-   (200,000 rows of lengths 16/32/64/128, bit-exact); median times from
-   CUDA events for the kernel, the plain version and one PyTorch library
-   call per (column, op) (``index_add_``/``scatter_reduce``, or
-   ``index_select`` on an unfolded view for the gather);
+   (200,000 rows of lengths 16/32/64/128, bit-exact); device times per
+   call (ten calls queued behind a spin kernel and timed by CUDA events,
+   so the card runs them back to back whatever the host's launch rate)
+   for the kernel, the plain version and one PyTorch library call per
+   (column, op) (``index_add_``/``scatter_reduce``, or ``index_select`` on
+   an unfolded view for the gather); then the decode
+   server's kernels in bf16 at gpt_small's shapes: ``int8_matmul`` at
+   every (k, n) of a layer for m in {1, 16, 128}, a ragged m and an f32
+   case (timed: one layer's four products at m = 16; library:
+   ``torch.matmul`` on a pre-widened bf16 weight), and
+   ``decode_attention`` at 1 and 16 slots over a 193-page pool (timed at
+   16; library: ``scaled_dot_product_attention`` over pages already
+   gathered and dequantized, the gather not timed);
 2. the main path with every launch count reset first: add-3
    ``map_blocks`` over 20M float64 rows, ``reduce_blocks`` sum/min over
    ``double[?,2]`` (10M rows), ``map_rows`` on fixed and ragged cells,
    full-width logreg scoring (262,144 × 784) and an aggregate of its
    scores by predicted label, the 10M-row aggregate above, and an
    aggregate mixing float32 and int64 sums (the per-op route). Each output
-   is checked; every kernel must have launched. Rows/s per verb follow.
+   is checked; every kernel of the path must have launched. Rows/s per
+   verb follow. Then the decode server's path, counts reset again: a
+   ``Server`` with a gpt_small decode endpoint (int8 weights from seed 0,
+   16 slots, 16-position pages, prompts <= 128, 64 new tokens) answers 32
+   requests; the first 8 re-run solo must match exactly; an engine with a
+   4-horizon pool must preempt and still return the same tokens; the
+   kernels must have launched 12 (attention) and 48 (matmul) times per
+   step; one 16-slot step's logits, kernel path against plain path on the
+   same pool, within a tolerance that three deliberately broken plain
+   paths must exceed. Tokens/s, TTFT (each request's own, from its
+   future) and step time follow.
 3. where the time goes: ``torch.profiler`` device time by kernel for
-   each segment kernel alone and for two verbs (aggregate, map_blocks),
-   with the device's busy share of each call's host wall time;
+   each segment kernel alone, for two verbs (aggregate, map_blocks) and
+   for a 16-slot decode step, with the device's busy share of each call's
+   host wall time;
 4. one JSON line listing every kernel, the card's name and power limit,
    and as the last line ``{"ok": true, "device": {...}}``.
 """
@@ -33,7 +54,6 @@ is visible or when the package is not beside this script. Phases:
 from __future__ import annotations
 
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -42,6 +62,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
+H100_BF16_FLOPS = 989e12    # dense bf16 tensor-core peak, H100 SXM data sheet
+SPIN_CYCLES = 100_000_000   # ~50 ms at the H100's ~2 GHz: longer than queuing 10 calls
+SLICE1_KERNELS = ("segment_reduce", "segment_sum", "ragged_gather")
+SERVING_KERNELS = ("decode_attention", "int8_matmul")
 
 
 def log(msg: str) -> None:
@@ -53,27 +77,41 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median wall time of ``fn`` on the card, from CUDA events."""
+def time_ms(fn, what: str, reps: int = 10) -> float:
+    """Device time per call of ``fn``, after one warm-up call: ``reps``
+    calls queued behind a spin kernel, between two CUDA events. The host
+    queues them all while the card spins, so the card runs them back to
+    back and the host's launch rate is not in the time. A call that waits
+    on the card (a host sync) lets the card drain the queue first; then
+    the time includes the host's share, and a line says so."""
     import torch
 
-    for _ in range(warmup):
-        fn()
+    fn()
     torch.cuda.synchronize()
-    times = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    end.record()
+    queued = not start.query()  # the card still spun when the last call was queued
+    end.synchronize()
+    if not queued:
+        log(f"# timing {what}: the card caught up with the host (the call syncs), so "
+            "its time includes the host's share")
+    return start.elapsed_time(end) / reps
 
 
 def bound_ms(nbytes: int) -> float:
     return nbytes / H100_BYTES_PER_S * 1e3
+
+
+def roofline(nbytes: int, flops: int) -> dict:
+    """The least time for the work: the larger of bytes over the memory
+    rate and bf16 operations over the tensor-core peak."""
+    b, f = bound_ms(nbytes), flops / H100_BF16_FLOPS * 1e3
+    return {"bound_ms": max(b, f), "bound_by": "bytes" if b >= f else "operations"}
 
 
 def float_close(got, ref, counts, vmax: float, mean: bool = False) -> float:
@@ -152,9 +190,10 @@ def check_segment_reduce(dev, n: int, groups: int) -> dict:
     nbytes = 4 * n + v.nbytes + w.nbytes + c.nbytes + groups * 11 * 4
     return {
         "max_abs_err": err,
-        "ms": time_ms(lambda: ksr.segment_reduce(ops, groups, cols, ids)),
-        "plain_ms": time_ms(lambda: ksr.segment_reduce_plain(ops, groups, cols, ids)),
-        "library_ms": time_ms(library),
+        "ms": time_ms(lambda: ksr.segment_reduce(ops, groups, cols, ids), "segment_reduce"),
+        "plain_ms": time_ms(lambda: ksr.segment_reduce_plain(ops, groups, cols, ids),
+                            "segment_reduce plain"),
+        "library_ms": time_ms(library, "segment_reduce library"),
         "bound_ms": bound_ms(nbytes),
         "bound_by": "bytes",
     }
@@ -176,10 +215,11 @@ def check_segment_sum(dev, n: int, groups: int) -> dict:
     nbytes = 4 * n + w.nbytes + groups * 8 * 4
     return {
         "max_abs_err": err,
-        "ms": time_ms(lambda: seg.segment_sum_kernel(w, ids, groups)),
-        "plain_ms": time_ms(lambda: seg.segment_sum_plain(w, ids, groups)),
+        "ms": time_ms(lambda: seg.segment_sum_kernel(w, ids, groups), "segment_sum"),
+        "plain_ms": time_ms(lambda: seg.segment_sum_plain(w, ids, groups), "segment_sum plain"),
         "library_ms": time_ms(
-            lambda: torch.zeros((groups, 8), device=dev).index_add_(0, idx, w)),
+            lambda: torch.zeros((groups, 8), device=dev).index_add_(0, idx, w),
+            "segment_sum library"),
         "bound_ms": bound_ms(nbytes),
         "bound_by": "bytes",
     }
@@ -227,11 +267,138 @@ def check_ragged_gather(dev, n_rows: int) -> dict:
     nbytes = 2 * out_bytes + sum(int(st.shape[0]) * 4 for _, st in groups)
     return {
         "max_abs_err": err,
-        "ms": time_ms(run(krg.ragged_gather_rows)),
-        "plain_ms": time_ms(run(krg.gather_plain)),
-        "library_ms": time_ms(run(library)),
+        "ms": time_ms(run(krg.ragged_gather_rows), "ragged_gather"),
+        "plain_ms": time_ms(run(krg.gather_plain), "ragged_gather plain"),
+        "library_ms": time_ms(run(library), "ragged_gather library"),
         "bound_ms": bound_ms(nbytes),
         "bound_by": "bytes",
+    }
+
+
+GEMM_SHAPES = ((768, 2304), (768, 768), (768, 3072), (3072, 768))  # a gpt_small layer
+
+
+def bf16_close(got, ref, what: str, f32: bool = False) -> float:
+    """Max |got - ref|; fails past 2^-7·|ref| + 1e-3·max|ref| in bf16 (the
+    kernel sums in f32 in another order than the plain version, so an
+    output may round to the neighbouring bf16 value) or rtol 1e-5 / atol
+    1e-5·max|ref| in f32."""
+    got, ref = got.double(), ref.double()
+    scale = float(ref.abs().max())
+    tol = (1e-5 if f32 else 2.0 ** -7) * ref.abs() + (1e-5 if f32 else 1e-3) * scale
+    diff = (got - ref).abs()
+    if not bool((diff <= tol).all()):
+        fail(f"{what}: off by {float(diff.max())} where the tolerance is "
+             f"{float(tol.flatten()[int((diff - tol).argmax())])}")
+    return float(diff.max())
+
+
+def check_int8_matmul(dev) -> dict:
+    """Every (k, n) of a gpt_small layer at m = 1, 16 (slot counts) and 128
+    (the top prompt bucket) in bf16, plus a ragged m and an f32 case. The
+    timed unit is one layer's four products at m = 16 (a 16-slot decode
+    step's layer); the same at m = 128 is logged."""
+    import numpy as np
+    import torch
+    from tensorframes_tpu_torch.ops import quantize as tq
+
+    rng = np.random.default_rng(SEED)
+    weights = {kn: tq.quantize(torch.from_numpy(
+        (rng.standard_normal(kn) * kn[0] ** -0.5).astype(np.float32)).to(dev))
+        for kn in GEMM_SHAPES}
+
+    def xs(m, dtype=torch.bfloat16):
+        return {kn: torch.from_numpy(rng.standard_normal((m, kn[0])).astype(np.float32)).to(
+            dev, dtype) for kn in GEMM_SHAPES}
+
+    err = 0.0
+    cases = [(m, torch.bfloat16) for m in (1, 16, 128, 37)] + [(16, torch.float32)]
+    for m, dtype in cases:
+        for kn, x in xs(m, dtype).items():
+            got, ref = tq.matmul_int8(x, weights[kn]), tq.matmul_int8_plain(x, weights[kn])
+            torch.cuda.synchronize()
+            err = max(err, bf16_close(got, ref, f"int8_matmul m={m} (k, n)={kn} {dtype}",
+                                      f32=dtype == torch.float32))
+    wide = {kn: w.dequantize(torch.bfloat16) for kn, w in weights.items()}
+    x16, x128 = xs(16), xs(128)
+
+    def layer(fn, x):
+        return lambda: [fn(x[kn], weights[kn]) for kn in GEMM_SHAPES]
+
+    log(f"# int8_matmul one layer's four products at m = 128: kernel "
+        f"{time_ms(layer(tq.matmul_int8, x128), 'int8_matmul m=128'):.6f} ms, library "
+        f"{time_ms(lambda: [x128[kn] @ wide[kn] for kn in GEMM_SHAPES], 'matmul m=128'):.6f} ms")
+    nbytes = sum(k * n + 4 * n + 2 * 16 * k + 2 * 16 * n for k, n in GEMM_SHAPES)
+    return {
+        "max_abs_err": err,
+        "ms": time_ms(layer(tq.matmul_int8, x16), "int8_matmul"),
+        "plain_ms": time_ms(layer(tq.matmul_int8_plain, x16), "int8_matmul plain"),
+        "library_ms": time_ms(lambda: [x16[kn] @ wide[kn] for kn in GEMM_SHAPES],
+                              "int8_matmul library"),
+        **roofline(nbytes, sum(2 * 16 * k * n for k, n in GEMM_SHAPES)),
+    }
+
+
+def paged_inputs(dev, S: int, pages: int = 193, layers: int = 12, nh: int = 12,
+                 page: int = 16, hd: int = 64, maxp: int = 12):
+    """A random int8 pool of the decode server's geometry, with S slots
+    whose positions spread over the 192-position horizon on distinct
+    pages; with S > 1 the last slot is padding (null table, position 0)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + S)
+    kv = [torch.from_numpy(rng.integers(-127, 128, (pages, layers, nh, page, hd)).astype(
+        np.int8)).to(dev) for _ in range(2)]
+    sc = [torch.from_numpy(rng.uniform(0.001, 0.03, (pages, layers, nh, page, 1)).astype(
+        np.float32)).to(dev) for _ in range(2)]
+    q = torch.from_numpy(rng.standard_normal((S, nh, hd)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    pos = np.linspace(maxp * page - 1, 0, S).astype(np.int32)
+    tables = np.zeros((S, maxp), np.int32)
+    free = rng.permutation(np.arange(1, pages))
+    for s in range(S):
+        n = pos[s] // page + 1
+        tables[s, :n], free = free[:n], free[n:]
+    if S > 1:
+        pos[-1], tables[-1] = 0, 0
+    return (q, *kv, *sc, torch.from_numpy(tables).to(dev), torch.from_numpy(pos).to(dev))
+
+
+def check_decode_attention(dev) -> dict:
+    """Kernel against plain at 1 and 16 slots (layer 5 of 12), timed at
+    16. The library call is SDPA over K/V already gathered and
+    dequantized to bf16 (that gather is not timed)."""
+    import torch
+    import torch.nn.functional as F
+    from tensorframes_tpu_torch.kernels import decode_attention as kda
+
+    err = 0.0
+    for S in (1, 16):
+        inputs = paged_inputs(dev, S)
+        args = (*inputs[:5], 5, *inputs[5:])
+        got, ref = kda.paged_decode_attention(*args), kda.paged_attention_reference(*args)
+        torch.cuda.synchronize()
+        err = max(err, bf16_close(got, ref, f"decode_attention S={S}"))
+    q, kp, vp, ks, vs, _, tables, pos = args
+    S, nh, hd = q.shape
+    C = kp.shape[3] * tables.shape[1]
+    t = tables.long()
+    kd = (kp[t, 5].float() * ks[t, 5]).permute(0, 2, 1, 3, 4).reshape(S, nh, C, hd)
+    vd = (vp[t, 5].float() * vs[t, 5]).permute(0, 2, 1, 3, 4).reshape(S, nh, C, hd)
+    kd, vd, qd = kd.to(torch.bfloat16), vd.to(torch.bfloat16), q[:, :, None, :]
+    mask = (torch.arange(C, device=dev)[None, :] <= pos.long()[:, None])[:, None, None, :]
+    valid = int((pos.long() + 1).sum())  # the positions this run's slots attend
+    nbytes = 2 * q.numel() * 2 + valid * nh * (2 * hd + 8) + tables.numel() * 4 + S * 4
+    return {
+        "max_abs_err": err,
+        "ms": time_ms(lambda: kda.paged_decode_attention(*args), "decode_attention"),
+        "plain_ms": time_ms(lambda: kda.paged_attention_reference(*args),
+                            "decode_attention plain"),
+        "library_ms": time_ms(
+            lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask),
+            "decode_attention library"),
+        **roofline(nbytes, valid * nh * 4 * hd),
     }
 
 
@@ -372,6 +539,189 @@ def main_path(tft, dev) -> dict:
     return {"launches": launches, "verbs": rates}
 
 
+def serving_path(tft, dev) -> dict:
+    """The decode server at gpt_small's full width: 32 requests through
+    ``Server.submit`` with every launch count reset first, then the gates
+    (solo = batched, preempted = unpreempted, launches per step)."""
+    import dataclasses
+
+    import numpy as np
+    from tensorframes_tpu_torch.models import generation as gen
+    from tensorframes_tpu_torch.models import transformer as tr
+    from tensorframes_tpu_torch.serving import DecodeConfig, Server
+    from tensorframes_tpu_torch.serving import metrics as sm
+
+    t0 = time.perf_counter()
+    cfg = gen.gpt_small()
+    params = tr.quantize_params(tr.init_params(cfg, seed=SEED, device=dev))
+    dcfg = DecodeConfig(max_slots=16, page_size=16, max_prompt_len=128, max_new_tokens=64)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(8, 129, 32)]
+    srv = Server(device=dev)
+    srv.register_decode("gpt_small", cfg, params, dcfg)
+    srv.start()  # warms the slot × prompt bucket grid
+    log(f"# serving setup (weights, pool, warm-up): {time.perf_counter() - t0:.1f} s")
+    try:
+        steps0 = {p: sm.DECODE_STEPS[p].value for p in sm.DECODE_PHASES}
+        tft.kernels.LAUNCHES.reset()
+        t1 = time.perf_counter()
+        futs = [(time.perf_counter(), srv.submit("gpt_small", {"prompt": p})) for p in prompts]
+        outs, lat = [], []
+        for t_sub, f in futs:
+            outs.append(f.result(600)["tokens"])
+            lat.append(time.perf_counter() - t_sub)
+        wall = time.perf_counter() - t1
+        launches = tft.kernels.LAUNCHES.snapshot()
+        steps = {p: int(sm.DECODE_STEPS[p].value - steps0[p]) for p in sm.DECODE_PHASES}
+        # each request's own submit-to-first-token time; the burst's 32
+        # first tokens are also the only observations of the histogram
+        # (warm-up prefills do not observe it)
+        ttfts = [f.ttft_s for _, f in futs]
+        if sm.DECODE_TTFT.count != 32 or None in ttfts:
+            fail(f"{sm.DECODE_TTFT.count} TTFT observations for 32 requests")
+        ttft = {"p50": float(np.percentile(ttfts, 50)), "p99": float(np.percentile(ttfts, 99))}
+        for o in outs:  # every request answered, in range
+            if (o.shape != (1, 64) or o.dtype != np.int32 or o.min() < 0
+                    or o.max() >= cfg.vocab_size):
+                fail(f"a decode result of shape {o.shape} / {o.dtype} or out of range")
+        # the kernels ran as often as the steps say
+        if launches["decode_attention"] != 12 * steps["decode"]:
+            fail(f"decode_attention launched {launches['decode_attention']} times in "
+                 f"{steps['decode']} decode steps (want 12 per step)")
+        if launches["int8_matmul"] != 48 * (steps["decode"] + steps["prefill"]):
+            fail(f"int8_matmul launched {launches['int8_matmul']} times in {steps} "
+                 "(want 48 per decode step and per prefill)")
+        # solo equals batched, exactly
+        for i in range(8):
+            solo = srv.call("gpt_small", {"prompt": prompts[i]}, timeout=600)["tokens"]
+            if not np.array_equal(solo, outs[i]):
+                fail(f"request {i}: solo tokens differ from batched")
+        # an engine with 4 horizons of pages preempts and still matches
+        maxp = -(-(dcfg.max_prompt_len + dcfg.max_new_tokens) // dcfg.page_size)
+        srv.register_decode("gpt_small_tight", cfg, params,
+                            dataclasses.replace(dcfg, num_pages=1 + 4 * maxp))
+        pre0 = sm.DECODE_PREEMPTIONS.value
+        t2 = time.perf_counter()
+        tight = [f.result(900)["tokens"] for f in
+                 [srv.submit("gpt_small_tight", {"prompt": p}) for p in prompts]]
+        preempted = int(sm.DECODE_PREEMPTIONS.value - pre0)
+        if preempted < 1:
+            fail("the 4-horizon pool never preempted")
+        for i, (a, b) in enumerate(zip(tight, outs)):
+            if not np.array_equal(a, b):
+                fail(f"request {i}: tokens after preemption differ from the first run")
+        log(f"# serving gates: 32 answered; 8 solo = batched; 4-horizon pool preempted "
+            f"{preempted} times in {time.perf_counter() - t2:.2f} s and matched all 32; "
+            f"launches {launches} over {steps}")
+    finally:
+        srv.stop(drain=False, timeout=60)
+    return {
+        "launches": launches, "steps": steps, "wall_s": wall,
+        "tokens_per_s": 32 * 64 / wall, "ttft_s": ttft,
+        "latency_s": {"p50": float(np.percentile(lat, 50)), "p99": float(np.percentile(lat, 99))},
+        "cfg": cfg, "params": params, "prompts": prompts,
+    }
+
+
+def step_inputs(cfg, params, prompts, dev):
+    """A 16-slot decode step's state: each prompt prefilled (kernel path)
+    into its own pages of a fresh pool; returns (pool, step args)."""
+    import numpy as np
+    from tensorframes_tpu_torch.models import generation as gen
+
+    page, maxp = 16, 12
+    pool = gen.init_paged_kv(cfg, 1 + 16 * maxp, page, device=dev)
+    prefill = gen.paged_prefill_fn(cfg, page, maxp)
+    tokens, pos = np.zeros(16, np.int32), np.zeros(16, np.int32)
+    tables = np.arange(1, 1 + 16 * maxp, dtype=np.int32).reshape(16, maxp)
+    for i, p in enumerate(prompts[:16]):
+        bucket = next(b for b in (8, 16, 32, 64, 128) if b >= len(p))
+        padded = np.zeros(bucket, np.int32)
+        padded[:len(p)] = p
+        _, first = prefill(params, pool, padded, len(p), tables[i])
+        tokens[i], pos[i] = int(first), len(p)
+    return pool, (tokens, pos, tables)
+
+
+STEP_LOGITS_RTOL = 2e-2  # of max |logit|: ~3x the gap of sound runs (PERF.md)
+
+
+def broken_plain_paths():
+    """Deliberately wrong plain paths, for showing that the step-logits
+    gate sees a wrong kernel: attention without the V scale, attention
+    that misses each slot's newest position, and a weight product whose k
+    loop drops its last 16-row tile."""
+    import torch
+    from tensorframes_tpu_torch.kernels.decode_attention import paged_attention_reference as ref
+    from tensorframes_tpu_torch.ops import quantize as tq
+
+    def no_v_scale(q, kp, vp, ks, vs, layer, tables, pos):
+        return ref(q, kp, vp, ks, torch.ones_like(vs), layer, tables, pos)
+
+    def misses_newest(q, kp, vp, ks, vs, layer, tables, pos):
+        return ref(q, kp, vp, ks, vs, layer, tables, (pos - 1).clamp(min=0))
+
+    def short_k(x, w):
+        if not isinstance(w, tq.QuantizedTensor):
+            return tq.matmul_plain(x, w)
+        cut = tq.QuantizedTensor(w.q[:-16], w.scale)
+        return tq.matmul_int8_plain(x[..., :-16], cut)
+
+    return {"attention without v_scale": ("paged_attention_reference", no_v_scale),
+            "attention missing the newest position": ("paged_attention_reference",
+                                                      misses_newest),
+            "matmul dropping its last k tile": ("matmul_plain", short_k)}
+
+
+def check_step_logits(path, dev) -> dict:
+    """One 16-slot decode step's logits, kernel path against plain path
+    on copies of the same pool, within ``STEP_LOGITS_RTOL``·max|ref|: the
+    two paths sum in f32 in other orders inside the two kernels, so a bf16
+    activation may round to its neighbour and the difference grows through
+    12 layers. Each broken plain path must land outside that tolerance."""
+    import torch
+    from tensorframes_tpu_torch.models import generation as gen
+
+    cfg, params = path["cfg"], path["params"]
+    pool, args = step_inputs(cfg, params, path["prompts"], dev)
+    snap = {k: v.clone() for k, v in pool.items()}
+
+    def plain_step(**patch):
+        saved = {name: getattr(gen, name) for name in patch}
+        for name, fn in patch.items():
+            setattr(gen, name, fn)
+        try:
+            twin = {k: v.clone() for k, v in snap.items()}
+            return gen.paged_decode_step_fn(cfg, 16, 12, plain=True)(
+                params, twin, *args, return_logits=True)[1:]
+        finally:
+            for name, fn in saved.items():
+                setattr(gen, name, fn)
+
+    _, nk, lk = gen.paged_decode_step_fn(cfg, 16, 12, logits_rows=16)(
+        params, pool, *args, return_logits=True)
+    npl, lp = plain_step()
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(lk).all()) or lk.shape != (16, cfg.vocab_size):
+        fail(f"decode-step logits not finite or of shape {tuple(lk.shape)}")
+    diff = float((lk - lp).abs().max())
+    tol = STEP_LOGITS_RTOL * float(lp.abs().max())
+    broken = {what: float((plain_step(**{name: fn})[1] - lp).abs().max())
+              for what, (name, fn) in broken_plain_paths().items()}
+    agree = int((nk == npl).sum())
+    log(f"# decode-step logits, kernel vs plain path: max |diff| {diff:.6g} "
+        f"(tolerance {tol:.6g}, max |logit| {float(lp.abs().max()):.6g}); "
+        f"greedy tokens agree on {agree}/16 slots (reported, not gated); broken plain "
+        f"paths off the plain path by " + ", ".join(f"{k} {v:.6g}" for k, v in broken.items()))
+    if diff > tol:
+        fail(f"decode-step logits: kernel path off the plain path by {diff} (tolerance {tol})")
+    for what, gap in broken.items():
+        if gap <= tol:
+            fail(f"the step-logits gate cannot see a broken path ({what}: {gap} <= {tol})")
+    return {"pool": pool, "args": args}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: where the time goes
 # ---------------------------------------------------------------------------
@@ -440,6 +790,33 @@ def where_the_time_goes(tft, dev) -> None:
             log(f"#   {ms:9.3f} ms  {name[:80]}")
 
 
+def decode_step_profile(path, state) -> float:
+    """A 16-slot decode step of the serving path (the step plus its one
+    host sync, as the engine runs it): host wall per step with and without
+    the profiler, the device's busy share, and the biggest device items.
+    Returns the unprofiled host ms."""
+    from tensorframes_tpu_torch.models import generation as gen
+
+    step = gen.paged_decode_step_fn(path["cfg"], 16, 12, logits_rows=16)
+
+    def one():
+        return step(path["params"], state["pool"], *state["args"])[1].cpu()
+
+    wall, device = device_profile(one, reps=5)
+    busy = sum(device.values())
+    t0 = time.perf_counter()
+    for _ in range(20):
+        one()
+    plain_wall = (time.perf_counter() - t0) / 20 * 1e3
+    log(f"# profile decode step, gpt_small, 16 slots: {wall:.3f} ms per step on the host "
+        f"clock under the profiler ({plain_wall:.3f} ms without it), device busy "
+        f"{busy:.3f} ms ({100 * busy / wall:.1f}% of the profiled step, "
+        f"{100 * busy / plain_wall:.1f}% of the unprofiled one)")
+    for name, ms in sorted(device.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"#   {ms:9.3f} ms  {name[:80]}")
+    return plain_wall
+
+
 def gpu_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -473,6 +850,8 @@ def main() -> int:
         "segment_reduce": check_segment_reduce(dev, 10_000_000, 4096),
         "segment_sum": check_segment_sum(dev, 10_000_000, 4096),
         "ragged_gather": check_ragged_gather(dev, 200_000),
+        "decode_attention": check_decode_attention(dev),
+        "int8_matmul": check_int8_matmul(dev),
     }
     for name, r in results.items():
         log(f"# kernel {name}: {json.dumps(r)}")
@@ -483,18 +862,32 @@ def main() -> int:
     for name, r in sorted(path["verbs"].items()):
         log(f"# verb {name}: {r['rows_per_s']:.0f} rows/s ({r['rows']} rows, "
             f"{r['calls']} calls, {r['seconds']:.4f} s)")
-    missing = [k for k, n in path["launches"].items() if n <= 0]
+    missing = [k for k in SLICE1_KERNELS if path["launches"][k] <= 0]
     if missing:
-        fail(f"kernels never launched on the main path: {missing}")
+        fail(f"kernels never launched on the verbs' path: {missing}")
+
+    t2 = time.perf_counter()
+    serving = serving_path(tft, dev)
+    log(f"# serving path: {time.perf_counter() - t2:.1f} s")
+    missing = [k for k in SERVING_KERNELS if serving["launches"][k] <= 0]
+    if missing:
+        fail(f"kernels never launched on the decode server's path: {missing}")
+    state = check_step_logits(serving, dev)
 
     where_the_time_goes(tft, dev)
+    step_ms = decode_step_profile(serving, state)
+    log(f"# serving gpt_small: {serving['tokens_per_s']:.1f} generated tokens/s (32 requests "
+        f"x 64 tokens in {serving['wall_s']:.3f} s); TTFT p50 {serving['ttft_s']['p50']:.4f} s, "
+        f"p99 {serving['ttft_s']['p99']:.4f} s (each request's own); request latency "
+        f"p50 {serving['latency_s']['p50']:.4f} s, p99 {serving['latency_s']['p99']:.4f} s; "
+        f"decode step {step_ms:.3f} ms at 16 slots; steps {serving['steps']}")
 
     kernels = []
     for name, info in tft.kernels.KERNELS.items():
+        launches = (path if name in SLICE1_KERNELS else serving)["launches"][name]
         kernels.append({
             "name": name, "route": "cuda", "source": info.source,
-            "replaces": info.replaces, "launches": path["launches"][name],
-            **results[name],
+            "replaces": info.replaces, "launches": launches, **results[name],
         })
     log(json.dumps({"kernels": kernels}))
     log(gpu_line())

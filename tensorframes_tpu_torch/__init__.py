@@ -5,12 +5,15 @@ The port of ``tensorframes_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA
 H100: attach numeric programs to the columns of a block-partitioned frame
 through five verbs — ``map_rows``, ``map_blocks`` (± trimmed),
 ``reduce_rows``, ``reduce_blocks``, keyed ``aggregate`` — plus schema
-tooling (``analyze``, ``append_shape``, ``print_schema``).
+tooling (``analyze``, ``append_shape``, ``print_schema``), and serve a
+causal transformer through a decode server (:class:`Server`,
+:class:`DecodeEngine`: continuous batching over a paged int8 KV pool).
 
 Frames are host-resident; verbs run each block on one device, the GPU
 unless the caller asks for the CPU (``device="cpu"`` on a verb, or
 ``configure(device="cpu")``). The keyed segment reductions and the ragged
-row gather run as hand-written CUDA kernels (:mod:`.kernels`). This
+row gather, the paged decode attention and the int8-weight matmul run as
+hand-written CUDA kernels (:mod:`.kernels`). This
 package imports nothing of ``tensorframes_tpu`` and no JAX.
 """
 
@@ -66,6 +69,7 @@ from .ops.verbs import (  # noqa: F401
 )
 from .utils import profiling  # noqa: F401
 from . import observability  # noqa: F401
+from .serving import DecodeConfig, DecodeEngine, Server, ServingConfig  # noqa: F401
 
 __version__ = "0.1.0"
 
@@ -94,6 +98,11 @@ __all__ = [
     "kernels",
     "profiling",
     "observability",
+    # serving
+    "Server",
+    "ServingConfig",
+    "DecodeConfig",
+    "DecodeEngine",
     # dsl / placeholder helpers
     "Node",
     "block",

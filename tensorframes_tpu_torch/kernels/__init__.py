@@ -1,6 +1,7 @@
-"""Hand-written CUDA kernels for Hopper (``sm_90a``) on the verbs' path.
+"""Hand-written CUDA kernels for Hopper (``sm_90a``).
 
-Each kernel replaces one Pallas TPU kernel of the reference package:
+Each kernel replaces one Pallas TPU kernel of the reference package. On
+the verbs' path:
 
 * ``segment_reduce`` (:mod:`.segment_reduce`) — every (column, op) of a
   keyed ``aggregate`` in one launch pair: sum/mean (f32 or exact i32
@@ -11,13 +12,21 @@ Each kernel replaces one Pallas TPU kernel of the reference package:
 * ``ragged_gather`` (:mod:`.ragged_gather`) — device-side staging of
   ragged ``map_rows`` rows out of one flat buffer.
 
+On the decode server's path:
+
+* ``decode_attention`` (:mod:`.decode_attention`) — one layer's paged
+  int8-KV attention for every running slot;
+* ``int8_matmul`` (:func:`tensorframes_tpu_torch.ops.quantize.matmul_int8`)
+  — ``x @`` an int8 per-output-channel weight, every weight product of
+  the quantized model.
+
 The sources live in ``tensorframes_tpu_torch/csrc/``. They compile with
-``nvcc`` into one shared library with a plain C interface, on first use,
-under ``build/torch_kernels/`` beside the package (one ``nvcc -c`` per
-source, all started together, then one link), and load through
-``ctypes``. Every C entry point launches on the caller's stream, allocates
-nothing, and returns ``cudaGetLastError()``; the Python wrappers check
-device, dtype, shape and contiguity first and raise on a nonzero return.
+one ``nvcc`` call into one shared library with a plain C interface, on
+first use, under ``build/torch_kernels/`` beside the package, and load
+through ``ctypes``. Every C entry point launches on the caller's stream,
+allocates nothing, and returns ``cudaGetLastError()``; the Python
+wrappers check device, dtype, shape and contiguity first and raise on a
+nonzero return.
 Nothing here falls back: a build or launch failure raises.
 
 On CPU tensors each wrapper computes its plain PyTorch version instead —
@@ -43,7 +52,7 @@ from ..observability.metrics import counter as _counter
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-_SOURCES = ("segment_reduce.cu", "ragged_gather.cu")
+_SOURCES = ("segment_reduce.cu", "ragged_gather.cu", "decode_attention.cu", "int8_matmul.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -77,6 +86,18 @@ KERNELS: Dict[str, KernelInfo] = {
             "tensorframes_tpu_torch/csrc/ragged_gather.cu",
             "tensorframes_tpu/kernels/ragged_gather.py:80",
             "tensorframes_tpu_torch.kernels.ragged_gather.ragged_gather_rows",
+        ),
+        KernelInfo(
+            "decode_attention",
+            "tensorframes_tpu_torch/csrc/decode_attention.cu",
+            "tensorframes_tpu/kernels/decode_attention.py:39",
+            "tensorframes_tpu_torch.kernels.decode_attention.paged_decode_attention",
+        ),
+        KernelInfo(
+            "int8_matmul",
+            "tensorframes_tpu_torch/csrc/int8_matmul.cu",
+            "tensorframes_tpu/ops/quantize.py:130",
+            "tensorframes_tpu_torch.ops.quantize.matmul_int8",
         ),
     )
 }
@@ -132,16 +153,11 @@ def _nvcc() -> str:
     )
 
 
-def _run(*cmd) -> subprocess.Popen:
-    return subprocess.Popen(
-        [str(c) for c in cmd], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-    )
-
-
 def _build() -> Path:
-    """Compile the sources (one ``nvcc`` each, started together, so the
-    build time is the slowest source's as sources are added) and link one
-    shared library; reuse it while the sources and flags are unchanged."""
+    """Compile every source into one shared library with a single
+    ``nvcc`` call (it builds the translation units and links them), then
+    move it into place; reuse it while the sources and flags are
+    unchanged. The compiler's output goes to :data:`BUILD_LOG`."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in _SOURCES:
         h.update((CSRC / s).read_bytes())
@@ -149,20 +165,13 @@ def _build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc, tmp = _nvcc(), so.with_suffix(f".{os.getpid()}.tmp")
-    objs = [tmp.with_name(f"{Path(s).stem}-{os.getpid()}.o") for s in _SOURCES]
-    steps = [(f"nvcc {s}", _run(nvcc, *NVCC_FLAGS, "-c", CSRC / s, "-o", o))
-             for s, o in zip(_SOURCES, objs)]
-    steps = [(what, p, p.communicate()[0]) for what, p in steps]
-    if all(p.returncode == 0 for _, p, _ in steps):
-        link = _run(nvcc, *NVCC_FLAGS[:2], "-shared", *objs, "-o", tmp)
-        steps.append(("link", link, link.communicate()[0]))
-    BUILD_LOG.write_text("\n".join(f"== {w} (rc {p.returncode})\n{out}" for w, p, out in steps))
-    for o in objs:
-        o.unlink(missing_ok=True)
-    failed = [(w, out) for w, p, out in steps if p.returncode != 0]
-    if failed:
-        raise RuntimeError(f"{failed[0][0]} failed:\n{failed[0][1]}")
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-shared", *(str(CSRC / s) for s in _SOURCES), "-o", str(tmp)]
+    res = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    BUILD_LOG.write_text(f"== {' '.join(cmd)} (rc {res.returncode})\n{res.stdout}")
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed (rc {res.returncode}):\n{res.stdout}")
     os.replace(tmp, so)
     return so
 
@@ -185,8 +194,14 @@ def library() -> ctypes.CDLL:
             lib.tft_ragged_gather.argtypes = [
                 vp, i64, vp, i32, i32, i32, vp, i32, vp,
             ]
+            lib.tft_paged_decode_attention.argtypes = [
+                vp, vp, vp, vp, vp, vp, vp, vp,
+                i32, i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, i32, i32, vp,
+            ]
+            lib.tft_int8_matmul.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, vp]
             for f in (lib.tft_segment_reduce, lib.tft_segment_sum,
-                      lib.tft_ragged_gather):
+                      lib.tft_ragged_gather, lib.tft_paged_decode_attention,
+                      lib.tft_int8_matmul):
                 f.restype = ctypes.c_int
             lib.tft_error_string.argtypes = [ctypes.c_int]
             lib.tft_error_string.restype = ctypes.c_char_p

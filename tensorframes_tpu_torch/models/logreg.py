@@ -14,27 +14,32 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from ..config import resolve_device
+
 
 def init_params(
     num_features: int = 784,
     num_classes: int = 10,
     seed: int = 0,
     dtype=torch.float32,
-    device="cpu",
+    device=None,
 ) -> Dict[str, torch.Tensor]:
-    """Random weights from ``seed`` (a ``torch.Generator``: the numbers
+    """Random weights from ``seed`` on ``device`` (default
+    ``config.device``), drawn from a ``torch.Generator``: the numbers
     differ from the reference's ``jax.random`` draw; carry the reference's
-    weights across with :func:`params_from_jax` to score identically)."""
+    weights across with :func:`params_from_jax` to score identically."""
+    device = resolve_device(device)
     g = torch.Generator().manual_seed(seed)
     w = torch.randn((num_features, num_classes), generator=g, dtype=dtype) * 0.01
     b = torch.zeros((num_classes,), dtype=dtype)
     return {"w": w.to(device), "b": b.to(device)}
 
 
-def params_from_jax(params: Dict[str, np.ndarray], device="cpu") -> Dict[str, torch.Tensor]:
+def params_from_jax(params: Dict[str, np.ndarray], device=None) -> Dict[str, torch.Tensor]:
     """The reference package's logreg parameters (as numpy arrays) as the
     port's: the layouts are the same (``w [features, classes]``,
-    ``b [classes]``), so this is a checked copy onto ``device``."""
+    ``b [classes]``), so this is a checked copy onto ``device`` (default
+    ``config.device``)."""
     if set(params) != {"w", "b"}:
         raise ValueError(f"logreg params need keys 'w' and 'b', got {sorted(params)}")
     w, b = np.asarray(params["w"]), np.asarray(params["b"])
@@ -48,6 +53,7 @@ def params_from_jax(params: Dict[str, np.ndarray], device="cpu") -> Dict[str, to
             f"logreg params need matching float32/float64 dtypes; got "
             f"w {w.dtype}, b {b.dtype}"
         )
+    device = resolve_device(device)
     return {"w": torch.tensor(w, device=device), "b": torch.tensor(b, device=device)}
 
 

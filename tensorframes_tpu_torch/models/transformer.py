@@ -1,0 +1,205 @@
+"""A compact transformer encoder/decoder stack, as plain dicts of tensors.
+
+The reference package's flagship model (``models/transformer.py``), in
+its serving subset: the config, parameter initialisation, the forward
+pass with dense attention, weight-only int8 quantization, and
+:func:`params_from_jax`, which carries a reference parameter tree across
+so both packages run the same weights. Parameters keep the reference's
+names and layouts (``embed.tok [vocab, h]``, ``layers[i].attn.qkv
+[h, 3h]``, ...); activations run in ``cfg.dtype`` (bf16 by default) and
+the parameters stay f32 unless quantized.
+
+Training, sharding and the ``embed_*`` programs wait for the models
+slice (ROADMAP queue 1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..config import resolve_device
+from ..ops.quantize import QuantizedTensor, matmul as _mm, quantize_tree
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    vocab_size: int = 32_000
+    hidden: int = 768
+    num_heads: int = 12
+    num_layers: int = 12
+    mlp_ratio: int = 4
+    max_seq_len: int = 512
+    dtype: Any = torch.bfloat16  # activations/compute; params stay f32
+    # the port runs 'dense' only; the reference's 'blockwise' | 'flash' |
+    # 'ring' | 'ulysses' wait for the models and multi-device slices
+    attention_impl: str = "dense"
+    causal: bool = False
+    remat: bool = False
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden // self.num_heads
+
+    @property
+    def mlp_hidden(self) -> int:
+        return self.hidden * self.mlp_ratio
+
+
+def bert_base(**kw) -> TransformerConfig:
+    """BERT-base geometry (12L/768H/12 heads)."""
+    return TransformerConfig(vocab_size=30_522, **kw)
+
+
+def tiny(**kw) -> TransformerConfig:
+    """A tiny config for tests and CPU dry-runs."""
+    return TransformerConfig(
+        vocab_size=128, hidden=32, num_heads=4, num_layers=2, max_seq_len=16, **kw
+    )
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: TransformerConfig, seed: int = 0, device=None) -> Dict:
+    """The f32 parameter tree on ``device`` (default ``config.device``),
+    drawn from a ``torch.Generator`` seeded with ``seed`` (the numbers
+    differ from the reference's ``jax.random`` draw; carry the reference's
+    weights across with :func:`params_from_jax`). Same scales as the
+    reference: embeddings N(0, 0.02²), dense weights N(0, 1/fan_in), norms
+    1/0, biases 0."""
+    device = resolve_device(device)
+    g = torch.Generator().manual_seed(int(seed))
+    h, m = cfg.hidden, cfg.mlp_hidden
+
+    def dense(shape, scale=None):
+        scale = float(scale if scale is not None else 1.0 / np.sqrt(shape[0]))
+        return (torch.randn(shape, generator=g, dtype=torch.float32) * scale).to(device)
+
+    def ones(n):
+        return torch.ones((n,), dtype=torch.float32, device=device)
+
+    def zeros(n):
+        return torch.zeros((n,), dtype=torch.float32, device=device)
+
+    params = {
+        "embed": {
+            "tok": dense((cfg.vocab_size, h), 0.02),
+            "pos": dense((cfg.max_seq_len, h), 0.02),
+        },
+        "final_ln": {"scale": ones(h), "bias": zeros(h)},
+        "layers": [],
+    }
+    for _ in range(cfg.num_layers):
+        params["layers"].append({
+            "ln1": {"scale": ones(h), "bias": zeros(h)},
+            "ln2": {"scale": ones(h), "bias": zeros(h)},
+            "attn": {"qkv": dense((h, 3 * h)), "out": dense((h, h))},
+            "mlp": {
+                "in": dense((h, m)),
+                "in_bias": zeros(m),
+                "out": dense((m, h)),
+                "out_bias": zeros(h),
+            },
+        })
+    return params
+
+
+def params_from_jax(tree, device=None):
+    """A reference parameter tree, its arrays already converted to numpy
+    (``jax.tree_util.tree_map(np.asarray, ...)`` with quantized leaves
+    kept whole), as the port's: the same nesting of dicts and lists, each
+    array a tensor on ``device`` (default ``config.device``), and each
+    quantized leaf (any object with ``q`` and ``scale``) a
+    :class:`QuantizedTensor` with its int8 values and f32 scales copied
+    exactly."""
+    return _from_numpy(tree, resolve_device(device))
+
+
+def _from_numpy(tree, device):
+    if isinstance(tree, dict):
+        return {k: _from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_from_numpy(v, device) for v in tree)
+    if hasattr(tree, "q") and hasattr(tree, "scale"):
+        q, scale = np.asarray(tree.q), np.asarray(tree.scale)
+        if q.dtype != np.int8 or scale.dtype != np.float32:
+            raise ValueError(
+                f"quantized leaf needs int8 q and float32 scale, got {q.dtype}/{scale.dtype}"
+            )
+        return QuantizedTensor(torch.tensor(q, device=device), torch.tensor(scale, device=device))
+    arr = np.asarray(tree)
+    if arr.dtype == np.float64:
+        raise ValueError("float64 parameter: the model's parameters are float32")
+    return torch.tensor(arr, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def _layer_norm(x, scale, bias, eps=1e-6):
+    """LayerNorm in f32 with the population variance and eps 1e-6, cast
+    back to ``x.dtype``. ``F.layer_norm`` computes each row's moments on
+    its own, so a row's result does not depend on the rows beside it
+    (the decode engine's batched-equals-solo contract needs that; a
+    ``mean``/``var`` reduction over a batch picks its thread split from
+    the batch size on the card)."""
+    y = F.layer_norm(x.float(), (x.shape[-1],), scale.float(), bias.float(), eps)
+    return y.to(x.dtype)
+
+
+def _attention(cfg: TransformerConfig, p, x, mask):
+    from ..ops.attention import dense_attention
+
+    b, s, h = x.shape
+    if cfg.attention_impl != "dense":
+        raise NotImplementedError(
+            f"attention_impl={cfg.attention_impl!r} is not ported yet: the port runs "
+            "'dense' only (ROADMAP queue 2 item 6, flash attention with the models "
+            "slice; ring/ulysses with the multi-device work, queue 1 item 6)"
+        )
+    qkv = _mm(x, p["qkv"]).reshape(b, s, 3, cfg.num_heads, cfg.head_dim)
+    q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+    ctx = dense_attention(q, k, v, causal=cfg.causal, padding_mask=mask)
+    ctx = ctx.permute(0, 2, 1, 3).reshape(b, s, h)
+    return _mm(ctx, p["out"])
+
+
+def _mlp(p, x, mm=_mm):
+    """The MLP block; ``mm`` is the weight product (the decode step's
+    plain path passes the int8 kernel's plain version)."""
+    y = mm(x, p["in"]) + p["in_bias"].to(x.dtype)
+    y = F.gelu(y, approximate="tanh")  # jax.nn.gelu's default
+    return mm(y, p["out"]) + p["out_bias"].to(x.dtype)
+
+
+def forward(
+    cfg: TransformerConfig,
+    params: Dict,
+    tokens: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Encoder forward: int tokens ``[b, s]`` → hidden states ``[b, s, h]``
+    in ``cfg.dtype``. ``mask`` (bool ``[b, s]``) is the padding mask."""
+    tokens = torch.as_tensor(tokens, device=params["embed"]["tok"].device).long()
+    x = params["embed"]["tok"][tokens].to(cfg.dtype)
+    s = tokens.shape[1]
+    x = x + params["embed"]["pos"][:s].to(cfg.dtype)
+    for p in params["layers"]:
+        x = x + _attention(cfg, p["attn"], _layer_norm(x, **p["ln1"]), mask)
+        x = x + _mlp(p["mlp"], _layer_norm(x, **p["ln2"]))
+    return _layer_norm(x, **params["final_ln"])
+
+
+def quantize_params(params: Dict) -> Dict:
+    """Weight-only int8 quantization of the layer weights (attn qkv/out,
+    mlp in/out). Embeddings, norms and biases stay full precision: they
+    are gathered or broadcast, not multiplied, so quantizing them saves
+    little and costs accuracy."""
+    return quantize_tree(params, predicate=lambda path, _: "embed" not in path)

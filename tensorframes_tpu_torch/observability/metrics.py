@@ -1,4 +1,5 @@
-"""Process-wide metrics registry: counters and fixed-bucket histograms.
+"""Process-wide metrics registry: counters, gauges and fixed-bucket
+histograms.
 
 The numbers side of the observability subsystem: every instrumented layer
 (the executor's dispatch cache, the kernels' launch counts) registers its
@@ -20,11 +21,13 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 __all__ = [
     "Counter",
+    "Gauge",
     "Histogram",
     "MetricsRegistry",
     "REGISTRY",
     "DEFAULT_BUCKETS",
     "counter",
+    "gauge",
     "histogram",
 ]
 
@@ -74,6 +77,39 @@ class Counter(_Metric):
             raise ValueError(f"counter {self.name} cannot decrease (inc {n})")
         with self._lock:
             self._value += n
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._value
+
+    def _zero(self) -> None:
+        self._value = 0.0
+
+    def _json_value(self):
+        return {"value": self._value}
+
+
+class Gauge(_Metric):
+    """Point-in-time level (queue depth, free KV pages, running slots)."""
+
+    kind = "gauge"
+
+    def __init__(self, name, help, labels, lock):
+        super().__init__(name, help, labels, lock)
+        self._value = 0.0
+
+    def set(self, v: float) -> None:
+        with self._lock:
+            self._value = float(v)
+
+    def inc(self, n: float = 1.0) -> None:
+        with self._lock:
+            self._value += n
+
+    def dec(self, n: float = 1.0) -> None:
+        with self._lock:
+            self._value -= n
 
     @property
     def value(self) -> float:
@@ -138,6 +174,33 @@ class Histogram(_Metric):
             out.append((float("inf"), self._count))
             return out
 
+    def quantile(self, q: float) -> Optional[float]:
+        """Estimate the ``q``-quantile (0 < q < 1) by linear interpolation
+        inside the bucket that holds it (Prometheus's
+        ``histogram_quantile``); the +Inf bucket clamps to the largest
+        finite bound. None when empty."""
+        if not (0.0 < q < 1.0):
+            raise ValueError(f"quantile q must be in (0, 1), got {q}")
+        cum = self.cumulative()
+        total = cum[-1][1]
+        if total == 0:
+            return None
+        rank = q * total
+        lo_bound, lo_count = 0.0, 0
+        for bound, count in cum:
+            if count >= rank:
+                if bound == float("inf"):
+                    return lo_bound
+                if count == lo_count:
+                    return bound
+                return lo_bound + (bound - lo_bound) * ((rank - lo_count) / (count - lo_count))
+            lo_bound, lo_count = bound, count
+        return lo_bound
+
+    def quantiles(self, qs: Sequence[float] = (0.5, 0.95, 0.99)) -> Dict[str, Optional[float]]:
+        """``{"p50": ..., "p95": ..., "p99": ...}`` via :meth:`quantile`."""
+        return {f"p{int(q * 100)}": self.quantile(q) for q in qs}
+
     def _zero(self) -> None:
         self._counts = [0] * (len(self.buckets) + 1)
         self._sum = 0.0
@@ -186,6 +249,10 @@ class MetricsRegistry:
                 labels: Optional[Mapping[str, str]] = None) -> Counter:
         return self._get_or_create(Counter, name, help, labels)
 
+    def gauge(self, name: str, help: str = "",
+              labels: Optional[Mapping[str, str]] = None) -> Gauge:
+        return self._get_or_create(Gauge, name, help, labels)
+
     def histogram(self, name: str, help: str = "",
                   labels: Optional[Mapping[str, str]] = None,
                   buckets: Sequence[float] = DEFAULT_BUCKETS) -> Histogram:
@@ -220,6 +287,12 @@ def counter(name: str, help: str = "",
             labels: Optional[Mapping[str, str]] = None) -> Counter:
     """Get-or-create a counter on the default registry."""
     return REGISTRY.counter(name, help, labels)
+
+
+def gauge(name: str, help: str = "",
+          labels: Optional[Mapping[str, str]] = None) -> Gauge:
+    """Get-or-create a gauge on the default registry."""
+    return REGISTRY.gauge(name, help, labels)
 
 
 def histogram(name: str, help: str = "",

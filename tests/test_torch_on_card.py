@@ -10,7 +10,12 @@ them::
 Tolerances: exact for integer sums (i32 wraparound included), counts,
 min/max and the gather; float32 sums rtol 1e-5 / atol 1e-5·max|v|·√n for
 a segment of n rows, because the kernel sums in another order than the
-plain version, and means that atol over n; bfloat16 rtol 1e-2.
+plain version, and means that atol over n; bfloat16 rtol 1e-2. The int8
+matmul and the decode attention differ from their plain versions only in
+the order of f32 sums, so a bf16 output may land one bf16 step (2^-8
+relative) away: |got - want| <= 2^-7·|want| + 1e-3·max|want|; in f32,
+rtol 1e-5 / atol 1e-5·max|want|. Decode tokens are exact where both
+sides run the same code (batched against solo).
 """
 
 import numpy as np
@@ -20,6 +25,10 @@ import torch
 import tensorframes_tpu_torch as tft
 from tensorframes_tpu_torch.kernels import ragged_gather as krg
 from tensorframes_tpu_torch.kernels import segment_reduce as ksr
+from tensorframes_tpu_torch.kernels import decode_attention as kda
+from tensorframes_tpu_torch.models import generation as tgen
+from tensorframes_tpu_torch.models import transformer as ttr
+from tensorframes_tpu_torch.ops import quantize as tq
 from tensorframes_tpu_torch.ops import segment as tseg
 
 pytestmark = pytest.mark.cuda
@@ -167,4 +176,112 @@ def test_slice_on_card_launches_every_kernel(cuda_device):
         out = tft.map_rows(tft.reduce_sum(tft.placeholder(np.float64, (None,), name="r"),
                                           name="s"), rf, device=cuda_device)
     np.testing.assert_allclose(out.column_values("s"), [r["r"].sum() for r in rows], rtol=1e-12)
-    assert all(v > 0 for v in tft.kernels.LAUNCHES.snapshot().values())
+    launches = tft.kernels.LAUNCHES.snapshot()
+    assert all(launches[k] > 0 for k in ("segment_reduce", "segment_sum", "ragged_gather"))
+
+
+def _assert_kernel_close(got, want, dtype):
+    """The kernel/plain tolerance of the module docstring."""
+    got, want = got.double(), want.double()
+    scale = float(want.abs().max())
+    if dtype == torch.bfloat16:
+        tol = 2.0 ** -7 * want.abs() + 1e-3 * scale
+    else:
+        tol = 1e-5 * want.abs() + 1e-5 * scale
+    diff = (got - want).abs()
+    assert bool((diff <= tol).all()), float(diff.max())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", [(1, 768, 2304), (16, 768, 768), (128, 3072, 768),
+                                   (37, 100, 72), (5, 64, 30)])
+def test_int8_matmul_kernel_matches_plain_on_card(cuda_device, dtype, m, k, n):
+    """Ragged m, k and n (the kernel masks its own edges; n = 30 takes the
+    byte path for the weight tile)."""
+    rng = np.random.default_rng(m + k + n)
+    w = tq.quantize(torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)))
+    w = w.to(cuda_device)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(cuda_device, dtype)
+    tft.kernels.LAUNCHES.reset()
+    got = tq.matmul_int8(x, w)
+    assert tft.kernels.LAUNCHES.snapshot()["int8_matmul"] == 1
+    assert got.dtype == dtype and got.shape == (m, n)
+    _assert_kernel_close(got, tq.matmul_int8_plain(x, w), dtype)
+
+
+def test_int8_matmul_rows_do_not_depend_on_the_batch_on_card(cuda_device):
+    """A row's bits are the same alone and among 127 others."""
+    rng = np.random.default_rng(9)
+    w = tq.quantize(torch.from_numpy(rng.standard_normal((768, 3072)).astype(np.float32)))
+    w = w.to(cuda_device)
+    x = torch.from_numpy(rng.standard_normal((128, 768)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    full = tq.matmul_int8(x, w)
+    for r in (0, 7, 77, 127):
+        assert torch.equal(tq.matmul_int8(x[r:r + 1], w), full[r:r + 1]), r
+        assert torch.equal(tq.matmul_int8(x[r:r + 16], w)[0], full[r]), r
+
+
+def _paged_inputs(rng, S, P, L, nh, page, hd, maxp, device, dtype):
+    kp = torch.from_numpy(rng.integers(-127, 128, (P, L, nh, page, hd)).astype(np.int8))
+    vp = torch.from_numpy(rng.integers(-127, 128, (P, L, nh, page, hd)).astype(np.int8))
+    ks = torch.from_numpy(rng.uniform(0.001, 0.02, (P, L, nh, page, 1)).astype(np.float32))
+    vs = torch.from_numpy(rng.uniform(0.001, 0.02, (P, L, nh, page, 1)).astype(np.float32))
+    q = torch.from_numpy(rng.standard_normal((S, nh, hd)).astype(np.float32))
+    pos = rng.integers(0, maxp * page, S).astype(np.int32)
+    tables = np.zeros((S, maxp), np.int32)
+    for s in range(S):
+        n = pos[s] // page + 1
+        tables[s, :n] = rng.choice(np.arange(1, P), n, replace=False)
+    pos[-1], tables[-1] = 0, 0  # a padding slot: null table, position 0
+    return [t.to(device) for t in (q.to(dtype), kp, vp, ks, vs)] + [
+        torch.from_numpy(tables).to(device), torch.from_numpy(pos).to(device)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S,nh,page,hd,maxp", [(1, 12, 16, 64, 12), (16, 12, 16, 64, 12),
+                                               (5, 4, 8, 8, 6), (3, 2, 4, 128, 3)])
+def test_decode_attention_kernel_matches_plain_on_card(cuda_device, dtype, S, nh, page, hd,
+                                                       maxp):
+    rng = np.random.default_rng(S * 100 + hd)
+    q, kp, vp, ks, vs, tables, pos = _paged_inputs(rng, S, 40, 3, nh, page, hd, maxp,
+                                                   cuda_device, dtype)
+    tft.kernels.LAUNCHES.reset()
+    got = kda.paged_decode_attention(q, kp, vp, ks, vs, 1, tables, pos)
+    assert tft.kernels.LAUNCHES.snapshot()["decode_attention"] == 1
+    want = kda.paged_attention_reference(q, kp, vp, ks, vs, 1, tables, pos)
+    assert got.dtype == dtype and got.shape == q.shape
+    _assert_kernel_close(got, want, dtype)
+    # a slot's context is the same alone and in the batch
+    for s in range(S):
+        alone = kda.paged_decode_attention(q[s:s + 1], kp, vp, ks, vs, 1, tables[s:s + 1],
+                                           pos[s:s + 1])
+        assert torch.equal(alone[0], got[s]), s
+
+
+def test_decode_engine_on_card_batched_equals_solo(cuda_device):
+    """A small bf16 model through the engine on the card: every decode
+    step launches the attention kernel once per layer, every weight
+    product the int8 kernel, and batched tokens equal solo tokens."""
+    from tensorframes_tpu_torch.serving import DecodeConfig, DecodeEngine
+
+    cfg = tgen.gpt_small(num_layers=2, vocab_size=512, max_seq_len=128)
+    params = ttr.quantize_params(ttr.init_params(cfg, seed=0, device=cuda_device))
+    eng = DecodeEngine("card", cfg, params, DecodeConfig(
+        max_slots=4, page_size=16, max_prompt_len=32, max_new_tokens=16), device=cuda_device)
+    eng.start()
+    try:
+        rng = np.random.default_rng(1)
+        prompts = [rng.integers(0, 512, int(rng.integers(4, 33))).astype(np.int32)
+                   for _ in range(6)]
+        tft.kernels.LAUNCHES.reset()
+        futs = [eng.submit({"prompt": p}) for p in prompts]
+        batched = [f.result(300)["tokens"] for f in futs]
+        launches = tft.kernels.LAUNCHES.snapshot()
+        solo = [eng.call({"prompt": p}, timeout=300)["tokens"] for p in prompts]
+    finally:
+        eng.stop(drain=True, timeout=300)
+    assert launches["decode_attention"] > 0 and launches["int8_matmul"] > 0
+    assert launches["decode_attention"] % 2 == 0 and launches["int8_matmul"] % 8 == 0
+    for b, s in zip(batched, solo):
+        np.testing.assert_array_equal(b, s)

@@ -338,7 +338,7 @@ def test_aggregate_non_algebraic_is_not_ported():
 def test_logreg_scoring_with_params_from_jax():
     jparams = jlogreg.init_params(seed=3)
     np_params = {k: np.asarray(v) for k, v in jparams.items()}
-    tparams = tlogreg.params_from_jax(np_params)
+    tparams = tlogreg.params_from_jax(np_params, device="cpu")
     feats, _ = tlogreg.make_synthetic_mnist(2000, seed=5)
     jf, _ = jlogreg.make_synthetic_mnist(2000, seed=5)
     np.testing.assert_array_equal(feats, jf)
