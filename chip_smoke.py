@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke for tensorframes_tpu_torch: build the CUDA kernels, hold each
-against its plain PyTorch version on the card, then drive the five verbs
-and the decode server through the package's entry points at full size on
-one GPU.
+against its plain PyTorch version on the card, then drive the five verbs,
+the decode server and BERT-base embedding extraction through the
+package's entry points at full size on one GPU.
 
     python3 chip_smoke.py
 
@@ -25,7 +25,13 @@ is visible or when the package is not beside this script. Phases:
    ``torch.matmul`` on a pre-widened bf16 weight), and
    ``decode_attention`` at 1 and 16 slots over a 193-page pool (timed at
    16; library: ``scaled_dot_product_attention`` over pages already
-   gathered and dequantized, the gather not timed);
+   gathered and dequantized, the gather not timed); ``flash_attention``
+   at [1024, 12, 128, 64] bf16 (q/k/v the encoder's strided views of one
+   qkv tensor), [4, 8, 4096, 128] bf16 causal and [3, 4, 200, 64] f32
+   causal, within a tolerance that three deliberately broken plain
+   versions must exceed (timed at the first shape, the second logged;
+   library: ``scaled_dot_product_attention``); ``quantize.matmul`` under
+   ``torch.func.vmap`` must launch once and match the plain call's bits;
 2. the main path with every launch count reset first: add-3
    ``map_blocks`` over 20M float64 rows, ``reduce_blocks`` sum/min over
    ``double[?,2]`` (10M rows), ``map_rows`` on fixed and ragged cells,
@@ -42,11 +48,18 @@ is visible or when the package is not beside this script. Phases:
    step; one 16-slot step's logits, kernel path against plain path on the
    same pool, within a tolerance that three deliberately broken plain
    paths must exceed. Tokens/s, TTFT (each request's own, from its
-   future) and step time follow.
+   future) and step time follow. Then BERT-base embedding extraction with
+   flash attention (f32 weights from seed 0, 1,024 rows of 128 tokens):
+   ``map_rows`` and ``map_blocks`` must launch the flash kernel 12 times
+   per call, agree with each other and with dense attention through the
+   same verb, while an attention that drops the last key tile must not;
+   a 64-row ``map_rows`` over int8 weights must launch 48 int8 and 12
+   flash kernels. Rows/s per verb follow.
 3. where the time goes: ``torch.profiler`` device time by kernel for
    each segment kernel alone, for two verbs (aggregate, map_blocks) and
-   for a 16-slot decode step, with the device's busy share of each call's
-   host wall time;
+   for a 16-slot decode step and for one BERT-base ``map_rows`` call
+   (flash against the dense products and copies), with the device's busy
+   share of each call's host wall time;
 4. one JSON line listing every kernel, the card's name and power limit,
    and as the last line ``{"ok": true, "device": {...}}``.
 """
@@ -66,6 +79,7 @@ H100_BF16_FLOPS = 989e12    # dense bf16 tensor-core peak, H100 SXM data sheet
 SPIN_CYCLES = 100_000_000   # ~50 ms at the H100's ~2 GHz: longer than queuing 10 calls
 SLICE1_KERNELS = ("segment_reduce", "segment_sum", "ragged_gather")
 SERVING_KERNELS = ("decode_attention", "int8_matmul")
+ENCODER_KERNELS = ("flash_attention",)
 
 
 def log(msg: str) -> None:
@@ -402,6 +416,144 @@ def check_decode_attention(dev) -> dict:
     }
 
 
+FLASH_SHAPES = (  # (shape, dtype name, causal, q/k/v as views of one qkv tensor)
+    ((1024, 12, 128, 64), "bfloat16", False, True),  # BERT-base map_rows, as the encoder's
+    ((4, 8, 4096, 128), "bfloat16", True, False),    # the reference's attention bench
+    ((3, 4, 200, 64), "float32", True, False),       # tile edges: 200 = 3 x 64 + 8
+)
+FLASH_RTOL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
+
+
+def flash_inputs(dev, shape, dtype_name: str, strided: bool):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + shape[2])
+    b, h, s, d = shape
+    dtype = getattr(torch, dtype_name)
+    if strided:  # [b, s, 3, h, d] -> three [b, h, s, d] views, as the encoder's _attention
+        qkv = rng.standard_normal((b, s, 3, h, d), dtype=np.float32)
+        qkv = torch.from_numpy(qkv).to(dev, dtype)
+        return tuple(qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+    return tuple(torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
+                 for _ in range(3))
+
+
+def flash_ratio(got, ref, bound, dtype_name: str) -> float:
+    """max |got - ref| / (rtol * (|ref| + A)), A = the same attention over
+    |v|. The kernel differs from its plain version in the order of f32
+    sums and in taking p against the running max before rounding it to
+    v's dtype: each side's p rounds by at most half a step, so the two
+    outputs differ by at most a step of A (plus a step of |ref| where the
+    f32 sums round to neighbouring outputs). rtol 2^-7 is twice that in
+    bf16; in f32 1e-5 covers the summation order. <= 1 passes."""
+    got, ref = got.double(), ref.double()
+    tol = FLASH_RTOL[dtype_name] * (ref.abs() + bound.double())
+    return float(((got - ref).abs() / tol).max())
+
+
+def broken_flash_versions(ref, causal: bool) -> dict:
+    """Deliberately wrong plain versions, for showing that the flash gate
+    sees a wrong kernel: the scale dropped, the causal mask shifted by one
+    (each row also sees the next key), the last 64-key tile dropped."""
+    import torch.nn.functional as F
+
+    def last_tile_dropped(q, k, v, c, scale):
+        cut = (k.shape[2] - 1) // 64 * 64
+        return ref(q, k[:, :, :cut], v[:, :, :cut], c, scale)
+
+    out = {"scale dropped": lambda q, k, v, c, scale: ref(q, k, v, c, 1.0),
+           "last key tile dropped": last_tile_dropped}
+    if causal:  # row i of q, placed at row i + 1, sees keys 0..i+1
+        out["causal mask shifted by one"] = (
+            lambda q, k, v, c, scale: ref(F.pad(q, (0, 0, 1, 0)), k, v, c, scale)[:, :, 1:])
+    return out
+
+
+def check_flash_attention(dev) -> dict:
+    """The kernel against its plain version at the three shapes, with the
+    broken versions outside the same tolerance; timed at the main path's
+    shape (q/k/v the encoder's strided views), the bench shape logged. The
+    library call is ``scaled_dot_product_attention`` on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+    from tensorframes_tpu_torch.kernels import flash_attention as kfa
+
+    err, worst = 0.0, 0.0
+    for shape, dtype_name, causal, strided in FLASH_SHAPES:
+        q, k, v = flash_inputs(dev, shape, dtype_name, strided)
+        if strided and (q.is_contiguous() or q.stride(-1) != 1):
+            fail(f"flash_attention {shape}: the q/k/v views are not the encoder's strided ones")
+        scale = kfa.default_scale(shape[-1])
+        got = kfa.flash_attention(q, k, v, causal=causal)
+        ref = kfa.flash_attention_reference(q, k, v, causal, scale)
+        bound = kfa.flash_attention_reference(q, k, v.abs(), causal, scale)
+        torch.cuda.synchronize()
+        if got.shape != ref.shape or got.dtype != ref.dtype or not bool(torch.isfinite(got).all()):
+            fail(f"flash_attention {shape}: output {tuple(got.shape)} {got.dtype} or not finite")
+        ratio = flash_ratio(got, ref, bound, dtype_name)
+        broken = {what: flash_ratio(fn(q, k, v, causal, scale), ref, bound, dtype_name)
+                  for what, fn in broken_flash_versions(kfa.flash_attention_reference,
+                                                        causal).items()}
+        log(f"# flash_attention {shape} {dtype_name} causal={causal} q strides {q.stride()} "
+            f"(read in place, no copy): max |err| "
+            f"{float((got.double() - ref.double()).abs().max()):.6g}, {ratio:.4g} of the "
+            "tolerance; "
+            "broken versions at " + ", ".join(f"{w} {r:.4g}" for w, r in broken.items()))
+        if ratio > 1:
+            fail(f"flash_attention {shape}: kernel off its plain version by {ratio} of the "
+                 "tolerance")
+        for what, r in broken.items():
+            if r <= 1:
+                fail(f"the flash gate cannot see a broken version at {shape} ({what}: {r} <= 1)")
+        err, worst = max(err, float((got.double() - ref.double()).abs().max())), max(worst, ratio)
+        del got, ref, bound
+
+    def timing(shape, dtype_name, causal, strided):
+        q, k, v = flash_inputs(dev, shape, dtype_name, strided)
+        scale = kfa.default_scale(shape[-1])
+        b, h, s, d = shape
+        pairs = s * (s + 1) // 2 if causal else s * s  # the (row, key) pairs this data needs
+        return {
+            "ms": time_ms(lambda: kfa.flash_attention(q, k, v, causal=causal), f"flash {shape}"),
+            "plain_ms": time_ms(lambda: kfa.flash_attention_reference(q, k, v, causal, scale),
+                                f"flash plain {shape}"),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal),
+                                  f"flash library {shape}"),
+            **roofline(4 * q.numel() * q.element_size(), 4 * b * h * pairs * d),
+        }
+
+    bench = timing(*FLASH_SHAPES[1])
+    log(f"# flash_attention at the attention bench's {FLASH_SHAPES[1][0]} bf16 causal: "
+        f"{json.dumps(bench)}")
+    log(f"# flash_attention: the kernel used at most {worst:.4g} of the tolerance")
+    return {"max_abs_err": err, **timing(*FLASH_SHAPES[0])}
+
+
+def check_int8_vmap(dev) -> None:
+    """``torch.func.vmap`` of ``quantize.matmul`` over [64, 128, 768] bf16
+    rows with a quantized 768 x 2304 weight, as ``map_rows`` runs it: one
+    launch, the same bits as the un-vmapped call."""
+    import numpy as np
+    import torch
+    from tensorframes_tpu_torch import kernels
+    from tensorframes_tpu_torch.ops import quantize as tq
+
+    rng = np.random.default_rng(SEED)
+    w = tq.quantize(torch.from_numpy(
+        (rng.standard_normal((768, 2304)) / np.sqrt(768)).astype(np.float32)).to(dev))
+    x = torch.from_numpy(rng.standard_normal((64, 128, 768), dtype=np.float32)).to(
+        dev, torch.bfloat16)
+    kernels.LAUNCHES.reset()
+    with torch.inference_mode():
+        got = torch.func.vmap(lambda r: tq.matmul(r, w))(x)
+    launched = kernels.LAUNCHES.snapshot()["int8_matmul"]
+    if launched != 1 or not torch.equal(got, tq.matmul(x, w)):
+        fail(f"int8_matmul under vmap: {launched} launches, or bits differ from the plain call")
+    log("# int8_matmul under vmap over [64, 128, 768]: one launch, bit-equal to the "
+        "un-vmapped call")
+
+
 # ---------------------------------------------------------------------------
 # phase 2: the main path through the entry points
 # ---------------------------------------------------------------------------
@@ -624,6 +776,110 @@ def serving_path(tft, dev) -> dict:
     }
 
 
+EMB_RTOL = 2e-2  # of max |embedding|: ~3x the flash-vs-dense gap of a sound run (PERF.md)
+ENC_ROWS, ENC_SEQ = 1024, 128  # BASELINE config 5, as the reference's bench
+
+
+def embed_rows(tft, cfg, params, frame, dev, verb: str):
+    """One verb call of BERT-base embedding extraction on ``frame``:
+    ``map_rows`` over ``compile_program(embed_row_program, block=False)``
+    or ``map_blocks`` over ``compile_program(embed_program)``, compiled
+    (shape analysis) outside the timed call, as the reference's bench does.
+    Returns the [n, hidden] f32 embeddings and the verb call's host
+    seconds."""
+    from tensorframes_tpu_torch.models import transformer as tr
+
+    rows = verb == "map_rows"
+    fn = (tr.embed_row_program if rows else tr.embed_program)(cfg, params)
+    prog = tft.compile_program(fn, frame, block=not rows, device=dev)
+    t0 = time.perf_counter()
+    emb = getattr(tft, verb)(prog, frame, device=dev).column_values("embedding")
+    return emb, time.perf_counter() - t0
+
+
+def encoder_path(tft, dev) -> dict:
+    """BERT-base (12 layers, 768 wide, 12 heads, bf16 activations, f32
+    weights from seed 0) over 1,024 rows of 128 tokens through both verbs
+    with ``attention_impl="flash"``, counts reset just before and read
+    just after each call: 12 flash launches per call. Then the gates: the
+    two verbs agree, both agree with dense attention through the same
+    verb and a broken attention does not, and a 64-row ``map_rows`` over
+    int8 weights launches 48 int8 and 12 flash kernels."""
+    import dataclasses
+
+    import numpy as np
+    from tensorframes_tpu_torch.kernels import flash_attention as kfa
+    from tensorframes_tpu_torch.models import transformer as tr
+    from tensorframes_tpu_torch.ops import attention as att
+
+    cfg = tr.bert_base(attention_impl="flash")
+    params = tr.init_params(cfg, seed=SEED, device=dev)
+    tokens, _ = tr.synthetic_batch(cfg, ENC_ROWS, ENC_SEQ, seed=SEED)
+    frame = tft.frame_from_arrays({"tokens": tokens}, num_blocks=1)
+    embed_rows(tft, cfg, params, frame, dev, "map_blocks")  # warm-up (cuBLAS handles, pools)
+    emb, secs, launches = {}, {}, {}
+    for verb in ("map_rows", "map_blocks"):
+        tft.kernels.LAUNCHES.reset()
+        emb[verb], secs[verb] = embed_rows(tft, cfg, params, frame, dev, verb)
+        launches[verb] = tft.kernels.LAUNCHES.snapshot()
+        if launches[verb]["flash_attention"] != cfg.num_layers:
+            fail(f"{verb}: flash_attention launched {launches[verb]['flash_attention']} times "
+                 f"in one call (want {cfg.num_layers}, one per layer)")
+        e = emb[verb]
+        if e.shape != (ENC_ROWS, cfg.hidden) or e.dtype != np.float32 or not np.isfinite(e).all():
+            fail(f"{verb}: embeddings of shape {e.shape} / {e.dtype} or not finite")
+    rows_vs_blocks = float(np.abs(emb["map_rows"] - emb["map_blocks"]).max())
+
+    dense_cfg = dataclasses.replace(cfg, attention_impl="dense")
+    gaps = {}
+    for verb in ("map_rows", "map_blocks"):
+        dense, _ = embed_rows(tft, dense_cfg, params, frame, dev, verb)
+        gaps[verb] = (float(np.abs(emb[verb] - dense).max()), float(np.abs(dense).max()))
+    tol = EMB_RTOL * gaps["map_rows"][1]
+    saved = att.flash_attention
+    att.flash_attention = lambda q, k, v, causal=False, block_size=512: (
+        kfa.flash_attention_reference(q, k[:, :, :64], v[:, :, :64], causal,
+                                      kfa.default_scale(q.shape[-1])))
+    try:  # attention that drops the last 64-key tile, through map_rows
+        broken, _ = embed_rows(tft, cfg, params, frame, dev, "map_rows")
+    finally:
+        att.flash_attention = saved
+    broken_gap = float(np.abs(broken - emb["map_rows"]).max())
+    log(f"# encoder gates: map_rows vs map_blocks max |diff| {rows_vs_blocks:.6g}; flash vs "
+        f"dense max |diff| map_rows {gaps['map_rows'][0]:.6g}, map_blocks "
+        f"{gaps['map_blocks'][0]:.6g} (max |dense| {gaps['map_rows'][1]:.6g}, tolerance "
+        f"{tol:.6g}); attention dropping the last key tile off by {broken_gap:.6g}")
+    if rows_vs_blocks > tol:
+        fail(f"map_rows and map_blocks embeddings differ by {rows_vs_blocks} (tolerance {tol})")
+    for verb, (gap, _) in gaps.items():
+        if gap > tol:
+            fail(f"{verb}: flash embeddings off the dense ones by {gap} (tolerance {tol})")
+    if broken_gap <= tol:
+        fail(f"the embedding gate cannot see a broken attention ({broken_gap} <= {tol})")
+
+    qparams = tr.quantize_params(params)
+    small = tft.frame_from_arrays({"tokens": tokens[:64]}, num_blocks=1)
+    embed_rows(tft, cfg, qparams, small, dev, "map_rows")  # warm-up
+    tft.kernels.LAUNCHES.reset()
+    qemb, qsecs = embed_rows(tft, cfg, qparams, small, dev, "map_rows")
+    qlaunches = tft.kernels.LAUNCHES.snapshot()
+    if (qlaunches["int8_matmul"], qlaunches["flash_attention"]) != (4 * cfg.num_layers,
+                                                                      cfg.num_layers):
+        fail(f"int8 map_rows launched {qlaunches} in one call (want 48 int8_matmul, "
+             "12 flash_attention)")
+    qblocks, _ = embed_rows(tft, cfg, qparams, small, dev, "map_blocks")
+    qgap = float(np.abs(qemb - qblocks).max())
+    if not np.isfinite(qemb).all() or qgap > tol:
+        fail(f"int8 map_rows embeddings not finite or off map_blocks' by {qgap} (tolerance {tol})")
+    log(f"# encoder int8 leg: 64 rows through map_rows in {qsecs:.4f} s, launches {qlaunches}; "
+        f"map_rows vs map_blocks max |diff| {qgap:.6g}; max |diff| to the f32-weight embeddings "
+        f"{float(np.abs(qemb - emb['map_rows'][:64]).max()):.6g} (reported, not gated)")
+    total = {k: launches["map_rows"][k] + launches["map_blocks"][k] for k in launches["map_rows"]}
+    return {"launches": total, "seconds": secs,
+            "rows_per_s": {v: ENC_ROWS / t for v, t in secs.items()},
+            "cfg": cfg, "params": params, "frame": frame}
+
+
 def step_inputs(cfg, params, prompts, dev):
     """A 16-slot decode step's state: each prompt prefilled (kernel path)
     into its own pages of a fresh pool; returns (pool, step args)."""
@@ -817,6 +1073,36 @@ def decode_step_profile(path, state) -> float:
     return plain_wall
 
 
+def encoder_profile(tft, enc, dev) -> None:
+    """One BERT-base ``map_rows`` call (1,024 rows, flash): host wall per
+    call, the device's busy share, the biggest device items, and the
+    device time of flash against the dense products and any copies."""
+    def call():
+        return embed_rows(tft, enc["cfg"], enc["params"], enc["frame"], dev, "map_rows")[1]
+
+    wall, device = device_profile(call, reps=2)
+    plain_wall = sum(call() for _ in range(3)) / 3 * 1e3
+    busy = sum(device.values())
+    log(f"# profile map_rows BERT-base, 1,024 x 128 tokens, flash: {wall:.3f} ms per call on the "
+        f"host clock under the profiler ({plain_wall:.3f} ms without it), device busy "
+        f"{busy:.3f} ms ({100 * busy / wall:.1f}% of the profiled call, "
+        f"{100 * busy / plain_wall:.1f}% of the unprofiled one)")
+    groups = {"flash_attention": 0.0, "matmul (gemm)": 0.0, "copies": 0.0, "other": 0.0}
+    for name, ms in device.items():
+        low = name.lower()
+        if "flash_attention_fwd" in low:
+            groups["flash_attention"] += ms
+        elif any(w in low for w in ("gemm", "nvjet", "xmma", "cutlass")):
+            groups["matmul (gemm)"] += ms
+        elif "copy" in low or "memcpy" in low:
+            groups["copies"] += ms
+        else:
+            groups["other"] += ms
+    log("# profile map_rows by group: " + ", ".join(f"{k} {v:.3f} ms" for k, v in groups.items()))
+    for name, ms in sorted(device.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"#   {ms:9.3f} ms  {name[:80]}")
+
+
 def gpu_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -852,7 +1138,9 @@ def main() -> int:
         "ragged_gather": check_ragged_gather(dev, 200_000),
         "decode_attention": check_decode_attention(dev),
         "int8_matmul": check_int8_matmul(dev),
+        "flash_attention": check_flash_attention(dev),
     }
+    check_int8_vmap(dev)
     for name, r in results.items():
         log(f"# kernel {name}: {json.dumps(r)}")
 
@@ -874,8 +1162,19 @@ def main() -> int:
         fail(f"kernels never launched on the decode server's path: {missing}")
     state = check_step_logits(serving, dev)
 
+    t3 = time.perf_counter()
+    encoder = encoder_path(tft, dev)
+    log(f"# encoder path: {time.perf_counter() - t3:.1f} s")
+    missing = [k for k in ENCODER_KERNELS if encoder["launches"][k] <= 0]
+    if missing:
+        fail(f"kernels never launched on the encoder's path: {missing}")
+    for verb in ("map_rows", "map_blocks"):
+        log(f"# encoder BERT-base {verb}: {encoder['rows_per_s'][verb]:.1f} rows/s (1,024 rows "
+            f"x 128 tokens in {encoder['seconds'][verb]:.4f} s, flash attention)")
+
     where_the_time_goes(tft, dev)
     step_ms = decode_step_profile(serving, state)
+    encoder_profile(tft, encoder, dev)
     log(f"# serving gpt_small: {serving['tokens_per_s']:.1f} generated tokens/s (32 requests "
         f"x 64 tokens in {serving['wall_s']:.3f} s); TTFT p50 {serving['ttft_s']['p50']:.4f} s, "
         f"p99 {serving['ttft_s']['p99']:.4f} s (each request's own); request latency "
@@ -884,7 +1183,8 @@ def main() -> int:
 
     kernels = []
     for name, info in tft.kernels.KERNELS.items():
-        launches = (path if name in SLICE1_KERNELS else serving)["launches"][name]
+        source = path if name in SLICE1_KERNELS else encoder if name in ENCODER_KERNELS else serving
+        launches = source["launches"][name]
         kernels.append({
             "name": name, "route": "cuda", "source": info.source,
             "replaces": info.replaces, "launches": launches, **results[name],

@@ -20,6 +20,18 @@ On the decode server's path:
   — ``x @`` an int8 per-output-channel weight, every weight product of
   the quantized model.
 
+On the encoder's path (``attention_impl="flash"``, BERT through
+``map_rows``/``map_blocks``):
+
+* ``flash_attention`` (:mod:`.flash_attention`) — attention forward with
+  an online softmax, one launch per layer; ``int8_matmul`` again when the
+  weights are quantized.
+
+The encoder's two wrappers are custom ops (``tftpu::``) with a fake
+implementation for shape analysis and a vmap rule that folds the vmapped
+dim into the kernel's batch, so ``map_rows`` launches each kernel once
+per layer per block.
+
 The sources live in ``tensorframes_tpu_torch/csrc/``. They compile with
 one ``nvcc`` call into one shared library with a plain C interface, on
 first use, under ``build/torch_kernels/`` beside the package, and load
@@ -52,7 +64,10 @@ from ..observability.metrics import counter as _counter
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-_SOURCES = ("segment_reduce.cu", "ragged_gather.cu", "decode_attention.cu", "int8_matmul.cu")
+_SOURCES = (
+    "segment_reduce.cu", "ragged_gather.cu", "decode_attention.cu", "int8_matmul.cu",
+    "flash_attention.cu",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -98,6 +113,12 @@ KERNELS: Dict[str, KernelInfo] = {
             "tensorframes_tpu_torch/csrc/int8_matmul.cu",
             "tensorframes_tpu/ops/quantize.py:130",
             "tensorframes_tpu_torch.ops.quantize.matmul_int8",
+        ),
+        KernelInfo(
+            "flash_attention",
+            "tensorframes_tpu_torch/csrc/flash_attention.cu",
+            "tensorframes_tpu/ops/attention.py:132",
+            "tensorframes_tpu_torch.kernels.flash_attention.flash_attention",
         ),
     )
 }
@@ -199,9 +220,13 @@ def library() -> ctypes.CDLL:
                 i32, i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, i32, i32, vp,
             ]
             lib.tft_int8_matmul.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, vp]
+            lib.tft_flash_attention.argtypes = [
+                vp, vp, vp, vp, i32, i32, i32, i32, i32, *([i64] * 12),
+                ctypes.c_float, i32, i32, i32, vp,
+            ]
             for f in (lib.tft_segment_reduce, lib.tft_segment_sum,
                       lib.tft_ragged_gather, lib.tft_paged_decode_attention,
-                      lib.tft_int8_matmul):
+                      lib.tft_int8_matmul, lib.tft_flash_attention):
                 f.restype = ctypes.c_int
             lib.tft_error_string.argtypes = [ctypes.c_int]
             lib.tft_error_string.restype = ctypes.c_char_p

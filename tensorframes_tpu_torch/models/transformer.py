@@ -1,16 +1,20 @@
 """A compact transformer encoder/decoder stack, as plain dicts of tensors.
 
 The reference package's flagship model (``models/transformer.py``), in
-its serving subset: the config, parameter initialisation, the forward
-pass with dense attention, weight-only int8 quantization, and
+its inference subset: the config, parameter initialisation, the forward
+pass with dense, blockwise or flash attention (the last through the
+hand-written flash-attention kernel on the card), the BERT-style
+embedding programs for ``map_blocks`` (:func:`embed_program`) and
+``map_rows`` (:func:`embed_row_program`, BASELINE config 5),
+:func:`synthetic_batch`, weight-only int8 quantization, and
 :func:`params_from_jax`, which carries a reference parameter tree across
 so both packages run the same weights. Parameters keep the reference's
 names and layouts (``embed.tok [vocab, h]``, ``layers[i].attn.qkv
 [h, 3h]``, ...); activations run in ``cfg.dtype`` (bf16 by default) and
 the parameters stay f32 unless quantized.
 
-Training, sharding and the ``embed_*`` programs wait for the models
-slice (ROADMAP queue 1).
+Training (``loss_fn``, ``make_train_step``) and sharding wait for later
+slices (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -35,8 +39,9 @@ class TransformerConfig:
     mlp_ratio: int = 4
     max_seq_len: int = 512
     dtype: Any = torch.bfloat16  # activations/compute; params stay f32
-    # the port runs 'dense' only; the reference's 'blockwise' | 'flash' |
-    # 'ring' | 'ulysses' wait for the models and multi-device slices
+    # attention implementation: 'dense' | 'blockwise' | 'flash' (the
+    # hand-written kernel on the card); the reference's 'ring' | 'ulysses'
+    # (sequence parallelism) wait for the multi-device work
     attention_impl: str = "dense"
     causal: bool = False
     remat: bool = False
@@ -155,18 +160,30 @@ def _layer_norm(x, scale, bias, eps=1e-6):
 
 
 def _attention(cfg: TransformerConfig, p, x, mask):
-    from ..ops.attention import dense_attention
+    from ..ops import attention as att
 
     b, s, h = x.shape
-    if cfg.attention_impl != "dense":
+    impl = cfg.attention_impl
+    if mask is not None and impl != "dense":
         raise NotImplementedError(
-            f"attention_impl={cfg.attention_impl!r} is not ported yet: the port runs "
-            "'dense' only (ROADMAP queue 2 item 6, flash attention with the models "
-            "slice; ring/ulysses with the multi-device work, queue 1 item 6)"
+            f"attention_impl={impl!r} does not support a padding mask yet; "
+            "use attention_impl='dense' for padded batches"
         )
+    if impl in ("ring", "ulysses"):
+        raise NotImplementedError(
+            f"attention_impl={impl!r} is not ported yet: sequence parallelism comes "
+            "with the multi-device work (ROADMAP queue 1 item 6)"
+        )
+    if impl not in ("dense", "blockwise", "flash"):
+        raise ValueError(f"Unknown attention_impl {impl!r}")
     qkv = _mm(x, p["qkv"]).reshape(b, s, 3, cfg.num_heads, cfg.head_dim)
     q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
-    ctx = dense_attention(q, k, v, causal=cfg.causal, padding_mask=mask)
+    if impl == "dense":
+        ctx = att.dense_attention(q, k, v, causal=cfg.causal, padding_mask=mask)
+    elif impl == "blockwise":
+        ctx = att.blockwise_attention(q, k, v, causal=cfg.causal)
+    else:
+        ctx = att.flash_attention(q, k, v, causal=cfg.causal)
     ctx = ctx.permute(0, 2, 1, 3).reshape(b, s, h)
     return _mm(ctx, p["out"])
 
@@ -195,6 +212,41 @@ def forward(
         x = x + _attention(cfg, p["attn"], _layer_norm(x, **p["ln1"]), mask)
         x = x + _mlp(p["mlp"], _layer_norm(x, **p["ln2"]))
     return _layer_norm(x, **params["final_ln"])
+
+
+def embed_program(cfg: TransformerConfig, params: Dict):
+    """``map_blocks`` program: token block ``[n, s]`` → ``{"embedding":
+    [n, h]}``, the mean-pooled final hidden states in f32 (BERT-style
+    sentence embeddings, BASELINE config 5)."""
+
+    def program(tokens):
+        hs = forward(cfg, params, tokens)
+        return {"embedding": hs.mean(dim=1).float()}
+
+    return program
+
+
+def embed_row_program(cfg: TransformerConfig, params: Dict):
+    """``map_rows`` program: one token cell ``[s]`` → ``{"embedding":
+    [h]}``. ``map_rows`` vmaps it over the block, and the kernels' vmap
+    rules fold the rows back into one batch, so the block still runs as
+    one batched forward."""
+
+    def program(tokens):
+        hs = forward(cfg, params, tokens[None, :])
+        return {"embedding": hs[0].mean(dim=0).float()}
+
+    return program
+
+
+def synthetic_batch(cfg: TransformerConfig, batch: int, seq: int, seed: int = 0):
+    """``(tokens, targets)``, int32 ``[batch, seq]`` each, uniform over the
+    vocabulary: the reference's numpy draw, so both packages get the same
+    arrays."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, (batch, seq), dtype=np.int32)
+    targets = rng.integers(0, cfg.vocab_size, (batch, seq), dtype=np.int32)
+    return tokens, targets
 
 
 def quantize_params(params: Dict) -> Dict:

@@ -135,39 +135,34 @@ def matmul_int8_plain(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
     return (out * w.scale.reshape(-1)).to(x.dtype)
 
 
-def _is_fake(t: torch.Tensor) -> bool:
-    from torch._subclasses.fake_tensor import is_fake
+@torch.library.custom_op("tftpu::int8_matmul", mutates_args=())
+def _int8_op(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    if x.device.type != "cuda":
+        return matmul_int8_plain(x, QuantizedTensor(q, scale))
+    return _launch_int8(x, q, scale)
 
-    return is_fake(t)
+
+@_int8_op.register_fake
+def _int8_fake(x, q, scale):
+    return x.new_empty((*x.shape[:-1], q.shape[1]))
 
 
-def matmul_int8(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
-    """``x [..., k] @ int8 w.q [k, n]`` with per-output-channel scale, in
-    ``x.dtype``. On a CUDA tensor: the hand-written kernel (a 2-D view of
-    ``x``'s leading dims; each output row is summed over k in one fixed
-    order, so a row's bits do not depend on how many rows ride with it).
-    On a CPU (or shape-analysis fake) tensor: :func:`matmul_int8_plain`."""
-    if not _per_output_channel(w):
-        raise ValueError(
-            f"matmul_int8 needs a 2-D q with per-output-channel scale [1, n]; "
-            f"got q {tuple(w.q.shape)}, scale {tuple(w.scale.shape)}"
-        )
-    if x.device.type != "cuda" or _is_fake(x):
-        return matmul_int8_plain(x, w)
-    if x.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"matmul_int8: x must be bfloat16 or float32, got {x.dtype}")
-    k, n = int(w.q.shape[0]), int(w.q.shape[1])
-    if x.shape[-1] != k:
-        raise ValueError(f"matmul_int8: x [..., {x.shape[-1]}] @ q [{k}, {n}]")
-    if w.q.dtype != torch.int8 or w.scale.dtype != torch.float32:
-        raise ValueError("matmul_int8: q must be int8 and scale float32")
-    if w.q.device != x.device or w.scale.device != x.device:
-        raise ValueError("matmul_int8: x, q and scale must be on one device")
+@_int8_op.register_vmap
+def _int8_vmap(info, in_dims, x, q, scale):
+    """Fold the vmapped dim into the kernel's rows: one launch for the
+    whole vmapped batch (``map_rows`` over a quantized model)."""
+    if in_dims[1] is not None or in_dims[2] is not None:
+        raise NotImplementedError("matmul_int8 under vmap: the weight must not be vmapped")
+    return _int8_op(x.movedim(in_dims[0], 0), q, scale), 0
+
+
+def _launch_int8(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    k, n = int(q.shape[0]), int(q.shape[1])
     lead = tuple(x.shape[:-1])
     m = int(np.prod(lead)) if lead else 1
     x2 = x.reshape(m, k).contiguous()
-    q = w.q.contiguous()
-    scale = w.scale.reshape(n).contiguous()
+    q = q.contiguous()
+    scale = scale.contiguous()
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return out.reshape(*lead, n)
@@ -177,6 +172,33 @@ def matmul_int8(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
     )
     check("int8_matmul", rc)
     return out.reshape(*lead, n)
+
+
+def matmul_int8(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
+    """``x [..., k] @ int8 w.q [k, n]`` with per-output-channel scale, in
+    ``x.dtype``, through the custom op ``tftpu::int8_matmul``. On a CUDA
+    tensor: the hand-written kernel (a 2-D view of ``x``'s leading dims;
+    each output row is summed over k in one fixed order, so a row's bits
+    do not depend on how many rows ride with it). On a CPU tensor:
+    :func:`matmul_int8_plain`. Shape analysis takes the op's fake
+    implementation; under ``torch.func.vmap`` its vmap rule folds the
+    vmapped dim into the rows and calls the op once."""
+    if not _per_output_channel(w):
+        raise ValueError(
+            f"matmul_int8 needs a 2-D q with per-output-channel scale [1, n]; "
+            f"got q {tuple(w.q.shape)}, scale {tuple(w.scale.shape)}"
+        )
+    k, n = int(w.q.shape[0]), int(w.q.shape[1])
+    if x.shape[-1] != k:
+        raise ValueError(f"matmul_int8: x [..., {x.shape[-1]}] @ q [{k}, {n}]")
+    if x.device.type == "cuda":
+        if x.dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"matmul_int8: x must be bfloat16 or float32, got {x.dtype}")
+        if w.q.dtype != torch.int8 or w.scale.dtype != torch.float32:
+            raise ValueError("matmul_int8: q must be int8 and scale float32")
+        if w.q.device != x.device or w.scale.device != x.device:
+            raise ValueError("matmul_int8: x, q and scale must be on one device")
+    return _int8_op(x, w.q, w.scale.reshape(n))
 
 
 def _tree_map(fn, tree, path=()):

@@ -19,6 +19,8 @@ Tolerances, per op:
   relative, logits within 2e-2·max|ref|, the greedy tokens equal.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -122,8 +124,11 @@ def test_forward_matches_jax(quant):
     want = jtr.forward(cj, pj, jnp.asarray(toks), mask=jnp.asarray(mask))
     got = ttr.forward(ct, pt, torch.from_numpy(toks), mask=torch.from_numpy(mask))
     _close(got.numpy(), np.asarray(want))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttr.forward(ttr.tiny(attention_impl="flash"), pt, torch.from_numpy(toks))
+    # flash attention (the kernel's plain version on the CPU) against the
+    # reference's flash path, unpadded
+    cj, ct = (dataclasses.replace(c, attention_impl="flash") for c in (cj, ct))
+    want = jtr.forward(cj, pj, jnp.asarray(toks))
+    _close(ttr.forward(ct, pt, torch.from_numpy(toks)).numpy(), np.asarray(want))
 
 
 def _gap_ok(logits, tol=1e-4):

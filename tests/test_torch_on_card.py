@@ -15,7 +15,15 @@ matmul and the decode attention differ from their plain versions only in
 the order of f32 sums, so a bf16 output may land one bf16 step (2^-8
 relative) away: |got - want| <= 2^-7·|want| + 1e-3·max|want|; in f32,
 rtol 1e-5 / atol 1e-5·max|want|. Decode tokens are exact where both
-sides run the same code (batched against solo).
+sides run the same code (batched against solo). Flash attention differs
+from its plain version in the order of f32 sums and in taking p against
+the running max before rounding it to bf16: each side's p rounds by at
+most half a bf16 step, so the outputs differ by at most a step of A, the
+same attention over |v|, plus a step of |want| where the f32 sums round
+apart: |got - want| <= 2^-7·(|want| + A) in bf16 (twice that), 1e-5·(|want|
++ A) in f32.
+The vmap rules launch one kernel for the whole vmapped batch, with the
+same bits as the un-vmapped call.
 """
 
 import numpy as np
@@ -26,6 +34,7 @@ import tensorframes_tpu_torch as tft
 from tensorframes_tpu_torch.kernels import ragged_gather as krg
 from tensorframes_tpu_torch.kernels import segment_reduce as ksr
 from tensorframes_tpu_torch.kernels import decode_attention as kda
+from tensorframes_tpu_torch.kernels import flash_attention as kfa
 from tensorframes_tpu_torch.models import generation as tgen
 from tensorframes_tpu_torch.models import transformer as ttr
 from tensorframes_tpu_torch.ops import quantize as tq
@@ -285,3 +294,90 @@ def test_decode_engine_on_card_batched_equals_solo(cuda_device):
     assert launches["decode_attention"] % 2 == 0 and launches["int8_matmul"] % 8 == 0
     for b, s in zip(batched, solo):
         np.testing.assert_array_equal(b, s)
+
+
+def _assert_flash_close(got, want, bound, dtype):
+    """The flash tolerance of the module docstring; ``bound`` is the same
+    attention over |v|."""
+    got, want = got.double(), want.double()
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    diff = (got - want).abs()
+    assert bool((diff <= rtol * (want.abs() + bound.double())).all()), float(diff.max())
+
+
+@pytest.mark.parametrize("shape,dtype,causal,strided", [
+    ((1024, 12, 128, 64), torch.bfloat16, False, True),   # BERT-base map_rows, q/k/v views
+    ((4, 8, 4096, 128), torch.bfloat16, True, False),     # the attention bench
+    ((3, 4, 200, 64), torch.float32, True, False),        # tile edges
+    ((2, 3, 77, 40), torch.bfloat16, True, False),
+    ((2, 2, 100, 128), torch.float32, False, True),
+    ((1, 1, 1, 8), torch.float32, True, False),
+])
+def test_flash_attention_kernel_matches_plain_on_card(cuda_device, shape, dtype, causal, strided):
+    b, h, s, d = shape
+    rng = np.random.default_rng(s + d)
+    if strided:  # [b, s, 3, h, d] → three [b, h, s, d] views, as the encoder passes them
+        qkv = torch.from_numpy(rng.standard_normal((b, s, 3, h, d)).astype(np.float32))
+        q, k, v = (qkv.to(cuda_device, dtype)[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+    else:
+        q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+            cuda_device, dtype) for _ in range(3))
+    tft.kernels.LAUNCHES.reset()
+    got = kfa.flash_attention(q, k, v, causal=causal)
+    assert tft.kernels.LAUNCHES.snapshot()["flash_attention"] == 1
+    assert got.dtype == dtype and tuple(got.shape) == shape
+    scale = kfa.default_scale(d)
+    want = kfa.flash_attention_reference(q, k, v, causal, scale)
+    _assert_flash_close(got, want, kfa.flash_attention_reference(q, k, v.abs(), causal, scale),
+                        dtype)
+    assert torch.equal(kfa.flash_attention(q, k, v, causal=causal), got)  # deterministic
+
+
+def test_flash_attention_kernel_limits_raise_on_card(cuda_device):
+    q = torch.zeros((1, 2, 8, 160), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim <= 128"):
+        kfa.flash_attention(q, q, q)
+    q = torch.zeros((1, 2, 8, 64), device=cuda_device, dtype=torch.float16)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        kfa.flash_attention(q, q, q)
+
+
+def test_vmap_rules_launch_once_on_card(cuda_device):
+    """``torch.func.vmap`` (under inference mode, as ``map_rows``) of the
+    flash op and of ``quantize.matmul`` over a quantized weight: one
+    launch each, the same bits as the un-vmapped call."""
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal((16, 1, 12, 128, 64)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16) for _ in range(3))
+    w = tq.quantize(torch.from_numpy(rng.standard_normal((768, 2304)).astype(np.float32)))
+    w = w.to(cuda_device)
+    x = torch.from_numpy(rng.standard_normal((16, 1, 128, 768)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    tft.kernels.LAUNCHES.reset()
+    with torch.inference_mode():
+        att = torch.func.vmap(kfa.flash_attention)(q, k, v)
+        mm = torch.func.vmap(lambda r: tq.matmul(r, w))(x)
+    launches = tft.kernels.LAUNCHES.snapshot()
+    assert launches["flash_attention"] == 1 and launches["int8_matmul"] == 1
+    assert torch.equal(att[:, 0], kfa.flash_attention(q[:, 0], k[:, 0], v[:, 0]))
+    assert torch.equal(mm, tq.matmul(x, w))
+
+
+def test_encoder_map_rows_launches_per_layer_on_card(cuda_device):
+    """A 2-layer 768-wide bf16 encoder with int8 weights through
+    ``map_rows`` and ``map_blocks``: per call, one flash launch and four
+    int8 launches per layer, and the two verbs' embeddings agree."""
+    cfg = ttr.bert_base(num_layers=2, attention_impl="flash")
+    params = ttr.quantize_params(ttr.init_params(cfg, seed=0, device=cuda_device))
+    tokens, _ = ttr.synthetic_batch(cfg, 32, 128, seed=0)
+    frame = tft.frame_from_arrays({"tokens": tokens}, num_blocks=1)
+    prog = tft.compile_program(ttr.embed_row_program(cfg, params), frame, block=False,
+                               device=cuda_device)
+    tft.kernels.LAUNCHES.reset()
+    rows = tft.map_rows(prog, frame, device=cuda_device).column_values("embedding")
+    launches = tft.kernels.LAUNCHES.snapshot()
+    assert launches["flash_attention"] == 2 and launches["int8_matmul"] == 8
+    blocks = tft.map_blocks(ttr.embed_program(cfg, params), frame,
+                            device=cuda_device).column_values("embedding")
+    assert rows.shape == (32, 768) and np.isfinite(rows).all()
+    np.testing.assert_allclose(rows, blocks, rtol=0, atol=1e-2 * np.abs(blocks).max())
