@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke for tensorframes_tpu_torch: build the CUDA kernels, hold each
 against its plain PyTorch version on the card, then drive the five verbs,
-the decode server and BERT-base embedding extraction through the
-package's entry points at full size on one GPU.
+the decode server, BERT-base embedding extraction and gpt_small training
+through the package's entry points at full size on one GPU.
 
     python3 chip_smoke.py
 
@@ -30,7 +30,16 @@ is visible or when the package is not beside this script. Phases:
    qkv tensor), [4, 8, 4096, 128] bf16 causal and [3, 4, 200, 64] f32
    causal, within a tolerance that three deliberately broken plain
    versions must exceed (timed at the first shape, the second logged;
-   library: ``scaled_dot_product_attention``); ``quantize.matmul`` under
+   library: ``scaled_dot_product_attention``); the flash backward's dK/dV
+   and dQ kernels at [1024, 12, 128, 64] bf16 (strided views), [8, 12,
+   1024, 64] bf16 causal (the training path's) and [3, 4, 1000, 128] f32
+   causal, from the forward kernel's own o, l and m (whose o must equal
+   the forward without l and m bit for bit and lie within the forward's
+   tolerance of the plain forward, which the three broken forward
+   versions exceed at these shapes too), within a tolerance that
+   three deliberately broken plain backward versions must exceed, two
+   launches bit for bit (timed at the training shape; library:
+   ``scaled_dot_product_attention``'s backward); ``quantize.matmul`` under
    ``torch.func.vmap`` must launch once and match the plain call's bits;
 2. the main path with every launch count reset first: add-3
    ``map_blocks`` over 20M float64 rows, ``reduce_blocks`` sum/min over
@@ -54,12 +63,23 @@ is visible or when the package is not beside this script. Phases:
    per call, agree with each other and with dense attention through the
    same verb, while an attention that drops the last key tile must not;
    a 64-row ``map_rows`` over int8 weights must launch 48 int8 and 12
-   flash kernels. Rows/s per verb follow.
+   flash kernels. Rows/s per verb follow. Then gpt_small training with
+   flash attention (f32 weights from seed 0, AdamW at lr 1e-3):
+   ``training.train_on_frame`` takes 10 steps of 8 x 1024 tokens off a
+   16-row frame, counts reset first; every step must launch the flash
+   forward, dK/dV and dQ kernels 12 times each, receive the batch
+   ``iterate_batches`` gives, and the loss must be finite, start near
+   ln(32,000) and fall; a ``remat=True`` step launches the forward 24
+   times; one step's loss and gradients with flash agree with dense
+   attention, and steps whose backward is one of the broken versions do
+   not. Steps/s, tokens/s and peak memory follow.
 3. where the time goes: ``torch.profiler`` device time by kernel for
    each segment kernel alone, for two verbs (aggregate, map_blocks) and
    for a 16-slot decode step and for one BERT-base ``map_rows`` call
-   (flash against the dense products and copies), with the device's busy
-   share of each call's host wall time;
+   (flash against the dense products and copies), and for one gpt_small
+   training step (forward, backward and optimizer by CUDA events; GEMMs,
+   the three flash kernels, norms, the embedding's backward), with the
+   device's busy share of each call's host wall time;
 4. one JSON line listing every kernel, the card's name and power limit,
    and as the last line ``{"ok": true, "device": {...}}``.
 """
@@ -80,6 +100,7 @@ SPIN_CYCLES = 100_000_000   # ~50 ms at the H100's ~2 GHz: longer than queuing 1
 SLICE1_KERNELS = ("segment_reduce", "segment_sum", "ragged_gather")
 SERVING_KERNELS = ("decode_attention", "int8_matmul")
 ENCODER_KERNELS = ("flash_attention",)
+TRAINING_KERNELS = ("flash_attention", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
 
 
 def log(msg: str) -> None:
@@ -554,6 +575,194 @@ def check_int8_vmap(dev) -> None:
         "un-vmapped call")
 
 
+FLASH_BWD_SHAPES = (  # (shape, dtype name, causal, q/k/v/dO as views of [b, s, ., h, d])
+    ((1024, 12, 128, 64), "bfloat16", False, True),  # BERT-base, as the encoder passes them
+    ((8, 12, 1024, 64), "bfloat16", True, True),     # the training path: gpt_small, 8 x 1024
+    ((3, 4, 1000, 128), "float32", True, False),     # tile edges: 1000 = 15 x 64 + 40
+)
+# Twice the worst case of the backward's rounding differences (PERF.md): the
+# kernels and the plain versions round p and dS from f32 values that differ
+# in the order of their sums, so each side may land on a neighbouring bf16
+# value, up to 2^-8 of the value each, and each gradient moves by at most
+# 2^-7 of A, its sum over absolute values (kfa.flash_attention_bwd_bound),
+# plus 2^-7 of |ref| where the f32 sums round apart: rtol 2^-6 of
+# (|ref| + A) doubles that; in f32 1e-5 covers the summation order.
+FLASH_BWD_RTOL = {"bfloat16": 2.0 ** -6, "float32": 1e-5}
+
+
+def bwd_inputs(dev, shape, dtype_name: str, strided: bool):
+    """q/k/v as ``flash_inputs`` gives them and a seeded dO, the latter a
+    ``[b, s, h, d] -> [b, h, s, d]`` view when ``strided``, as autograd
+    hands it to the flash op's gradient in the model."""
+    import numpy as np
+    import torch
+
+    q, k, v = flash_inputs(dev, shape, dtype_name, strided)
+    b, h, s, d = shape
+    rng = np.random.default_rng(SEED + 7 * s)
+    do = torch.from_numpy(rng.standard_normal((b, s, h, d), dtype=np.float32)).to(
+        dev, getattr(torch, dtype_name))
+    return q, k, v, do.permute(0, 2, 1, 3) if strided else do.permute(0, 2, 1, 3).contiguous()
+
+
+def bwd_ratio(got, ref, bound, dtype_name: str) -> float:
+    """max |got - ref| / (rtol * (|ref| + A)), an equal entry counting 0
+    (also where its tolerance is 0); <= 1 passes."""
+    import torch
+
+    got, ref = got.double(), ref.double()
+    diff = (got - ref).abs()
+    tol = FLASH_BWD_RTOL[dtype_name] * (ref.abs() + bound.double())
+    return float(torch.where(diff == 0, 0.0, diff / tol).max())
+
+
+def broken_bwd_versions(causal: bool) -> dict:
+    """Deliberately wrong plain backward versions ``(q, k, v, l, m, do, di,
+    causal, scale) -> (dq, dk, dv)``, for showing that the backward gate
+    sees a wrong kernel: ``di`` left out, ``sm_scale`` left out of dS
+    (dQ and dK come out 1/sm_scale too large), and the causal mask dropped
+    in the backward only (p of future keys no longer 0)."""
+    import torch
+    from tensorframes_tpu_torch.kernels import flash_attention as kfa
+
+    def plain(q, k, v, l, m, do, di, c, scale):
+        dk, dv = kfa.flash_attention_bwd_dkv_reference(q, k, v, l, m, do, di, c, scale)
+        return kfa.flash_attention_bwd_dq_reference(q, k, v, l, m, do, di, c, scale), dk, dv
+
+    def unscaled(*a):
+        dq, dk, dv = plain(*a)
+        scale = a[-1]
+        return (dq.float() / scale).to(dq.dtype), (dk.float() / scale).to(dk.dtype), dv
+
+    out = {"di left out": lambda q, k, v, l, m, do, di, c, scale: plain(
+               q, k, v, l, m, do, torch.zeros_like(di), c, scale),
+           "sm_scale left out of dS": unscaled}
+    if causal:
+        out["causal mask dropped in the backward"] = (
+            lambda q, k, v, l, m, do, di, c, scale: plain(q, k, v, l, m, do, di, False, scale))
+    return out
+
+
+def check_flash_backward(dev) -> dict:
+    """Both backward kernels against their plain versions at the three
+    shapes, from the forward kernel's own o, l and m; the broken versions
+    outside the same tolerance; two launches bit for bit. The forward that
+    keeps l and m (the build the training path launches) is held against
+    the plain forward at each shape too: its o within the forward's
+    tolerance (``flash_ratio``), which the broken forward versions must
+    exceed, and equal to the o bits of the forward without l and m; its l
+    and m within rtol 1e-5 (f32 sums in another order). Timed at the
+    training path's shape; the library call is
+    ``scaled_dot_product_attention``'s backward for dq, dk and dv together."""
+    import torch
+    import torch.nn.functional as F
+    from tensorframes_tpu_torch.kernels import flash_attention as kfa
+
+    out = {"flash_attention_bwd_dkv": {"max_abs_err": 0.0},
+           "flash_attention_bwd_dq": {"max_abs_err": 0.0}}
+    worst = 0.0
+    for shape, dtype_name, causal, strided in FLASH_BWD_SHAPES:
+        q, k, v, do = bwd_inputs(dev, shape, dtype_name, strided)
+        scale = kfa.default_scale(shape[-1])
+        with torch.no_grad():
+            o, l, m = kfa.flash_attention_fwd(q, k, v, causal, scale)
+            o_plain = kfa.flash_attention(q, k, v, causal=causal)
+        o_ref, l_ref, m_ref = kfa.flash_attention_fwd_reference(q, k, v, causal, scale)
+        o_bound = kfa.flash_attention_reference(q, k, v.abs(), causal, scale)
+        di = kfa.flash_attention_di(o, do)
+        dk, dv = kfa.flash_attention_bwd_dkv(q, k, v, l, m, do, di, causal, scale)
+        dq = kfa.flash_attention_bwd_dq(q, k, v, l, m, do, di, causal, scale)
+        dk2, dv2 = kfa.flash_attention_bwd_dkv(q, k, v, l, m, do, di, causal, scale)
+        dq2 = kfa.flash_attention_bwd_dq(q, k, v, l, m, do, di, causal, scale)
+        ref = (kfa.flash_attention_bwd_dq_reference(q, k, v, l, m, do, di, causal, scale),
+               *kfa.flash_attention_bwd_dkv_reference(q, k, v, l, m, do, di, causal, scale))
+        bound = kfa.flash_attention_bwd_bound(q, k, v, o, l, m, do, causal, scale)
+        torch.cuda.synchronize()
+        if not torch.equal(o, o_plain):
+            fail(f"flash forward {shape}: o with l/m differs from o without them")
+        l_err = float(((l - l_ref).abs() / l_ref.abs()).max())
+        m_err = float(((m - m_ref).abs() / m_ref.abs().clamp(min=1.0)).max())
+        o_ratio = flash_ratio(o, o_ref, o_bound, dtype_name)
+        o_broken = {what: flash_ratio(fn(q, k, v, causal, scale), o_ref, o_bound, dtype_name)
+                    for what, fn in broken_flash_versions(kfa.flash_attention_reference,
+                                                          causal).items()}
+        got = (dq, dk, dv)
+        for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+            if g.shape != r.shape or g.dtype != r.dtype or not bool(torch.isfinite(g).all()):
+                fail(f"flash backward {shape}: {name} {tuple(g.shape)} {g.dtype} or not finite")
+        ratios = [bwd_ratio(g, r, a, dtype_name) for g, r, a in zip(got, ref, bound)]
+        broken = {}
+        for what, fn in broken_bwd_versions(causal).items():
+            bad = fn(q, k, v, l, m, do, di, causal, scale)
+            broken[what] = max(bwd_ratio(g, r, a, dtype_name) for g, r, a in zip(bad, ref, bound))
+            del bad
+        errs = [float((g.double() - r.double()).abs().max()) for g, r in zip(got, ref)]
+        log(f"# flash backward {shape} {dtype_name} causal={causal} strided={strided}: max |err| "
+            f"dq {errs[0]:.6g}, dk {errs[1]:.6g}, dv {errs[2]:.6g}; share of the tolerance "
+            f"dq {ratios[0]:.4g}, dk {ratios[1]:.4g}, dv {ratios[2]:.4g}; broken versions at "
+            + ", ".join(f"{w} {r:.4g}" for w, r in broken.items()))
+        log(f"# flash forward with l, m {shape}: o max |err| "
+            f"{float((o.double() - o_ref.double()).abs().max()):.6g}, {o_ratio:.4g} of the "
+            f"tolerance; l rel err {l_err:.3g}, m {m_err:.3g}; broken forward versions at "
+            + ", ".join(f"{w} {r:.4g}" for w, r in o_broken.items()))
+        if not (torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+            fail(f"flash backward {shape}: two launches differ")
+        if o_ratio > 1:
+            fail(f"flash forward with l, m {shape}: o off its plain version by {o_ratio} of "
+                 "the tolerance")
+        for what, r in o_broken.items():
+            if r <= 1:
+                fail(f"the flash gate cannot see a broken version at {shape} ({what}: {r} <= 1)")
+        if l_err > 1e-5 or m_err > 1e-5:
+            fail(f"flash forward {shape}: l or m off the plain forward's (rel {l_err}, {m_err})")
+        if max(ratios) > 1:
+            fail(f"flash backward {shape}: kernels off their plain versions by {ratios} of the "
+                 "tolerance")
+        for what, r in broken.items():
+            if r <= 1:
+                fail(f"the flash backward gate cannot see a broken version at {shape} "
+                     f"({what}: {r} <= 1)")
+        out["flash_attention_bwd_dq"]["max_abs_err"] = max(
+            out["flash_attention_bwd_dq"]["max_abs_err"], errs[0])
+        out["flash_attention_bwd_dkv"]["max_abs_err"] = max(
+            out["flash_attention_bwd_dkv"]["max_abs_err"], errs[1], errs[2])
+        worst = max(worst, *ratios)
+        del o, l, m, o_ref, o_bound, dq, dk, dv, dq2, dk2, dv2, ref, bound, got
+
+    shape, dtype_name, causal, strided = FLASH_BWD_SHAPES[1]
+    q, k, v, do = bwd_inputs(dev, shape, dtype_name, strided)
+    scale = kfa.default_scale(shape[-1])
+    with torch.no_grad():
+        o, l, m = kfa.flash_attention_fwd(q, k, v, causal, scale)
+    di = kfa.flash_attention_di(o, do)
+    args = (q, k, v, l, m, do, di, causal, scale)
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+    library = time_ms(lambda: torch.autograd.grad(sdpa, (qs, ks, vs), do, retain_graph=True),
+                      "flash backward library")
+    b, h, s, d = shape
+    pairs = s * (s + 1) // 2 if causal else s * s
+    io = q.numel() * q.element_size()  # one of q, k, v, dO, dq, dk, dv
+    stats = 3 * b * h * s * 4          # l, m, di
+    out["flash_attention_bwd_dkv"].update({
+        "ms": time_ms(lambda: kfa.flash_attention_bwd_dkv(*args), "flash_attention_bwd_dkv"),
+        "plain_ms": time_ms(lambda: kfa.flash_attention_bwd_dkv_reference(*args),
+                            "flash_attention_bwd_dkv plain"),
+        "library_ms": library,
+        **roofline(6 * io + stats, 8 * b * h * pairs * d),
+    })
+    out["flash_attention_bwd_dq"].update({
+        "ms": time_ms(lambda: kfa.flash_attention_bwd_dq(*args), "flash_attention_bwd_dq"),
+        "plain_ms": time_ms(lambda: kfa.flash_attention_bwd_dq_reference(*args),
+                            "flash_attention_bwd_dq plain"),
+        "library_ms": library,
+        **roofline(5 * io + stats, 6 * b * h * pairs * d),
+    })
+    log(f"# flash backward: the kernels used at most {worst:.4g} of the tolerance; SDPA's "
+        f"backward (dq, dk, dv together) {library:.6f} ms at {shape} {dtype_name} causal")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 2: the main path through the entry points
 # ---------------------------------------------------------------------------
@@ -880,6 +1089,193 @@ def encoder_path(tft, dev) -> dict:
             "cfg": cfg, "params": params, "frame": frame}
 
 
+TRAIN_ROWS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 16, 1024, 8, 10, 1e-3
+# The first loss: random tied embeddings of scale 0.02 against unit-variance
+# final hidden states give logits of std sqrt(768) * 0.02 ~ 0.55, so the
+# expected cross entropy is ln(32,000) + 0.55^2 / 2 ~ 10.53; a window of
+# +-1 around ln(32,000) leaves room for what the layers add and catches a
+# forward that is off by a scale.
+FIRST_LOSS_WINDOW = 1.0
+GRAD_RTOL = 5e-2  # of each leaf's max |grad|, flash against dense: ~3x the sound gap (PERF.md)
+LOSS_ATOL = 2e-4  # flash against dense, one step's loss: ~3x the sound gap (PERF.md)
+
+
+def train_state(tr, cfg, dev):
+    """Fresh f32 parameters from seed 0, their AdamW (optax's defaults at
+    lr 1e-3), and ``step_fn(state, batch)`` for ``train_on_frame``."""
+    params = tr.init_params(cfg, seed=SEED, device=dev)
+    opt = tr.adamw(params, TRAIN_LR)
+    step = tr.make_train_step(cfg, opt)
+
+    def step_fn(state, batch):
+        p, opt_state, loss = step(*state, batch["tokens"], batch["targets"])
+        return (p, opt_state), loss
+
+    return params, opt, step, step_fn
+
+
+def leaf_grads(tr, cfg, params, tokens, targets):
+    """One step's loss and the gradient of every parameter leaf."""
+    import torch
+
+    leaves = tr.tree_leaves(params)
+    loss = tr.loss_fn(cfg, params, tokens, targets)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def training_path(tft, dev) -> dict:
+    """gpt_small (vocab 32,000, 12 x 768, 12 heads, max_seq_len 1024, bf16
+    activations, f32 parameters from seed 0) with flash attention, trained
+    for 10 steps straight off a frame of 16 rows x 1024 tokens
+    (``synthetic_batch`` seed 0) by ``training.train_on_frame``: batches of
+    8 rows, shuffled per epoch (two batches an epoch), prefetched two
+    ahead. Counts reset just before; each step must launch the flash
+    forward, dK/dV and dQ kernels 12 times each. Then the gates: finite
+    losses, the first near ln(32,000), the last below the first; the
+    batches each step received equal ``iterate_batches``'s bit for bit; one
+    more step with ``remat=True`` launches the forward 24 times; one
+    step's loss and per-leaf gradients with flash agree with dense
+    attention, and a step whose backward leaves out ``di`` does not."""
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+    from tensorframes_tpu_torch.kernels import flash_attention as kfa
+    from tensorframes_tpu_torch.models import generation as gen
+    from tensorframes_tpu_torch.models import transformer as tr
+
+    cfg = gen.gpt_small(attention_impl="flash")
+    tokens, targets = tr.synthetic_batch(cfg, TRAIN_ROWS, TRAIN_SEQ, seed=SEED)
+    frame = tft.frame_from_arrays({"tokens": tokens, "targets": targets})
+    params, opt, step, step_fn = train_state(tr, cfg, dev)
+    received, losses, per_step, first_done = [], [], [], []
+
+    # the timed loop stays train_on_frame's own: the wrapper keeps a
+    # reference to each batch (no copy, no device work), on_step keeps the
+    # loss tensor and a host-side launch count, and only the first step
+    # waits for the card, to stamp the start of steps 2-10
+    def recording(state, batch):
+        received.append(batch)
+        return step_fn(state, batch)
+
+    def on_step(i, loss):
+        losses.append(loss)
+        per_step.append(tft.kernels.LAUNCHES.snapshot())
+        if i == 1:
+            torch.cuda.synchronize()
+            first_done.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)  # the earlier paths' tensors and the weights
+    tft.kernels.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    (params, _), ran = tft.training.train_on_frame(
+        recording, (params, opt.state), frame, ["tokens", "targets"], batch_size=TRAIN_BATCH,
+        num_steps=TRAIN_STEPS, shuffle=True, seed=SEED, prefetch=2, on_step=on_step, device=dev)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    wall = t_end - t0
+    launches = tft.kernels.LAUNCHES.snapshot()
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [float(x) for x in losses]
+    steady = (t_end - first_done[0]) / (len(losses) - 1)
+    log(f"# training gpt_small flash, 10 steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens: losses "
+        + ", ".join(f"{x:.6f}" for x in losses) + f"; launches {launches}; peak memory "
+        f"{peak / 2**30:.3f} GiB, {(peak - held) / 2**30:.3f} GiB above the "
+        f"{held / 2**30:.3f} GiB held before the first step")
+
+    if ran != TRAIN_STEPS:
+        fail(f"train_on_frame ran {ran} steps (want {TRAIN_STEPS})")
+    prev = {k: 0 for k in launches}
+    for i, snap in enumerate(per_step):
+        got = {k: snap[k] - prev[k] for k in ("flash_attention", "flash_attention_bwd_dkv",
+                                             "flash_attention_bwd_dq")}
+        if set(got.values()) != {cfg.num_layers}:
+            fail(f"training step {i + 1} launched {got} (want {cfg.num_layers} of each)")
+        prev = snap
+    per_epoch = TRAIN_ROWS // TRAIN_BATCH
+    for i, batch in enumerate(received):  # epoch e is shuffled with seed + e
+        ref = list(tft.io.iterate_batches(frame, ["tokens", "targets"], TRAIN_BATCH, shuffle=True,
+                                          seed=SEED + i // per_epoch,
+                                          drop_remainder=True))[i % per_epoch]
+        for col in ("tokens", "targets"):
+            if not np.array_equal(batch[col].cpu().numpy(), ref[col]):
+                fail(f"training step {i + 1} received a {col} batch other than iterate_batches'")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"training losses not finite: {losses}")
+    lnv = math.log(cfg.vocab_size)
+    if abs(losses[0] - lnv) > FIRST_LOSS_WINDOW:
+        fail(f"first loss {losses[0]} outside ln({cfg.vocab_size}) +- {FIRST_LOSS_WINDOW}")
+    if not losses[-1] < losses[0]:
+        fail(f"the loss did not fall: {losses}")
+    log("# training gates: 12 launches of each flash kernel in every step; every step's batch "
+        "as iterate_batches gives it, bit for bit; the losses finite, the first in the window, "
+        "the last below it")
+
+    # one more step with every layer recomputed in the backward pass
+    remat_step = tr.make_train_step(dataclasses.replace(cfg, remat=True), opt)
+    torch.cuda.synchronize()
+    tft.kernels.LAUNCHES.reset()
+    _, _, remat_loss = remat_step(params, opt.state, received[0]["tokens"],
+                                  received[0]["targets"])
+    torch.cuda.synchronize()
+    remat = tft.kernels.LAUNCHES.snapshot()
+    if (remat["flash_attention"], remat["flash_attention_bwd_dkv"],
+            remat["flash_attention_bwd_dq"]) != (2 * cfg.num_layers, cfg.num_layers,
+                                                 cfg.num_layers):
+        fail(f"a remat step launched {remat} (want 24 forward, 12 dK/dV, 12 dQ)")
+    if not math.isfinite(float(remat_loss)):
+        fail("the remat step's loss is not finite")
+
+    # flash against dense attention: one step's loss and gradients on the
+    # same fresh weights and batch
+    fresh = tr.init_params(cfg, seed=SEED, device=dev)
+    for leaf in tr.tree_leaves(fresh):
+        leaf.requires_grad_(True)
+    tb = torch.from_numpy(tokens[:TRAIN_BATCH]).to(dev)
+    gb = torch.from_numpy(targets[:TRAIN_BATCH]).to(dev)
+    dense_cfg = dataclasses.replace(cfg, attention_impl="dense")
+    loss_d, grads_d = leaf_grads(tr, dense_cfg, fresh, tb, gb)
+    loss_f, grads_f = leaf_grads(tr, cfg, fresh, tb, gb)
+
+    def worst(grads):
+        return max(float((g - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+                   for g, r in zip(grads, grads_d))
+
+    gap = worst(grads_f)
+    broken = {}
+    saved = kfa.flash_attention_backward
+    for what, fn in broken_bwd_versions(True).items():
+        kfa.flash_attention_backward = (
+            lambda q, k, v, o, l, m, do, c, scale, fn=fn: fn(
+                q, k, v, l, m, do, kfa.flash_attention_di(o, do), c, scale))
+        try:
+            broken[what] = worst(leaf_grads(tr, cfg, fresh, tb, gb)[1])
+        finally:
+            kfa.flash_attention_backward = saved
+    loss_gap = abs(float(loss_f) - float(loss_d))
+    log(f"# training gates: flash vs dense one step: loss {float(loss_f):.6f} vs "
+        f"{float(loss_d):.6f} (|diff| {loss_gap:.6g}, tolerance {LOSS_ATOL}); worst leaf "
+        f"max|grad diff| / max|grad| {gap:.6g} (tolerance {GRAD_RTOL}); broken backward "
+        "versions at " + ", ".join(f"{w} {r:.4g}" for w, r in broken.items())
+        + f"; remat step launches {remat}, loss {float(remat_loss):.6f}")
+    if loss_gap > LOSS_ATOL:
+        fail(f"flash loss off the dense loss by {loss_gap} (tolerance {LOSS_ATOL})")
+    if gap > GRAD_RTOL:
+        fail(f"flash gradients off the dense ones by {gap} of a leaf's max (tolerance "
+             f"{GRAD_RTOL})")
+    for what, r in broken.items():
+        if r <= GRAD_RTOL:
+            fail(f"the gradient gate cannot see a broken backward ({what}: {r} <= {GRAD_RTOL})")
+    del fresh, grads_d, grads_f
+    return {"launches": launches, "losses": losses, "wall_s": wall, "steady_step_s": steady,
+            "peak_bytes": peak, "held_bytes": held, "cfg": cfg, "params": params, "opt": opt,
+            "step": step,
+            "batch": received[0]}
+
+
 def step_inputs(cfg, params, prompts, dev):
     """A 16-slot decode step's state: each prompt prefilled (kernel path)
     into its own pages of a fresh pool; returns (pool, step args)."""
@@ -997,10 +1393,12 @@ def device_profile(fn, reps: int = 3):
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    device = {
+    device = {  # kernels and copies; a user annotation's span (the optimizer's step) would
+        # count its kernels twice
         ev.key: ev.device_time_total / reps / 1e3
         for ev in prof.key_averages()
         if ev.device_type == torch.autograd.DeviceType.CUDA and ev.device_time_total > 0
+        and not getattr(ev, "is_user_annotation", False)
     }
     return wall / reps * 1e3, device
 
@@ -1103,6 +1501,82 @@ def encoder_profile(tft, enc, dev) -> None:
         log(f"#   {ms:9.3f} ms  {name[:80]}")
 
 
+def training_profile(train) -> dict:
+    """One gpt_small training step (8 x 1024 tokens, flash) of the trained
+    state: device time of forward, backward and optimizer by CUDA events
+    around each part, the host wall of the unprofiled step, and
+    ``torch.profiler`` device time by kernel group (GEMMs, the three flash
+    kernels, elementwise and norms, the embedding's backward, the
+    optimizer) with the device's busy share of the unprofiled step."""
+    import torch
+    from tensorframes_tpu_torch.models import transformer as tr
+
+    cfg, params, opt = train["cfg"], train["params"], train["opt"]
+    tokens, targets = train["batch"]["tokens"], train["batch"]["targets"]
+
+    def one():
+        train["step"](params, opt.state, tokens, targets)
+
+    parts = {"forward": [], "backward": [], "optimizer": []}
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        opt.zero_grad(set_to_none=True)
+        ev[0].record()
+        loss = tr.loss_fn(cfg, params, tokens, targets)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        opt.step()
+        ev[3].record()
+        torch.cuda.synchronize()
+        for i, name in enumerate(parts):
+            parts[name].append(ev[i].elapsed_time(ev[i + 1]))
+    split = {k: sum(v) / len(v) for k, v in parts.items()}
+    t0 = time.perf_counter()
+    for _ in range(3):
+        one()
+    torch.cuda.synchronize()
+    plain_wall = (time.perf_counter() - t0) / 3 * 1e3
+    wall, device = device_profile(one, reps=2)
+    busy = sum(device.values())
+    groups = {"flash forward": 0.0, "flash dK/dV": 0.0, "flash dQ": 0.0, "GEMMs": 0.0,
+              "embedding backward": 0.0, "optimizer": 0.0, "norms": 0.0, "softmax/loss": 0.0,
+              "copies": 0.0, "elementwise and other": 0.0}
+    for name, ms in device.items():
+        low = name.lower()
+        if "flash_attention_fwd" in low:
+            groups["flash forward"] += ms
+        elif "flash_attention_bwd_dkv" in low:
+            groups["flash dK/dV"] += ms
+        elif "flash_attention_bwd_dq" in low:
+            groups["flash dQ"] += ms
+        elif any(w in low for w in ("gemm", "nvjet", "xmma", "cutlass", "sm90_")):
+            groups["GEMMs"] += ms
+        elif "index" in low and ("put" in low or "backward" in low or "sort" in low
+                                 or "radix" in low):
+            groups["embedding backward"] += ms
+        elif "multi_tensor" in low or "adam" in low:
+            groups["optimizer"] += ms
+        elif "layer_norm" in low or "layernorm" in low:
+            groups["norms"] += ms
+        elif "softmax" in low or "gather" in low or "nll" in low:
+            groups["softmax/loss"] += ms
+        elif "copy" in low or "memcpy" in low or "memset" in low:
+            groups["copies"] += ms
+        else:
+            groups["elementwise and other"] += ms
+    log(f"# profile training step gpt_small flash, 8 x 1024 tokens: {plain_wall:.3f} ms per step "
+        f"on the host clock ({wall:.3f} ms under the profiler); by CUDA events forward "
+        f"{split['forward']:.3f} ms, backward {split['backward']:.3f} ms, optimizer "
+        f"{split['optimizer']:.3f} ms; device busy {busy:.3f} ms ({100 * busy / plain_wall:.1f}% "
+        f"of the unprofiled step)")
+    log("# profile training step by group: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in groups.items()))
+    for name, ms in sorted(device.items(), key=lambda kv: -kv[1])[:12]:
+        log(f"#   {ms:9.3f} ms  {name[:80]}")
+    return {"step_ms": plain_wall, "split_ms": split, "busy_ms": busy, "groups_ms": groups}
+
+
 def gpu_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1139,6 +1613,7 @@ def main() -> int:
         "decode_attention": check_decode_attention(dev),
         "int8_matmul": check_int8_matmul(dev),
         "flash_attention": check_flash_attention(dev),
+        **check_flash_backward(dev),
     }
     check_int8_vmap(dev)
     for name, r in results.items():
@@ -1172,9 +1647,24 @@ def main() -> int:
         log(f"# encoder BERT-base {verb}: {encoder['rows_per_s'][verb]:.1f} rows/s (1,024 rows "
             f"x 128 tokens in {encoder['seconds'][verb]:.4f} s, flash attention)")
 
+    t4 = time.perf_counter()
+    train = training_path(tft, dev)
+    log(f"# training path: {time.perf_counter() - t4:.1f} s")
+    missing = [k for k in TRAINING_KERNELS if train["launches"][k] <= 0]
+    if missing:
+        fail(f"kernels never launched on the training path: {missing}")
+    log(f"# training gpt_small flash: {TRAIN_STEPS / train['wall_s']:.3f} steps/s, "
+        f"{TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ / train['wall_s']:.1f} tokens/s over the 10 "
+        f"steps on the host clock ({train['wall_s']:.3f} s, the first step's start-up "
+        f"included); steps 2-10 {1 / train['steady_step_s']:.3f} steps/s, "
+        f"{TRAIN_BATCH * TRAIN_SEQ / train['steady_step_s']:.1f} tokens/s; peak memory "
+        f"{train['peak_bytes']} bytes ({train['peak_bytes'] - train['held_bytes']} above what "
+        "was held before the first step)")
+
     where_the_time_goes(tft, dev)
     step_ms = decode_step_profile(serving, state)
     encoder_profile(tft, encoder, dev)
+    training_profile(train)
     log(f"# serving gpt_small: {serving['tokens_per_s']:.1f} generated tokens/s (32 requests "
         f"x 64 tokens in {serving['wall_s']:.3f} s); TTFT p50 {serving['ttft_s']['p50']:.4f} s, "
         f"p99 {serving['ttft_s']['p99']:.4f} s (each request's own); request latency "
@@ -1182,9 +1672,11 @@ def main() -> int:
         f"decode step {step_ms:.3f} ms at 16 slots; steps {serving['steps']}")
 
     kernels = []
+    paths = ((path, SLICE1_KERNELS), (serving, SERVING_KERNELS), (encoder, ENCODER_KERNELS),
+             (train, TRAINING_KERNELS))
     for name, info in tft.kernels.KERNELS.items():
-        source = path if name in SLICE1_KERNELS else encoder if name in ENCODER_KERNELS else serving
-        launches = source["launches"][name]
+        # a kernel on several paths (the flash forward) counts its launches on each
+        launches = sum(p["launches"][name] for p, names in paths if name in names)
         kernels.append({
             "name": name, "route": "cuda", "source": info.source,
             "replaces": info.replaces, "launches": launches, **results[name],

@@ -7,13 +7,17 @@ through five verbs — ``map_rows``, ``map_blocks`` (± trimmed),
 ``reduce_rows``, ``reduce_blocks``, keyed ``aggregate`` — plus schema
 tooling (``analyze``, ``append_shape``, ``print_schema``), and serve a
 causal transformer through a decode server (:class:`Server`,
-:class:`DecodeEngine`: continuous batching over a paged int8 KV pool).
+:class:`DecodeEngine`: continuous batching over a paged int8 KV pool),
+and train it straight off a frame (:func:`training.train_on_frame` over
+:func:`models.transformer.make_train_step`, batches staged by
+:mod:`.io`).
 
 Frames are host-resident; verbs run each block on one device, the GPU
 unless the caller asks for the CPU (``device="cpu"`` on a verb, or
 ``configure(device="cpu")``). The keyed segment reductions and the ragged
-row gather, the paged decode attention and the int8-weight matmul run as
-hand-written CUDA kernels (:mod:`.kernels`). This
+row gather, the paged decode attention, the int8-weight matmul and flash
+attention (forward, dK/dV and dQ) run as hand-written CUDA kernels
+(:mod:`.kernels`). This
 package imports nothing of ``tensorframes_tpu`` and no JAX.
 """
 
@@ -70,6 +74,7 @@ from .ops.verbs import (  # noqa: F401
 from .utils import profiling  # noqa: F401
 from . import observability  # noqa: F401
 from .serving import DecodeConfig, DecodeEngine, Server, ServingConfig  # noqa: F401
+from . import io, training  # noqa: F401
 
 __version__ = "0.1.0"
 
@@ -98,6 +103,8 @@ __all__ = [
     "kernels",
     "profiling",
     "observability",
+    "io",
+    "training",
     # serving
     "Server",
     "ServingConfig",

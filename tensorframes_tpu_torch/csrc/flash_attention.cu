@@ -36,8 +36,15 @@
 // diagonal are skipped when causal; q tiles run last-first, so the longest
 // causal rows start first. Any sequence length (tile edges are masked), any
 // head_dim up to 128, bf16 or f32, q/k/v/o at any strides whose last one is 1.
-// The softmax statistics (l, m) are not written: the backward kernels that
-// need them come with training.
+// When given l and m buffers ([batch * heads, sq] f32), the kernel also writes
+// each row's final denominator l and its final running max m, the residuals of
+// upstream's forward (l taken against that m): the backward kernels
+// (flash_attention_bwd.cu) rebuild p = exp(s - m) / l from them. The row's
+// half warp holds both with the same bits, and its first lane writes them.
+// Writing them is a compile-time choice (the STATS template flag): null
+// buffers select the build without the stores, so the inference path runs
+// the same code as before the statistics existed, and o does not depend on
+// the choice.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -95,11 +102,12 @@ constexpr size_t smem_bytes() {
          sizeof(float);
 }
 
-template <typename T, int DMAX>
+template <typename T, int DMAX, bool STATS>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ out, int heads, int sq,
-                           int sk, int d, Strides qs, Strides ks, Strides vs, Strides os,
+                           const T* __restrict__ v, T* __restrict__ out,
+                           float* __restrict__ l_out, float* __restrict__ m_out, int heads,
+                           int sq, int sk, int d, Strides qs, Strides ks, Strides vs, Strides os,
                            float sm_scale, int causal) {
   constexpr int LD = DMAX + 1;
   constexpr int DJ = DMAX / 16;  // output columns per thread
@@ -229,13 +237,26 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (c < d) ob[row * os.s + c] = narrow<T>(acc[i][jj] * inv);
     }
   }
+  if constexpr (STATS) {
+    if (tx == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = q0 + ty + 16 * i;
+        if (row < sq) {
+          l_out[static_cast<int64_t>(bh) * sq + row] = l_i[i];
+          m_out[static_cast<int64_t>(bh) * sq + row] = m_i[i];
+        }
+      }
+    }
+  }
 }
 
-template <typename T, int DMAX>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int batch, int heads,
-                   int sq, int sk, int d, Strides qs, Strides ks, Strides vs, Strides os,
-                   float sm_scale, int causal, cudaStream_t stream) {
-  auto kern = flash_attention_fwd_kernel<T, DMAX>;
+template <typename T, int DMAX, bool STATS>
+cudaError_t launch_with(const void* q, const void* k, const void* v, void* out, float* l_out,
+                        float* m_out, int batch, int heads, int sq, int sk, int d, Strides qs,
+                        Strides ks, Strides vs, Strides os, float sm_scale, int causal,
+                        cudaStream_t stream) {
+  auto kern = flash_attention_fwd_kernel<T, DMAX, STATS>;
   constexpr size_t smem = smem_bytes<DMAX>();
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -244,8 +265,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b
   if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
   kern<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), heads, sq, sk, d, qs, ks, vs, os, sm_scale, causal);
+      static_cast<T*>(out), l_out, m_out, heads, sq, sk, d, qs, ks, vs, os, sm_scale, causal);
   return cudaGetLastError();
+}
+
+template <typename T, int DMAX>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* l_out,
+                   float* m_out, int batch, int heads, int sq, int sk, int d, Strides qs,
+                   Strides ks, Strides vs, Strides os, float sm_scale, int causal,
+                   cudaStream_t stream) {
+  return l_out != nullptr
+             ? launch_with<T, DMAX, true>(q, k, v, out, l_out, m_out, batch, heads, sq, sk, d, qs,
+                                          ks, vs, os, sm_scale, causal, stream)
+             : launch_with<T, DMAX, false>(q, k, v, out, l_out, m_out, batch, heads, sq, sk, d,
+                                           qs, ks, vs, os, sm_scale, causal, stream);
 }
 
 }  // namespace
@@ -254,15 +287,18 @@ extern "C" {
 
 // q/o: [batch, heads, sq, d], k/v: [batch, heads, sk, d], each given by its
 // batch, head and sequence strides in elements (the head_dim stride is 1);
-// bf16 when is_bf16 else f32. Launches on `stream`, allocates nothing.
-int tft_flash_attention(const void* q, const void* k, const void* v, void* out, int batch,
-                        int heads, int sq, int sk, int d, int64_t q_sb, int64_t q_sh,
-                        int64_t q_ss, int64_t k_sb, int64_t k_sh, int64_t k_ss, int64_t v_sb,
-                        int64_t v_sh, int64_t v_ss, int64_t o_sb, int64_t o_sh, int64_t o_ss,
-                        float sm_scale, int causal, int is_bf16, int device, void* stream) {
+// bf16 when is_bf16 else f32. l_out/m_out: null, or both [batch * heads, sq]
+// f32, contiguous. Launches on `stream`, allocates nothing.
+int tft_flash_attention(const void* q, const void* k, const void* v, void* out, float* l_out,
+                        float* m_out, int batch, int heads, int sq, int sk, int d, int64_t q_sb,
+                        int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh, int64_t k_ss,
+                        int64_t v_sb, int64_t v_sh, int64_t v_ss, int64_t o_sb, int64_t o_sh,
+                        int64_t o_ss, float sm_scale, int causal, int is_bf16, int device,
+                        void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (batch < 0 || heads < 1 || sq < 0 || sk < 1 || d < 1 || d > kMaxHeadDim) {
+  if (batch < 0 || heads < 1 || sq < 0 || sk < 1 || d < 1 || d > kMaxHeadDim ||
+      (l_out == nullptr) != (m_out == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (batch == 0 || sq == 0) return static_cast<int>(cudaSuccess);
@@ -270,15 +306,15 @@ int tft_flash_attention(const void* q, const void* k, const void* v, void* out, 
       os{o_sb, o_sh, o_ss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    err = d <= 64 ? launch<__nv_bfloat16, 64>(q, k, v, out, batch, heads, sq, sk, d, qs, ks, vs,
-                                              os, sm_scale, causal, st)
-                  : launch<__nv_bfloat16, 128>(q, k, v, out, batch, heads, sq, sk, d, qs, ks,
-                                               vs, os, sm_scale, causal, st);
+    err = d <= 64 ? launch<__nv_bfloat16, 64>(q, k, v, out, l_out, m_out, batch, heads, sq, sk, d,
+                                              qs, ks, vs, os, sm_scale, causal, st)
+                  : launch<__nv_bfloat16, 128>(q, k, v, out, l_out, m_out, batch, heads, sq, sk,
+                                               d, qs, ks, vs, os, sm_scale, causal, st);
   } else {
-    err = d <= 64 ? launch<float, 64>(q, k, v, out, batch, heads, sq, sk, d, qs, ks, vs, os,
-                                      sm_scale, causal, st)
-                  : launch<float, 128>(q, k, v, out, batch, heads, sq, sk, d, qs, ks, vs, os,
-                                       sm_scale, causal, st);
+    err = d <= 64 ? launch<float, 64>(q, k, v, out, l_out, m_out, batch, heads, sq, sk, d, qs, ks,
+                                      vs, os, sm_scale, causal, st)
+                  : launch<float, 128>(q, k, v, out, l_out, m_out, batch, heads, sq, sk, d, qs,
+                                       ks, vs, os, sm_scale, causal, st);
   }
   return static_cast<int>(err);
 }

@@ -27,10 +27,20 @@ On the encoder's path (``attention_impl="flash"``, BERT through
   an online softmax, one launch per layer; ``int8_matmul`` again when the
   weights are quantized.
 
+On the training path (``attention_impl="flash"``, gpt_small through
+``training.train_on_frame``), the flash forward again (it then also
+writes each row's softmax statistics) and its gradient:
+
+* ``flash_attention_bwd_dkv`` and ``flash_attention_bwd_dq``
+  (:mod:`.flash_attention`, both reached from the flash op's gradient,
+  :func:`.flash_attention.flash_attention_backward`) — dK/dV and dQ, one
+  launch each per layer per step.
+
 The encoder's two wrappers are custom ops (``tftpu::``) with a fake
 implementation for shape analysis and a vmap rule that folds the vmapped
 dim into the kernel's batch, so ``map_rows`` launches each kernel once
-per layer per block.
+per layer per block; the flash op's gradient calls two more custom ops,
+one per backward kernel.
 
 The sources live in ``tensorframes_tpu_torch/csrc/``. They compile with
 one ``nvcc`` call into one shared library with a plain C interface, on
@@ -66,7 +76,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 _SOURCES = (
     "segment_reduce.cu", "ragged_gather.cu", "decode_attention.cu", "int8_matmul.cu",
-    "flash_attention.cu",
+    "flash_attention.cu", "flash_attention_bwd.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -78,7 +88,7 @@ NVCC_FLAGS = (
 class KernelInfo:
     name: str
     source: str     # CUDA source, relative to the repository root
-    replaces: str   # the reference package's Pallas kernel, file:line
+    replaces: str   # the Pallas kernel it replaces, file:line (jax/...: upstream JAX's)
     wrapper: str    # the Python entry point that launches it
 
 
@@ -119,6 +129,18 @@ KERNELS: Dict[str, KernelInfo] = {
             "tensorframes_tpu_torch/csrc/flash_attention.cu",
             "tensorframes_tpu/ops/attention.py:132",
             "tensorframes_tpu_torch.kernels.flash_attention.flash_attention",
+        ),
+        KernelInfo(
+            "flash_attention_bwd_dkv",
+            "tensorframes_tpu_torch/csrc/flash_attention_bwd.cu",
+            "jax/experimental/pallas/ops/tpu/flash_attention.py:941",
+            "tensorframes_tpu_torch.kernels.flash_attention.flash_attention_bwd_dkv",
+        ),
+        KernelInfo(
+            "flash_attention_bwd_dq",
+            "tensorframes_tpu_torch/csrc/flash_attention_bwd.cu",
+            "jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
+            "tensorframes_tpu_torch.kernels.flash_attention.flash_attention_bwd_dq",
         ),
     )
 }
@@ -221,12 +243,21 @@ def library() -> ctypes.CDLL:
             ]
             lib.tft_int8_matmul.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, vp]
             lib.tft_flash_attention.argtypes = [
-                vp, vp, vp, vp, i32, i32, i32, i32, i32, *([i64] * 12),
+                vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, *([i64] * 12),
+                ctypes.c_float, i32, i32, i32, vp,
+            ]
+            lib.tft_flash_attention_bwd_dkv.argtypes = [
+                *([vp] * 9), i32, i32, i32, i32, i32, *([i64] * 18),
+                ctypes.c_float, i32, i32, i32, vp,
+            ]
+            lib.tft_flash_attention_bwd_dq.argtypes = [
+                *([vp] * 8), i32, i32, i32, i32, i32, *([i64] * 15),
                 ctypes.c_float, i32, i32, i32, vp,
             ]
             for f in (lib.tft_segment_reduce, lib.tft_segment_sum,
                       lib.tft_ragged_gather, lib.tft_paged_decode_attention,
-                      lib.tft_int8_matmul, lib.tft_flash_attention):
+                      lib.tft_int8_matmul, lib.tft_flash_attention,
+                      lib.tft_flash_attention_bwd_dkv, lib.tft_flash_attention_bwd_dq):
                 f.restype = ctypes.c_int
             lib.tft_error_string.argtypes = [ctypes.c_int]
             lib.tft_error_string.restype = ctypes.c_char_p

@@ -1,33 +1,57 @@
-"""Flash-attention forward — the kernel behind ``attention_impl="flash"``.
+"""Flash attention — the kernels behind ``attention_impl="flash"``, forward
+and gradient.
 
-Replaces the Pallas TPU kernel that the reference package's
+Replaces the Pallas TPU kernels that the reference package's
 ``ops/attention.py::flash_attention`` reaches on a TPU (upstream JAX's
-``jax/experimental/pallas/ops/tpu/flash_attention.py``, forward only):
+``jax/experimental/pallas/ops/tpu/flash_attention.py``): the forward
 ``softmax(q·kᵀ·sm_scale)·v`` over ``[batch, heads, seq, head_dim]``,
-optionally causal, without the ``[seq, seq]`` scores in device memory.
+optionally causal, without the ``[seq, seq]`` scores in device memory,
+and the two backward kernels that ``jax.grad`` reaches through its
+``custom_vjp``, ``_flash_attention_bwd_dkv`` and ``_flash_attention_bwd_dq``.
 
-:func:`flash_attention_reference` is the kernel's plain PyTorch version:
-dense, in the upstream kernel's order of roundings (the scale applied to
-the f32 product, not to q; ``p`` rounded to v's dtype before an
-f32-accumulated ``P·V``; the result times ``1/l``, cast to q's dtype).
+The plain PyTorch versions, dense, in the upstream kernels' order of
+roundings:
+
+* :func:`flash_attention_fwd_reference` → ``(o, l, m)``: the scale applied
+  to the f32 product, not to q; ``p`` rounded to v's dtype before an
+  f32-accumulated ``P·V``; the result times ``1/l``, cast to q's dtype;
+  ``l`` and ``m`` are each row's denominator and max, upstream's residuals
+  (:func:`flash_attention_reference` returns ``o`` alone);
+* :func:`flash_attention_bwd_reference` → ``(dq, dk, dv)``: ``di = Σ o·dO``
+  in f32; ``p = exp(s − m)·(1/l)``; ``dV = pᵀ`` rounded to dO's dtype ``·
+  dO``; ``dS = (dO·vᵀ − di)·p·sm_scale``; ``dK = dS`` rounded to dO's dtype
+  ``ᵀ·q``, ``dQ = dS`` rounded to k's dtype ``·k``; f32 sums, cast once.
+  Its two halves, :func:`flash_attention_bwd_dkv_reference` and
+  :func:`flash_attention_bwd_dq_reference`, are the two kernels' plain
+  versions; :func:`flash_attention_bwd_bound` gives the scale of their
+  tolerance on the card.
 
 :func:`flash_attention` goes through the custom op ``tftpu::flash_attention``:
 
-* on a CUDA tensor the op launches ``csrc/flash_attention.cu`` (or
-  raises: there is no fallback), reading q/k/v at their own strides, so
-  the ``[b, s, 3, h, d] → [b, h, s, d]`` views the encoder passes are not
+* on a CUDA tensor the op launches ``csrc/flash_attention.cu`` (or raises:
+  there is no fallback), reading q/k/v at their own strides, so the
+  ``[b, s, 3, h, d] → [b, h, s, d]`` views the encoder passes are not
   copied; the output is a ``[b, h, s, d]`` view of a ``[b, s, h, d]``
-  buffer, so the encoder's transpose back is free;
+  buffer, so the encoder's transpose back is free. When a gradient will
+  be taken (grad mode on and an input that requires it) the kernel also
+  writes ``l`` and ``m``; otherwise it writes neither;
 * on a CPU tensor it computes the plain version;
 * its fake implementation serves the program's shape analysis;
 * its vmap rule folds the vmapped dim into the batch dim and calls the
   op once, so ``map_rows`` launches one kernel per layer per block, not
-  one per row.
+  one per row;
+* its gradient (``register_autograd``) computes ``di`` with one torch
+  reduction and calls ``tftpu::flash_attention_bwd_dkv`` and
+  ``tftpu::flash_attention_bwd_dq``, which launch
+  ``csrc/flash_attention_bwd.cu`` on a CUDA tensor and compute the plain
+  backward on a CPU tensor. Gradients of the gradient raise, as
+  upstream's do; gradients under vmap are not supported.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -43,85 +67,302 @@ def default_scale(head_dim: int) -> float:
     return float(np.float32(1.0 / math.sqrt(head_dim)))
 
 
-def flash_attention_reference(q, k, v, causal: bool = False, sm_scale: float = 1.0):
-    """Dense attention in the upstream flash kernel's order of roundings:
-    ``s = (q·kᵀ in f32) * sm_scale``; causal positions ``col > row`` get
-    the mask value; f32 max and exp; ``p`` cast to ``v.dtype`` before
-    ``P·V``, which accumulates in f32; times ``1/l`` (1 where ``l`` is 0);
-    cast to ``q.dtype``."""
+def _causal_keep(sq: int, sk: int, device) -> torch.Tensor:
+    """``[sq, sk]`` bool, True where ``col <= row``."""
+    return torch.arange(sk, device=device)[None, :] <= torch.arange(sq, device=device)[:, None]
+
+
+def flash_attention_fwd_reference(q, k, v, causal: bool = False, sm_scale: float = 1.0):
+    """Dense attention in the upstream flash kernel's order of roundings,
+    with its residuals: ``s = (q·kᵀ in f32) * sm_scale``; causal positions
+    ``col > row`` get the mask value; f32 max ``m`` and ``p = exp(s − m)``,
+    ``l = Σ p``; ``p`` cast to ``v.dtype`` before ``P·V``, which accumulates
+    in f32; times ``1/l`` (1 where ``l`` is 0); cast to ``q.dtype``.
+    Returns ``(o, l, m)``, ``l`` and ``m`` f32 ``[b, h, sq]``."""
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
     if causal:
-        sq, sk = s.shape[-2:]
-        col = torch.arange(sk, device=q.device)
-        keep = col[None, :] <= torch.arange(sq, device=q.device)[:, None]
-        s = s.masked_fill(~keep, MASK_VALUE)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        s = s.masked_fill(~_causal_keep(*s.shape[-2:], q.device), MASK_VALUE)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
     inv = torch.where(l == 0, torch.ones_like(l), 1.0 / l)
-    return (o * inv).to(q.dtype)
+    return (o * inv).to(q.dtype), l[..., 0], m[..., 0]
+
+
+def flash_attention_reference(q, k, v, causal: bool = False, sm_scale: float = 1.0):
+    """The output of :func:`flash_attention_fwd_reference` alone."""
+    return flash_attention_fwd_reference(q, k, v, causal, sm_scale)[0]
+
+
+def _p_ds(q, k, v, l, m, do, di, causal: bool, sm_scale: float):
+    """The backward's f32 ``p`` and ``dS`` ``[b, h, sq, sk]`` from the
+    residuals, in upstream's order of roundings."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
+    p = torch.exp(s - m[..., None]) * (1.0 / l)[..., None]
+    if causal:
+        p = p.masked_fill(~_causal_keep(*s.shape[-2:], q.device), 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
+    return p, (dp - di[..., None]) * p * sm_scale
+
+
+def flash_attention_bwd_dkv_reference(q, k, v, l, m, do, di, causal: bool = False,
+                                      sm_scale: float = 1.0):
+    """Plain version of the dK/dV kernel: ``(dk, dv)`` from the residuals
+    ``l``, ``m`` and ``di = Σ o·dO`` (f32 ``[b, h, sq]`` each)."""
+    p, ds = _p_ds(q, k, v, l, m, do, di, causal, sm_scale)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(do.dtype).float(), do.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds.to(do.dtype).float(), q.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_dq_reference(q, k, v, l, m, do, di, causal: bool = False,
+                                     sm_scale: float = 1.0):
+    """Plain version of the dQ kernel."""
+    _, ds = _p_ds(q, k, v, l, m, do, di, causal, sm_scale)
+    return torch.einsum("bhqk,bhkd->bhqd", ds.to(k.dtype).float(), k.float()).to(q.dtype)
+
+
+def flash_attention_di(o, do) -> torch.Tensor:
+    """``Σ_d o·dO`` in f32, ``[b, h, sq]`` contiguous (upstream computes it
+    outside its kernels, as here)."""
+    return (o.float() * do.float()).sum(dim=-1).contiguous()
+
+
+def flash_attention_bwd_reference(q, k, v, o, l, m, do, causal: bool = False,
+                                  sm_scale: float = 1.0):
+    """Plain version of both backward kernels: ``(dq, dk, dv)`` of
+    :func:`flash_attention_fwd_reference`'s ``o`` for the output gradient
+    ``do``, from its residuals ``l`` and ``m``."""
+    di = flash_attention_di(o, do)
+    dk, dv = flash_attention_bwd_dkv_reference(q, k, v, l, m, do, di, causal, sm_scale)
+    return flash_attention_bwd_dq_reference(q, k, v, l, m, do, di, causal, sm_scale), dk, dv
+
+
+def flash_attention_bwd_bound(q, k, v, o, l, m, do, causal: bool = False,
+                              sm_scale: float = 1.0):
+    """``(A_dq, A_dk, A_dv)`` = ``(|dS|·|k|, |dS|ᵀ·|q|, pᵀ·|dO|)`` in f32:
+    the backward's sums taken over absolute values. Where the kernels and
+    their plain versions round ``p`` or ``dS`` to neighbouring values of
+    the working dtype, each gradient moves by at most one step of its A
+    (2^-7 relative in bf16), and the final rounding by one step of the
+    gradient itself: the card's checks allow twice that."""
+    p, ds = _p_ds(q, k, v, l, m, do, flash_attention_di(o, do), causal, sm_scale)
+    ds = ds.abs()
+    return (torch.einsum("bhqk,bhkd->bhqd", ds, k.float().abs()),
+            torch.einsum("bhqk,bhqd->bhkd", ds, q.float().abs()),
+            torch.einsum("bhqk,bhqd->bhkd", p, do.float().abs()))
 
 
 def _out_like(q: torch.Tensor) -> torch.Tensor:
-    """An uninitialised ``[b, h, s, d]`` output, laid out as ``[b, s, h, d]``."""
+    """An uninitialised ``[b, h, s, d]`` tensor, laid out as ``[b, s, h, d]``."""
     b, h, s, d = q.shape
     return q.new_empty((b, s, h, d)).transpose(1, 2)
 
 
+def _stats_like(q: torch.Tensor, stats: bool) -> torch.Tensor:
+    """An uninitialised f32 ``[b, h, sq]`` buffer for ``l`` or ``m``, or
+    ``[b, h, 0]`` when no statistics are kept."""
+    b, h, sq, _ = q.shape
+    return q.new_empty((b, h, sq if stats else 0), dtype=torch.float32)
+
+
 @torch.library.custom_op("tftpu::flash_attention", mutates_args=())
 def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-              sm_scale: float) -> torch.Tensor:
+              sm_scale: float, stats: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     if q.device.type != "cuda":
-        return _out_like(q).copy_(flash_attention_reference(q, k, v, causal, sm_scale))
-    return _launch(q, k, v, causal, sm_scale)
+        if not stats:
+            o = flash_attention_reference(q, k, v, causal, sm_scale)
+            return _out_like(q).copy_(o), _stats_like(q, False), _stats_like(q, False)
+        o, l, m = flash_attention_fwd_reference(q, k, v, causal, sm_scale)
+        return _out_like(q).copy_(o), l.contiguous(), m.contiguous()
+    return _launch(q, k, v, causal, sm_scale, stats)
 
 
 @_flash_op.register_fake
-def _flash_fake(q, k, v, causal, sm_scale):
-    return _out_like(q)
+def _flash_fake(q, k, v, causal, sm_scale, stats):
+    return _out_like(q), _stats_like(q, stats), _stats_like(q, stats)
+
+
+def _fold(n: int, t: torch.Tensor, dim):
+    t = t.movedim(dim, 0) if dim is not None else t.expand(n, *t.shape)
+    return t.reshape(n * t.shape[1], *t.shape[2:])
 
 
 @_flash_op.register_vmap
-def _flash_vmap(info, in_dims, q, k, v, causal, sm_scale):
+def _flash_vmap(info, in_dims, q, k, v, causal, sm_scale, stats):
     """Fold the vmapped dim into the batch dim: one op call for the whole
-    vmapped batch."""
+    vmapped batch; each of ``o``, ``l``, ``m`` unfolds again."""
     n = info.batch_size
+    outs = _flash_op(_fold(n, q, in_dims[0]), _fold(n, k, in_dims[1]), _fold(n, v, in_dims[2]),
+                     causal, sm_scale, stats)
+    return tuple(t.reshape(n, t.shape[0] // n, *t.shape[1:]) for t in outs), (0, 0, 0)
 
-    def fold(t, dim):
-        t = t.movedim(dim, 0) if dim is not None else t.expand(n, *t.shape)
-        return t.reshape(n * t.shape[1], *t.shape[2:])
 
-    out = _flash_op(fold(q, in_dims[0]), fold(k, in_dims[1]), fold(v, in_dims[2]),
-                    causal, sm_scale)
-    return out.reshape(n, -1, *out.shape[1:]), 0
+def _flash_setup(ctx, inputs, output):
+    q, k, v, causal, sm_scale, _ = inputs
+    o, l, m = output
+    ctx.save_for_backward(q, k, v, o, l, m)
+    ctx.causal, ctx.sm_scale = causal, sm_scale
+    ctx.mark_non_differentiable(l, m)
+    ctx.set_materialize_grads(False)  # l and m get no gradient: do not fill zeros for them
+
+
+def _flash_grad(ctx, do, _dl, _dm):
+    if torch.is_grad_enabled():
+        raise NotImplementedError(
+            "flash_attention: gradients of the gradient are not supported (as upstream's)"
+        )
+    q, k, v, o, l, m = ctx.saved_tensors
+    if l.shape[-1] != q.shape[2]:
+        raise RuntimeError(
+            "flash_attention: the forward kept no softmax statistics (stats=False); "
+            "call flash_attention() with grad mode on to differentiate it"
+        )
+    dq, dk, dv = flash_attention_backward(q, k, v, o, l, m, do, ctx.causal, ctx.sm_scale)
+    return dq, dk, dv, None, None, None
+
+
+_flash_op.register_autograd(_flash_grad, setup_context=_flash_setup)
+
+
+@torch.library.custom_op("tftpu::flash_attention_bwd_dkv", mutates_args=())
+def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            l: torch.Tensor, m: torch.Tensor, do: torch.Tensor,
+                            di: torch.Tensor, causal: bool,
+                            sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dK and dV (``[b, h, sk, d]``, laid out as ``[b, sk, h, d]``) from the
+    residuals: the kernel on a CUDA tensor, its plain version on a CPU one."""
+    if q.device.type != "cuda":
+        dk, dv = flash_attention_bwd_dkv_reference(q, k, v, l, m, do, di, causal, sm_scale)
+        return _out_like(k).copy_(dk), _out_like(v).copy_(dv)
+    return _launch_dkv(q, k, v, l, m, do, di, causal, sm_scale)
+
+
+@flash_attention_bwd_dkv.register_fake
+def _bwd_dkv_fake(q, k, v, l, m, do, di, causal, sm_scale):
+    return _out_like(k), _out_like(v)
+
+
+@torch.library.custom_op("tftpu::flash_attention_bwd_dq", mutates_args=())
+def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           l: torch.Tensor, m: torch.Tensor, do: torch.Tensor,
+                           di: torch.Tensor, causal: bool, sm_scale: float) -> torch.Tensor:
+    """dQ (laid out as ``[b, sq, h, d]``), as :func:`flash_attention_bwd_dkv`."""
+    if q.device.type != "cuda":
+        dq = flash_attention_bwd_dq_reference(q, k, v, l, m, do, di, causal, sm_scale)
+        return _out_like(q).copy_(dq)
+    return _launch_dq(q, k, v, l, m, do, di, causal, sm_scale)
+
+
+@flash_attention_bwd_dq.register_fake
+def _bwd_dq_fake(q, k, v, l, m, do, di, causal, sm_scale):
+    return _out_like(q)
+
+
+def flash_attention_backward(q, k, v, o, l, m, do, causal: bool, sm_scale: float):
+    """``(dq, dk, dv)`` through the two backward ops: ``di`` by one torch
+    reduction, then dK/dV and dQ (the kernels on a CUDA tensor, the plain
+    backward on a CPU tensor)."""
+    if do.dtype != q.dtype:
+        raise ValueError(f"flash_attention backward: dO is {do.dtype}, q is {q.dtype}")
+    di = flash_attention_di(o, do)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, l, m, do, di, causal, sm_scale)
+    return flash_attention_bwd_dq(q, k, v, l, m, do, di, causal, sm_scale), dk, dv
 
 
 def _strides(t: torch.Tensor):
     return tuple(int(x) for x in t.stride()[:3])
 
 
-def _launch(q, k, v, causal: bool, sm_scale: float) -> torch.Tensor:
+def _unit_last(*ts):
+    return tuple(t if t.stride(-1) == 1 else t.contiguous() for t in ts)
+
+
+def _launch(q, k, v, causal: bool, sm_scale: float, stats: bool):
     b, h, sq, d = (int(x) for x in q.shape)
     sk = int(k.shape[2])
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
-    out = _out_like(q)
+    q, k, v = _unit_last(q, k, v)
+    out, l, m = _out_like(q), _stats_like(q, stats), _stats_like(q, stats)
     if b == 0 or sq == 0:
-        return out
+        return out, l, m
     rc = library().tft_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, sq, sk, d,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        l.data_ptr() if stats else None, m.data_ptr() if stats else None, b, h, sq, sk, d,
         *_strides(q), *_strides(k), *_strides(v), *_strides(out),
         float(sm_scale), int(causal), int(q.dtype == torch.bfloat16), *launch_target(q.device),
     )
     check("flash_attention", rc)
-    return out
+    return out, l, m
+
+
+def _bwd_inputs(q, k, v, l, m, do, di):
+    """q/k/v/dO with a unit last stride, the statistics f32 and contiguous;
+    raises on what the kernels do not take."""
+    if {k.dtype, v.dtype, do.dtype} != {q.dtype} or q.dtype not in (torch.bfloat16,
+                                                                   torch.float32):
+        raise ValueError(
+            f"flash_attention backward: the kernels take bfloat16 or float32 q/k/v/dO of one "
+            f"dtype; got {q.dtype}/{k.dtype}/{v.dtype}/{do.dtype}"
+        )
+    b, h, sq, _ = q.shape
+    for name, t in (("l", l), ("m", m), ("di", di)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (b, h, sq):
+            raise ValueError(
+                f"flash_attention backward: {name} must be float32 {(b, h, sq)}; got "
+                f"{t.dtype} {tuple(t.shape)}"
+            )
+    if tuple(do.shape) != tuple(q.shape):
+        raise ValueError(f"flash_attention backward: dO {tuple(do.shape)} is not q's shape")
+    return (*_unit_last(q, k, v, do), l.contiguous(), m.contiguous(), di.contiguous())
+
+
+def _launch_dkv(q, k, v, l, m, do, di, causal: bool, sm_scale: float):
+    q, k, v, do, l, m, di = _bwd_inputs(q, k, v, l, m, do, di)
+    b, h, sq, d = (int(x) for x in q.shape)
+    sk = int(k.shape[2])
+    dk, dv = _out_like(k), _out_like(v)
+    if b == 0:
+        return dk, dv
+    rc = library().tft_flash_attention_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), l.data_ptr(), m.data_ptr(),
+        di.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, sq, sk, d,
+        *_strides(q), *_strides(k), *_strides(v), *_strides(do), *_strides(dk), *_strides(dv),
+        float(sm_scale), int(causal), int(q.dtype == torch.bfloat16), *launch_target(q.device),
+    )
+    check("flash_attention_bwd_dkv", rc)
+    return dk, dv
+
+
+def _launch_dq(q, k, v, l, m, do, di, causal: bool, sm_scale: float):
+    q, k, v, do, l, m, di = _bwd_inputs(q, k, v, l, m, do, di)
+    b, h, sq, d = (int(x) for x in q.shape)
+    sk = int(k.shape[2])
+    dq = _out_like(q)
+    if b == 0 or sq == 0:
+        return dq
+    rc = library().tft_flash_attention_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), l.data_ptr(), m.data_ptr(),
+        di.data_ptr(), dq.data_ptr(), b, h, sq, sk, d,
+        *_strides(q), *_strides(k), *_strides(v), *_strides(do), *_strides(dq),
+        float(sm_scale), int(causal), int(q.dtype == torch.bfloat16), *launch_target(q.device),
+    )
+    check("flash_attention_bwd_dq", rc)
+    return dq
+
+
+def flash_attention_fwd(q, k, v, causal: bool, sm_scale: float):
+    """``(o, l, m)``: the forward with its residuals (``l``, ``m`` f32
+    ``[b, h, sq]``), as the gradient saves them."""
+    return _flash_op(q, k, v, causal, sm_scale, True)
 
 
 def flash_attention(q, k, v, causal: bool = False) -> torch.Tensor:
     """``softmax(q·kᵀ/√d)·v`` for ``q [b, h, sq, d]`` and ``k, v
     [b, h, sk, d]`` of one dtype (bf16 or f32 on the card); the result
-    ``[b, h, sq, d]`` in ``q.dtype``. Causal masks ``col > row``. A CUDA
-    input the kernel cannot take (another dtype, head_dim above 128, no
-    keys) raises."""
+    ``[b, h, sq, d]`` in ``q.dtype``, differentiable in q, k and v. Causal
+    masks ``col > row``. A CUDA input the kernels cannot take (another
+    dtype, head_dim above 128, no keys) raises."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError(
             f"flash_attention: q/k/v must be [b, h, s, d]; got {q.ndim}/{k.ndim}/{v.ndim}-D"
@@ -146,4 +387,5 @@ def flash_attention(q, k, v, causal: bool = False) -> torch.Tensor:
             raise ValueError("flash_attention: the kernel needs at least one key")
         if k.device != q.device or v.device != q.device:
             raise ValueError("flash_attention: q, k and v must be on one device")
-    return _flash_op(q, k, v, bool(causal), default_scale(int(d)))
+    stats = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    return _flash_op(q, k, v, bool(causal), default_scale(int(d)), stats)[0]

@@ -1,20 +1,23 @@
 """A compact transformer encoder/decoder stack, as plain dicts of tensors.
 
-The reference package's flagship model (``models/transformer.py``), in
-its inference subset: the config, parameter initialisation, the forward
-pass with dense, blockwise or flash attention (the last through the
-hand-written flash-attention kernel on the card), the BERT-style
-embedding programs for ``map_blocks`` (:func:`embed_program`) and
-``map_rows`` (:func:`embed_row_program`, BASELINE config 5),
-:func:`synthetic_batch`, weight-only int8 quantization, and
+The reference package's flagship model (``models/transformer.py``),
+unsharded: the config, parameter initialisation, the forward pass with
+dense, blockwise or flash attention (the last through the hand-written
+flash-attention kernels on the card, forward and backward), each layer
+recomputed in the backward pass when ``cfg.remat`` is set, the
+BERT-style embedding programs for ``map_blocks`` (:func:`embed_program`)
+and ``map_rows`` (:func:`embed_row_program`, BASELINE config 5),
+:func:`synthetic_batch`, weight-only int8 quantization,
 :func:`params_from_jax`, which carries a reference parameter tree across
-so both packages run the same weights. Parameters keep the reference's
-names and layouts (``embed.tok [vocab, h]``, ``layers[i].attn.qkv
-[h, 3h]``, ...); activations run in ``cfg.dtype`` (bf16 by default) and
-the parameters stay f32 unless quantized.
+so both packages run the same weights, and training: the causal-LM
+:func:`loss_fn`, :func:`make_train_step` and its optimizer
+(:func:`adamw`, optax's ``adamw`` defaults). Parameters keep the
+reference's names and layouts (``embed.tok [vocab, h]``,
+``layers[i].attn.qkv [h, 3h]``, ...); activations run in ``cfg.dtype``
+(bf16 by default) and the parameters stay f32 unless quantized.
 
-Training (``loss_fn``, ``make_train_step``) and sharding wait for later
-slices (ROADMAP queue 1).
+The sharded train step and sequence-parallel attention wait for the
+multi-device work (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -25,9 +28,10 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..config import resolve_device
-from ..ops.quantize import QuantizedTensor, matmul as _mm, quantize_tree
+from ..ops.quantize import QuantizedTensor, matmul as _mm, quantize_tree, tree_leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +48,8 @@ class TransformerConfig:
     # (sequence parallelism) wait for the multi-device work
     attention_impl: str = "dense"
     causal: bool = False
+    # recompute each layer's activations in the backward pass (a
+    # torch.utils.checkpoint per layer) instead of keeping them resident
     remat: bool = False
 
     @property
@@ -203,14 +209,22 @@ def forward(
     mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Encoder forward: int tokens ``[b, s]`` → hidden states ``[b, s, h]``
-    in ``cfg.dtype``. ``mask`` (bool ``[b, s]``) is the padding mask."""
+    in ``cfg.dtype``. ``mask`` (bool ``[b, s]``) is the padding mask. With
+    ``cfg.remat`` each layer runs under ``torch.utils.checkpoint``
+    (non-reentrant), as the reference wraps it in ``jax.checkpoint``: its
+    activations are recomputed in the backward pass, not kept."""
     tokens = torch.as_tensor(tokens, device=params["embed"]["tok"].device).long()
     x = params["embed"]["tok"][tokens].to(cfg.dtype)
     s = tokens.shape[1]
     x = x + params["embed"]["pos"][:s].to(cfg.dtype)
-    for p in params["layers"]:
+
+    def layer(x, p):
         x = x + _attention(cfg, p["attn"], _layer_norm(x, **p["ln1"]), mask)
-        x = x + _mlp(p["mlp"], _layer_norm(x, **p["ln2"]))
+        return x + _mlp(p["mlp"], _layer_norm(x, **p["ln2"]))
+
+    remat = cfg.remat and torch.is_grad_enabled()  # nothing to recompute without a graph
+    for p in params["layers"]:
+        x = checkpoint(layer, x, p, use_reentrant=False) if remat else layer(x, p)
     return _layer_norm(x, **params["final_ln"])
 
 
@@ -255,3 +269,59 @@ def quantize_params(params: Dict) -> Dict:
     are gathered or broadcast, not multiplied, so quantizing them saves
     little and costs accuracy."""
     return quantize_tree(params, predicate=lambda path, _: "embed" not in path)
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+def loss_fn(cfg: TransformerConfig, params: Dict, tokens, targets) -> torch.Tensor:
+    """Causal-LM-style cross entropy against the token embedding matrix,
+    as the reference: the hidden states widened to f32 times ``embed.tok``
+    transposed, an f32 product (this function sets no ``torch.backends``
+    flag: on the card it relies on PyTorch's default of no TF32 for f32
+    matmuls), ``log_softmax``, the targets' entries gathered, their mean
+    negated. Returns an f32 scalar."""
+    hs = forward(cfg, params, tokens)
+    logits = hs.float() @ params["embed"]["tok"].T
+    logp = F.log_softmax(logits, dim=-1)
+    targets = torch.as_tensor(targets, device=logits.device).long()
+    nll = -torch.gather(logp, -1, targets[..., None])
+    return nll.mean()
+
+
+def adamw(params: Dict, learning_rate: float, b1: float = 0.9, b2: float = 0.999,
+          eps: float = 1e-8, weight_decay: float = 1e-4) -> torch.optim.AdamW:
+    """The counterpart of ``optax.adamw(learning_rate)`` with its defaults
+    (decoupled weight decay 1e-4, bias-corrected moments): a
+    ``torch.optim.AdamW`` over the tree's leaves, in the tree's order.
+    Each leaf is made to require grad."""
+    leaves = tree_leaves(params)
+    for leaf in leaves:
+        if not (torch.is_tensor(leaf) and leaf.is_floating_point()):
+            raise ValueError(f"adamw: every leaf must be a float tensor; got {type(leaf)}")
+        leaf.requires_grad_(True)
+    return torch.optim.AdamW(leaves, lr=learning_rate, betas=(b1, b2), eps=eps,
+                             weight_decay=weight_decay)
+
+
+def make_train_step(cfg: TransformerConfig, opt: torch.optim.Optimizer):
+    """Plain (unsharded) train step over ``opt``, an optimizer over the
+    parameter tree's leaves (:func:`adamw`).
+
+    ``step(params, opt_state, tokens, targets) -> (params, opt_state,
+    loss)`` keeps the reference's signature, but works in place: the
+    gradients of :func:`loss_fn` land in the leaves' ``.grad`` and
+    ``opt.step()`` updates the leaves and the optimizer's state, so the
+    returned ``params`` and ``opt_state`` are the objects passed in
+    (``opt_state`` is ``opt.state``; pass it along unchanged). ``loss`` is
+    the pre-update loss, a detached f32 scalar on the parameters' device."""
+
+    def step(params, opt_state, tokens, targets):
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(cfg, params, tokens, targets)
+        loss.backward()
+        opt.step()
+        return params, opt_state, loss.detach()
+
+    return step

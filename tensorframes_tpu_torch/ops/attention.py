@@ -6,9 +6,13 @@
   ``generate_naive``);
 * :func:`blockwise_attention` — an online softmax over key blocks,
   O(s·block) memory, in the reference's order of roundings;
-* :func:`flash_attention` — the hand-written flash-attention kernel
-  (``kernels/flash_attention.py``) on a CUDA tensor, its plain version on
-  a CPU tensor.
+* :func:`flash_attention` — the hand-written flash-attention kernels
+  (``kernels/flash_attention.py``) on a CUDA tensor, their plain versions
+  on a CPU tensor; differentiable, its gradient through the two backward
+  kernels.
+
+Dense and blockwise attention are differentiable through autograd (the
+dense and blockwise training paths).
 
 The reference's ring and Ulysses implementations wait for the
 multi-device work (ROADMAP queue 1).
@@ -111,7 +115,8 @@ def flash_attention(
     hand-written kernel (any sequence length, head_dim <= 128, bf16 or
     f32; an input it cannot take raises, nothing falls back), on a CPU
     tensor its plain version, both in the upstream flash kernel's order of
-    roundings (``kernels/flash_attention.py``). ``block_size`` is the
+    roundings (``kernels/flash_attention.py``). Its gradient goes through
+    the dK/dV and dQ kernels the same way. ``block_size`` is the
     reference's signature, which passes it to its blockwise fallback; the
     port has no fallback and the kernel picks its own tiles."""
     from ..kernels.flash_attention import flash_attention as kernel

@@ -13,6 +13,7 @@
 """
 
 import ast
+import importlib
 import os
 import re
 import shutil
@@ -73,7 +74,7 @@ def test_port_and_chip_smoke_import_no_jax():
 
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
-    + ["chip_smoke.py", "tests/test_torch_on_card.py"]
+    + ["chip_smoke.py", "flash_forward_ab.py", "tests/test_torch_on_card.py"]
 ))
 def test_no_source_imports_jax_or_the_reference(path):
     tree = ast.parse((ROOT / path).read_text())
@@ -255,11 +256,13 @@ def test_kernel_registry_points_at_real_sources(name):
     info = tft.kernels.KERNELS[name]
     assert (ROOT / info.source).is_file()
     path, line = info.replaces.rsplit(":", 1)
-    text = (ROOT / path).read_text().splitlines()[int(line) - 1]
+    # the JAX package's kernels by repo path; upstream JAX's (the flash
+    # backward) by their path inside the installed jax
+    base = Path(importlib.import_module("jax").__file__).parents[1] if path.startswith(
+        "jax/") else ROOT
+    text = (base / path).read_text().splitlines()[int(line) - 1]
     assert re.match(r"def \w+\(", text), text
     module, fn = info.wrapper.rsplit(".", 1)
-    import importlib
-
     assert callable(getattr(importlib.import_module(module), fn))
     assert tft.kernels.LAUNCHES.snapshot()[name] >= 0
 

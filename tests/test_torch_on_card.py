@@ -23,7 +23,14 @@ same attention over |v|, plus a step of |want| where the f32 sums round
 apart: |got - want| <= 2^-7·(|want| + A) in bf16 (twice that), 1e-5·(|want|
 + A) in f32.
 The vmap rules launch one kernel for the whole vmapped batch, with the
-same bits as the un-vmapped call.
+same bits as the un-vmapped call. The flash backward kernels differ from
+their plain versions in the order of f32 sums, so each side may round p
+and dS to a neighbouring bf16 value (up to 2^-8 of it each): a gradient
+moves by at most 2^-7 of A, the same sums over absolute values
+(``kfa.flash_attention_bwd_bound``), and its own rounding by 2^-7 of
+|want|; the tests allow twice that, |got - want| <= 2^-6·(|want| + A) in
+bf16, and 1e-5·(|want| + A) in f32. Two launches give the same bits, and
+prefetched batches arrive bit for bit.
 """
 
 import numpy as np
@@ -38,6 +45,7 @@ from tensorframes_tpu_torch.kernels import flash_attention as kfa
 from tensorframes_tpu_torch.models import generation as tgen
 from tensorframes_tpu_torch.models import transformer as ttr
 from tensorframes_tpu_torch.ops import quantize as tq
+from tensorframes_tpu_torch import io as tio
 from tensorframes_tpu_torch.ops import segment as tseg
 
 pytestmark = pytest.mark.cuda
@@ -381,3 +389,87 @@ def test_encoder_map_rows_launches_per_layer_on_card(cuda_device):
                             device=cuda_device).column_values("embedding")
     assert rows.shape == (32, 768) and np.isfinite(rows).all()
     np.testing.assert_allclose(rows, blocks, rtol=0, atol=1e-2 * np.abs(blocks).max())
+
+
+def _bwd_case(device, shape, dtype, causal, strided, seed):
+    """q/k/v (views of one ``[b, s, 3, h, d]`` tensor when ``strided``),
+    dO, and the forward kernel's o, l, m."""
+    b, h, s, d = shape
+    rng = np.random.default_rng(seed)
+    if strided:
+        qkv = torch.from_numpy(rng.standard_normal((b, s, 3, h, d)).astype(np.float32))
+        q, k, v = (qkv.to(device, dtype)[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+    else:
+        q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+            device, dtype) for _ in range(3))
+    do = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device, dtype)
+    with torch.no_grad():
+        o, l, m = kfa.flash_attention_fwd(q, k, v, causal, kfa.default_scale(d))
+    return q, k, v, do, o, l, m
+
+
+@pytest.mark.parametrize("shape,dtype,causal,strided", [
+    ((8, 12, 1024, 64), torch.bfloat16, True, True),     # the training path's
+    ((2, 3, 77, 40), torch.bfloat16, True, False),       # tile edges, head_dim 40
+    ((2, 2, 100, 128), torch.float32, False, True),
+])
+def test_flash_backward_kernels_match_plain_on_card(cuda_device, shape, dtype, causal, strided):
+    q, k, v, do, o, l, m = _bwd_case(cuda_device, shape, dtype, causal, strided, seed=shape[2])
+    scale = kfa.default_scale(shape[-1])
+    di = kfa.flash_attention_di(o, do)
+    tft.kernels.LAUNCHES.reset()
+    dk, dv = kfa.flash_attention_bwd_dkv(q, k, v, l, m, do, di, causal, scale)
+    dq = kfa.flash_attention_bwd_dq(q, k, v, l, m, do, di, causal, scale)
+    launches = tft.kernels.LAUNCHES.snapshot()
+    assert launches["flash_attention_bwd_dkv"] == 1 and launches["flash_attention_bwd_dq"] == 1
+    want = (kfa.flash_attention_bwd_dq_reference(q, k, v, l, m, do, di, causal, scale),
+            *kfa.flash_attention_bwd_dkv_reference(q, k, v, l, m, do, di, causal, scale))
+    bound = kfa.flash_attention_bwd_bound(q, k, v, o, l, m, do, causal, scale)
+    rtol = 2.0 ** -6 if dtype == torch.bfloat16 else 1e-5
+    for got, w, a in zip((dq, dk, dv), want, bound):
+        assert got.dtype == dtype and got.shape == w.shape
+        diff = (got.double() - w.double()).abs()
+        assert bool((diff <= rtol * (w.double().abs() + a.double())).all()), float(diff.max())
+    # deterministic: no float atomics, every sum in a fixed order
+    dk2, dv2 = kfa.flash_attention_bwd_dkv(q, k, v, l, m, do, di, causal, scale)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    assert torch.equal(dq, kfa.flash_attention_bwd_dq(q, k, v, l, m, do, di, causal, scale))
+
+
+def test_flash_gradient_launches_both_kernels_on_card(cuda_device):
+    """``torch.autograd.grad`` through ``flash_attention`` on the card: one
+    forward (with l and m, the o bits of the forward without them), one
+    dK/dV and one dQ launch, and the kernels' own results."""
+    shape = (2, 4, 200, 64)
+    q, k, v, do, o, l, m = _bwd_case(cuda_device, shape, torch.bfloat16, True, True, seed=9)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    tft.kernels.LAUNCHES.reset()
+    out = kfa.flash_attention(*leaves, causal=True)
+    grads = torch.autograd.grad(out, leaves, do)
+    launches = tft.kernels.LAUNCHES.snapshot()
+    assert (launches["flash_attention"], launches["flash_attention_bwd_dkv"],
+            launches["flash_attention_bwd_dq"]) == (1, 1, 1)
+    assert torch.equal(out.detach(), o)
+    want = kfa.flash_attention_backward(q, k, v, o, l, m, do, True, kfa.default_scale(64))
+    assert all(torch.equal(g, w) for g, w in zip(grads, want))
+
+
+def test_prefetch_delivers_batches_bit_for_bit_on_card(cuda_device):
+    """Batches staged on a side stream arrive as ``iterate_batches`` gives
+    them, though the consumer's stream is busy when each is handed over
+    and the staged memory is freed while the consumer still reads it."""
+    rng = np.random.default_rng(11)
+    frame = tft.frame_from_arrays({
+        "x": rng.standard_normal((64, 1 << 16)).astype(np.float32),
+        "t": rng.integers(0, 1 << 30, (64, 4096)).astype(np.int32),
+    })
+    want = list(tio.iterate_batches(frame, ["x", "t"], 8, shuffle=True, seed=3))
+    got = []
+    for batch in tio.prefetch_to_device(iter(want), size=2, device=cuda_device):
+        torch.cuda._sleep(2_000_000)  # the consumer's stream is still busy
+        got.append({k: (v * 1).cpu() for k, v in batch.items()})
+        del batch
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        for c in w:
+            np.testing.assert_array_equal(g[c].numpy(), w[c])
