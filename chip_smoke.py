@@ -8,7 +8,9 @@ through the package's entry points at full size on one GPU.
 
 Needs one CUDA GPU and ``nvcc`` (the kernels build on first use into
 ``build/torch_kernels/``). Exits nonzero, printing no result, when no GPU
-is visible or when the package is not beside this script. Phases:
+is visible or when the package is not beside this script. After the
+build it prints each flash forward build's ptxas registers and spills.
+Phases:
 
 1. kernels against their plain versions at the main path's shapes:
    ``segment_reduce`` (10M rows, 4096 groups: f32 sum and mean, f32 [n, 8]
@@ -27,9 +29,12 @@ is visible or when the package is not beside this script. Phases:
    16; library: ``scaled_dot_product_attention`` over pages already
    gathered and dequantized, the gather not timed); ``flash_attention``
    at [1024, 12, 128, 64] bf16 (q/k/v the encoder's strided views of one
-   qkv tensor), [4, 8, 4096, 128] bf16 causal and [3, 4, 200, 64] f32
-   causal, within a tolerance that three deliberately broken plain
-   versions must exceed (timed at the first shape, the second logged;
+   qkv tensor), [4, 8, 4096, 128] bf16 causal, [3, 4, 200, 64] f32
+   causal and [2, 8, 333, 80] bf16 causal, within a tolerance that three
+   deliberately broken plain versions must exceed, each through the build
+   it must reach (bf16 on the tensor cores, f32 on the scalar kernel) and
+   twice with the same bits (timed at the first shape; the bench shape,
+   the training path's with and without l and m, and an f32 one logged;
    library: ``scaled_dot_product_attention``); the flash backward's dK/dV
    and dQ kernels at [1024, 12, 128, 64] bf16 (strided views), [8, 12,
    1024, 64] bf16 causal (the training path's) and [3, 4, 1000, 128] f32
@@ -60,14 +65,15 @@ is visible or when the package is not beside this script. Phases:
    future) and step time follow. Then BERT-base embedding extraction with
    flash attention (f32 weights from seed 0, 1,024 rows of 128 tokens):
    ``map_rows`` and ``map_blocks`` must launch the flash kernel 12 times
-   per call, agree with each other and with dense attention through the
+   per call, all on its tensor-core build, agree with each other and with dense attention through the
    same verb, while an attention that drops the last key tile must not;
    a 64-row ``map_rows`` over int8 weights must launch 48 int8 and 12
    flash kernels. Rows/s per verb follow. Then gpt_small training with
    flash attention (f32 weights from seed 0, AdamW at lr 1e-3):
    ``training.train_on_frame`` takes 10 steps of 8 x 1024 tokens off a
    16-row frame, counts reset first; every step must launch the flash
-   forward, dK/dV and dQ kernels 12 times each, receive the batch
+   forward (on its tensor-core build), dK/dV and dQ kernels 12 times
+   each, receive the batch
    ``iterate_batches`` gives, and the loss must be finite, start near
    ln(32,000) and fall; a ``remat=True`` step launches the forward 24
    times; one step's loss and gradients with flash agree with dense
@@ -136,6 +142,12 @@ def time_ms(fn, what: str, reps: int = 10) -> float:
         log(f"# timing {what}: the card caught up with the host (the call syncs), so "
             "its time includes the host's share")
     return start.elapsed_time(end) / reps
+
+
+def launch_counts(tft) -> dict:
+    """Launches per kernel since the last reset, and per build
+    (``flash_attention_mma``: the forward's launches on the tensor cores)."""
+    return {**tft.kernels.LAUNCHES.snapshot(), **tft.kernels.LAUNCHES.builds()}
 
 
 def bound_ms(nbytes: int) -> float:
@@ -441,8 +453,13 @@ FLASH_SHAPES = (  # (shape, dtype name, causal, q/k/v as views of one qkv tensor
     ((1024, 12, 128, 64), "bfloat16", False, True),  # BERT-base map_rows, as the encoder's
     ((4, 8, 4096, 128), "bfloat16", True, False),    # the reference's attention bench
     ((3, 4, 200, 64), "float32", True, False),       # tile edges: 200 = 3 x 64 + 8
+    ((2, 8, 333, 80), "bfloat16", True, False),      # head_dim 80 padded to 128; 333 = 5 x 64 + 13
 )
 FLASH_RTOL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
+# the forward's other timed shapes: the training path's (as the model passes
+# q/k/v), and an f32 one, which the scalar build serves
+FLASH_TRAIN_SHAPE = ((8, 12, 1024, 64), "bfloat16", True, True)
+FLASH_F32_SHAPE = ((3, 4, 1000, 128), "float32", True, False)
 
 
 def flash_inputs(dev, shape, dtype_name: str, strided: bool):
@@ -492,12 +509,17 @@ def broken_flash_versions(ref, causal: bool) -> dict:
 
 
 def check_flash_attention(dev) -> dict:
-    """The kernel against its plain version at the three shapes, with the
-    broken versions outside the same tolerance; timed at the main path's
-    shape (q/k/v the encoder's strided views), the bench shape logged. The
+    """The kernel against its plain version at the ``FLASH_SHAPES``, with
+    the broken versions outside the same tolerance, each through the build
+    it must reach (counted: the tensor cores for every bf16 entry, whose
+    head_dims are multiples of 8 and rows aligned, the scalar kernel for
+    f32), and two launches bit for bit. Timed at the main path's shape
+    (q/k/v the encoder's strided views); the bench shape, the training
+    path's shape (without and with l and m) and an f32 shape logged. The
     library call is ``scaled_dot_product_attention`` on the same inputs."""
     import torch
     import torch.nn.functional as F
+    from tensorframes_tpu_torch import kernels
     from tensorframes_tpu_torch.kernels import flash_attention as kfa
 
     err, worst = 0.0, 0.0
@@ -506,10 +528,21 @@ def check_flash_attention(dev) -> dict:
         if strided and (q.is_contiguous() or q.stride(-1) != 1):
             fail(f"flash_attention {shape}: the q/k/v views are not the encoder's strided ones")
         scale = kfa.default_scale(shape[-1])
+        build = kfa.forward_build(q, k, v)
+        kernels.LAUNCHES.reset()
         got = kfa.flash_attention(q, k, v, causal=causal)
+        again = kfa.flash_attention(q, k, v, causal=causal)
+        counts = (kernels.LAUNCHES.snapshot()["flash_attention"],
+                  kernels.LAUNCHES.builds()["flash_attention_mma"])
         ref = kfa.flash_attention_reference(q, k, v, causal, scale)
         bound = kfa.flash_attention_reference(q, k, v.abs(), causal, scale)
         torch.cuda.synchronize()
+        want = "mma" if dtype_name == "bfloat16" else "scalar"
+        if build != want or counts != (2, 2 * (build == "mma")):
+            fail(f"flash_attention {shape} {dtype_name}: build {build}, launches (all, tensor "
+                 f"cores) {counts}; want {want}")
+        if not torch.equal(got, again):
+            fail(f"flash_attention {shape}: two launches differ")
         if got.shape != ref.shape or got.dtype != ref.dtype or not bool(torch.isfinite(got).all()):
             fail(f"flash_attention {shape}: output {tuple(got.shape)} {got.dtype} or not finite")
         ratio = flash_ratio(got, ref, bound, dtype_name)
@@ -517,7 +550,7 @@ def check_flash_attention(dev) -> dict:
                   for what, fn in broken_flash_versions(kfa.flash_attention_reference,
                                                         causal).items()}
         log(f"# flash_attention {shape} {dtype_name} causal={causal} q strides {q.stride()} "
-            f"(read in place, no copy): max |err| "
+            f"(read in place, no copy), build {build}, two launches bit for bit: max |err| "
             f"{float((got.double() - ref.double()).abs().max()):.6g}, {ratio:.4g} of the "
             "tolerance; "
             "broken versions at " + ", ".join(f"{w} {r:.4g}" for w, r in broken.items()))
@@ -528,27 +561,36 @@ def check_flash_attention(dev) -> dict:
             if r <= 1:
                 fail(f"the flash gate cannot see a broken version at {shape} ({what}: {r} <= 1)")
         err, worst = max(err, float((got.double() - ref.double()).abs().max())), max(worst, ratio)
-        del got, ref, bound
+        del got, again, ref, bound
 
-    def timing(shape, dtype_name, causal, strided):
+    def timing(shape, dtype_name, causal, strided, stats=False):
         q, k, v = flash_inputs(dev, shape, dtype_name, strided)
         scale = kfa.default_scale(shape[-1])
         b, h, s, d = shape
         pairs = s * (s + 1) // 2 if causal else s * s  # the (row, key) pairs this data needs
+        run = ((lambda: kfa.flash_attention_fwd(q, k, v, causal, scale)) if stats else
+               (lambda: kfa.flash_attention(q, k, v, causal=causal)))
         return {
-            "ms": time_ms(lambda: kfa.flash_attention(q, k, v, causal=causal), f"flash {shape}"),
+            "build": kfa.forward_build(q, k, v),
+            "ms": time_ms(run, f"flash {shape} stats={stats}"),
             "plain_ms": time_ms(lambda: kfa.flash_attention_reference(q, k, v, causal, scale),
                                 f"flash plain {shape}"),
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal),
                                   f"flash library {shape}"),
-            **roofline(4 * q.numel() * q.element_size(), 4 * b * h * pairs * d),
+            **roofline(4 * q.numel() * q.element_size() + (2 * b * h * s * 4 if stats else 0),
+                       4 * b * h * pairs * d),
         }
 
-    bench = timing(*FLASH_SHAPES[1])
-    log(f"# flash_attention at the attention bench's {FLASH_SHAPES[1][0]} bf16 causal: "
-        f"{json.dumps(bench)}")
+    with torch.no_grad():
+        for what, args in (("the attention bench's", (*FLASH_SHAPES[1],)),
+                           ("the training path's", FLASH_TRAIN_SHAPE),
+                           ("the training path's, with l and m,", (*FLASH_TRAIN_SHAPE, True)),
+                           ("an f32", FLASH_F32_SHAPE)):
+            log(f"# flash_attention at {what} {args[0]} {args[1]} causal={args[2]}: "
+                f"{json.dumps(timing(*args))}")
+        main = timing(*FLASH_SHAPES[0])
     log(f"# flash_attention: the kernel used at most {worst:.4g} of the tolerance")
-    return {"max_abs_err": err, **timing(*FLASH_SHAPES[0])}
+    return {"max_abs_err": err, **{k: v for k, v in main.items() if k != "build"}}
 
 
 def check_int8_vmap(dev) -> None:
@@ -1030,10 +1072,13 @@ def encoder_path(tft, dev) -> dict:
     for verb in ("map_rows", "map_blocks"):
         tft.kernels.LAUNCHES.reset()
         emb[verb], secs[verb] = embed_rows(tft, cfg, params, frame, dev, verb)
-        launches[verb] = tft.kernels.LAUNCHES.snapshot()
+        launches[verb] = launch_counts(tft)
         if launches[verb]["flash_attention"] != cfg.num_layers:
             fail(f"{verb}: flash_attention launched {launches[verb]['flash_attention']} times "
                  f"in one call (want {cfg.num_layers}, one per layer)")
+        if launches[verb]["flash_attention_mma"] != cfg.num_layers:
+            fail(f"{verb}: {launches[verb]['flash_attention_mma']} of the {cfg.num_layers} flash "
+                 "launches went to the tensor-core build (want all)")
         e = emb[verb]
         if e.shape != (ENC_ROWS, cfg.hidden) or e.dtype != np.float32 or not np.isfinite(e).all():
             fail(f"{verb}: embeddings of shape {e.shape} / {e.dtype} or not finite")
@@ -1071,11 +1116,12 @@ def encoder_path(tft, dev) -> dict:
     embed_rows(tft, cfg, qparams, small, dev, "map_rows")  # warm-up
     tft.kernels.LAUNCHES.reset()
     qemb, qsecs = embed_rows(tft, cfg, qparams, small, dev, "map_rows")
-    qlaunches = tft.kernels.LAUNCHES.snapshot()
-    if (qlaunches["int8_matmul"], qlaunches["flash_attention"]) != (4 * cfg.num_layers,
-                                                                      cfg.num_layers):
+    qlaunches = launch_counts(tft)
+    if (qlaunches["int8_matmul"], qlaunches["flash_attention"],
+            qlaunches["flash_attention_mma"]) != (4 * cfg.num_layers, cfg.num_layers,
+                                                  cfg.num_layers):
         fail(f"int8 map_rows launched {qlaunches} in one call (want 48 int8_matmul, "
-             "12 flash_attention)")
+             "12 flash_attention, all 12 on the tensor cores)")
     qblocks, _ = embed_rows(tft, cfg, qparams, small, dev, "map_blocks")
     qgap = float(np.abs(qemb - qblocks).max())
     if not np.isfinite(qemb).all() or qgap > tol:
@@ -1161,7 +1207,7 @@ def training_path(tft, dev) -> dict:
 
     def on_step(i, loss):
         losses.append(loss)
-        per_step.append(tft.kernels.LAUNCHES.snapshot())
+        per_step.append(launch_counts(tft))
         if i == 1:
             torch.cuda.synchronize()
             first_done.append(time.perf_counter())
@@ -1177,7 +1223,7 @@ def training_path(tft, dev) -> dict:
     torch.cuda.synchronize()
     t_end = time.perf_counter()
     wall = t_end - t0
-    launches = tft.kernels.LAUNCHES.snapshot()
+    launches = launch_counts(tft)
     peak = torch.cuda.max_memory_allocated(dev)
     losses = [float(x) for x in losses]
     steady = (t_end - first_done[0]) / (len(losses) - 1)
@@ -1190,10 +1236,11 @@ def training_path(tft, dev) -> dict:
         fail(f"train_on_frame ran {ran} steps (want {TRAIN_STEPS})")
     prev = {k: 0 for k in launches}
     for i, snap in enumerate(per_step):
-        got = {k: snap[k] - prev[k] for k in ("flash_attention", "flash_attention_bwd_dkv",
-                                             "flash_attention_bwd_dq")}
+        got = {k: snap[k] - prev[k] for k in ("flash_attention", "flash_attention_mma",
+                                             "flash_attention_bwd_dkv", "flash_attention_bwd_dq")}
         if set(got.values()) != {cfg.num_layers}:
-            fail(f"training step {i + 1} launched {got} (want {cfg.num_layers} of each)")
+            fail(f"training step {i + 1} launched {got} (want {cfg.num_layers} of each, every "
+                 "forward on the tensor cores)")
         prev = snap
     per_epoch = TRAIN_ROWS // TRAIN_BATCH
     for i, batch in enumerate(received):  # epoch e is shuffled with seed + e
@@ -1221,11 +1268,12 @@ def training_path(tft, dev) -> dict:
     _, _, remat_loss = remat_step(params, opt.state, received[0]["tokens"],
                                   received[0]["targets"])
     torch.cuda.synchronize()
-    remat = tft.kernels.LAUNCHES.snapshot()
-    if (remat["flash_attention"], remat["flash_attention_bwd_dkv"],
-            remat["flash_attention_bwd_dq"]) != (2 * cfg.num_layers, cfg.num_layers,
-                                                 cfg.num_layers):
-        fail(f"a remat step launched {remat} (want 24 forward, 12 dK/dV, 12 dQ)")
+    remat = launch_counts(tft)
+    if (remat["flash_attention"], remat["flash_attention_mma"], remat["flash_attention_bwd_dkv"],
+            remat["flash_attention_bwd_dq"]) != (2 * cfg.num_layers, 2 * cfg.num_layers,
+                                                 cfg.num_layers, cfg.num_layers):
+        fail(f"a remat step launched {remat} (want 24 forward, all on the tensor cores, "
+             "12 dK/dV, 12 dQ)")
     if not math.isfinite(float(remat_loss)):
         fail("the remat step's loss is not finite")
 
@@ -1577,6 +1625,38 @@ def training_profile(train) -> dict:
     return {"step_ms": plain_wall, "split_ms": split, "busy_ms": busy, "groups_ms": groups}
 
 
+def kernel_name(mangled: str) -> str:
+    """``flash_attention_fwd_mma_kernel<64, true>`` from a mangled kernel
+    name of the build log (anything else as it is)."""
+    import re
+
+    m = re.search(r"([A-Za-z_]+_kernel)I(.*?)EEv", mangled)
+    if not m:
+        return mangled
+    args = m.group(2).replace("13__nv_bfloat16", "bf16,").replace("Lb0E", "false,")
+    args = re.sub(r"Li(\d+)E", r"\1,", args.replace("Lb1E", "true,"))
+    if args.startswith("f"):
+        args = "float," + args[1:]
+    return f"{m.group(1)}<{args.rstrip(',').replace(',', ', ')}>"
+
+
+def ptxas_report(text: str, needle: str = "flash_attention_fwd") -> dict:
+    """``{kernel<args>: "Used N registers, ...; S bytes spill stores, L
+    bytes spill loads"}`` for each kernel of the build log whose mangled
+    name holds ``needle``."""
+    out, entry, spill = {}, None, ""
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            entry, spill = (kernel_name(name) if needle in name else None), ""
+        elif entry is not None and "spill" in line:
+            spill = line.strip()
+        elif entry is not None and "Used" in line:
+            out[entry] = f"{line.split(':', 1)[1].strip()}; {spill}"
+            entry = None
+    return out
+
+
 def gpu_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1602,9 +1682,12 @@ def main() -> int:
     t0 = time.perf_counter()
     tft.kernels.library()
     log(f"# build: {time.perf_counter() - t0:.1f} s")
-    for line in tft.kernels.BUILD_LOG.read_text().splitlines() if tft.kernels.BUILD_LOG.exists() else []:
+    build_log = tft.kernels.BUILD_LOG.read_text() if tft.kernels.BUILD_LOG.exists() else ""
+    for line in build_log.splitlines():
         if "registers" in line or "spill" in line or "rc " in line:
             log(f"# nvcc | {line.strip()}")
+    for name, used in ptxas_report(build_log).items():
+        log(f"# ptxas flash forward build {name}: {used}")
 
     results = {
         "segment_reduce": check_segment_reduce(dev, 10_000_000, 4096),
@@ -1677,9 +1760,12 @@ def main() -> int:
     for name, info in tft.kernels.KERNELS.items():
         # a kernel on several paths (the flash forward) counts its launches on each
         launches = sum(p["launches"][name] for p, names in paths if name in names)
+        builds = {b: sum(p["launches"].get(b, 0) for p, names in paths if name in names)
+                  for b, kernel in tft.kernels.BUILDS.items() if kernel == name}
         kernels.append({
             "name": name, "route": "cuda", "source": info.source,
-            "replaces": info.replaces, "launches": launches, **results[name],
+            "replaces": info.replaces, "launches": launches,
+            **{f"{b}_launches": n for b, n in builds.items()}, **results[name],
         })
     log(json.dumps({"kernels": kernels}))
     log(gpu_line())

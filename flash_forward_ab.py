@@ -17,8 +17,10 @@ causal, each without the softmax statistics, and the latter also with l
 and m where the checkout writes them; each time is taken REPS times in
 turn. To compare two commits, give them as parent, change, change,
 parent (or more rounds). Prints one JSON line per DIR with the lists of
-times and the forward kernels' register counts from its build log, then
-the card's name and power limit. Exits nonzero without a GPU.
+times, the forward's launches during the timing (and, where the checkout
+counts them, how many ran on its tensor-core build), and each forward
+build's ptxas registers and spills from its build log; then the card's
+name and power limit. Exits nonzero without a GPU.
 """
 
 from __future__ import annotations
@@ -40,18 +42,6 @@ def _chip_smoke():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
-
-
-def _registers(log: Path) -> dict:
-    """``{mangled forward kernel name: ptxas 'Used ...' line}``."""
-    out, entry = {}, None
-    for line in log.read_text().splitlines() if log.exists() else []:
-        if "Compiling entry function" in line:
-            entry = line.split("'")[1] if "flash_attention_fwd" in line else None
-        elif entry is not None and "Used" in line:
-            out[entry] = line.split(":", 1)[1].strip()
-            entry = None
-    return out
 
 
 def one(root: Path) -> dict:
@@ -76,11 +66,16 @@ def one(root: Path) -> dict:
             calls[f"{name}_stats_ms"] = (lambda q=q, k=k, v=v, c=causal, s=scale:
                                          kfa.flash_attention_fwd(q, k, v, c, s))
     res = {"dir": str(root), **{key: [] for key in calls}}
+    counts = tft.kernels.LAUNCHES
+    counts.reset()
     with torch.no_grad():
         for _ in range(REPS):
             for key, fn in calls.items():
                 res[key].append(cs.time_ms(fn, f"{key} {root}"))
-    res["ptxas"] = _registers(tft.kernels.BUILD_LOG)
+    res["launches"] = {"flash_attention": counts.snapshot()["flash_attention"],
+                       **(counts.builds() if hasattr(counts, "builds") else {})}
+    log = tft.kernels.BUILD_LOG
+    res["ptxas"] = cs.ptxas_report(log.read_text() if log.exists() else "")
     return res
 
 

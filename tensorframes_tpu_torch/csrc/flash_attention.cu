@@ -12,12 +12,15 @@
 // tiles itself in a loop. The TPU layout's 128-lane m/l scratch and its
 // block_k_major tiling have no counterpart.
 //
-// What bounds it on the H100: at BERT's shape (s = 128, head_dim 64) bytes
-// (q, k, v read once, o written once: 4 x 2 x d bytes per query against
-// 4 x s x d flops); at long sequences operations. This simple version runs its
-// two contractions as scalar f32 FMAs out of shared memory, far from either
-// bound; tensor cores (mma.sync / wgmma), TMA and warp specialisation are a
-// later step.
+// This is the scalar build of the forward. bf16 inputs whose rows can be
+// copied 16 bytes at a time (head_dim a multiple of 8, 16-byte aligned rows),
+// the encoder's and the training path's among them, go to the tensor-core
+// kernel in flash_attention_mma.cu instead; this one serves f32 inputs (the
+// tensor cores would need TF32) and the other bf16 ones
+// (kernels/flash_attention.py::forward_build chooses). It runs its two
+// contractions as scalar f32 FMAs out of shared memory and is bound by its FMA
+// rate, far from the bytes (at s = 128) or operations (at long sequences) that
+// bound the function.
 //
 // Design: 256 threads per block; a 64-row q tile and 64-key K/V tiles staged
 // in shared memory as f32 (rows padded to head_dim + 1 floats, so the S loop

@@ -24,7 +24,11 @@ On the encoder's path (``attention_impl="flash"``, BERT through
 ``map_rows``/``map_blocks``):
 
 * ``flash_attention`` (:mod:`.flash_attention`) — attention forward with
-  an online softmax, one launch per layer; ``int8_matmul`` again when the
+  an online softmax, one launch per layer, in two builds: bf16 inputs
+  whose rows it can copy 16 bytes at a time go to the tensor-core kernel
+  (``csrc/flash_attention_mma.cu``), everything else to the scalar one
+  (``csrc/flash_attention.cu``), by
+  :func:`.flash_attention.forward_build`; ``int8_matmul`` again when the
   weights are quantized.
 
 On the training path (``attention_impl="flash"``, gpt_small through
@@ -54,7 +58,9 @@ Nothing here falls back: a build or launch failure raises.
 On CPU tensors each wrapper computes its plain PyTorch version instead —
 that is how the CPU tests run; a CUDA tensor always launches the kernel.
 Every launch adds one to the kernel's plain-integer count
-(:data:`LAUNCHES`) and to ``tftpu_kernels_dispatch_total{kernel=}``.
+(:data:`LAUNCHES`) and to ``tftpu_kernels_dispatch_total{kernel=}``; a
+launch of one of a kernel's builds (:data:`BUILDS`) also adds one to
+that build's count (:meth:`LaunchCounts.builds`).
 """
 
 from __future__ import annotations
@@ -76,7 +82,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 _SOURCES = (
     "segment_reduce.cu", "ragged_gather.cu", "decode_attention.cu", "int8_matmul.cu",
-    "flash_attention.cu", "flash_attention_bwd.cu",
+    "flash_attention.cu", "flash_attention_mma.cu", "flash_attention_bwd.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -125,8 +131,8 @@ KERNELS: Dict[str, KernelInfo] = {
             "tensorframes_tpu_torch.ops.quantize.matmul_int8",
         ),
         KernelInfo(
-            "flash_attention",
-            "tensorframes_tpu_torch/csrc/flash_attention.cu",
+            "flash_attention",  # the tensor-core build; the scalar one is csrc/flash_attention.cu
+            "tensorframes_tpu_torch/csrc/flash_attention_mma.cu",
             "tensorframes_tpu/ops/attention.py:132",
             "tensorframes_tpu_torch.kernels.flash_attention.flash_attention",
         ),
@@ -145,6 +151,9 @@ KERNELS: Dict[str, KernelInfo] = {
     )
 }
 
+# builds of a kernel counted on their own as well: build -> kernel
+BUILDS = {"flash_attention_mma": "flash_attention"}
+
 DISPATCHES = {
     k: _counter(
         "tftpu_kernels_dispatch_total",
@@ -158,25 +167,36 @@ DISPATCHES = {
 class LaunchCounts:
     """Plain-integer launch count per kernel: a wrapper adds one where it
     launches its kernel, and nowhere else (plain-version calls on CPU
-    tensors do not count)."""
+    tensors do not count). A launch of a build in :data:`BUILDS` counts
+    under the kernel and under the build."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._n = {k: 0 for k in KERNELS}
+        self._builds = {b: 0 for b in BUILDS}
 
-    def note(self, kernel: str) -> None:
+    def note(self, kernel: str, build: Optional[str] = None) -> None:
         with self._lock:
             self._n[kernel] += 1
+            if build is not None:
+                self._builds[build] += 1
         DISPATCHES[kernel].inc()
 
     def reset(self) -> None:
         with self._lock:
-            for k in self._n:
-                self._n[k] = 0
+            for counts in (self._n, self._builds):
+                for k in counts:
+                    counts[k] = 0
 
     def snapshot(self) -> Dict[str, int]:
+        """Launches per kernel, every build included."""
         with self._lock:
             return dict(self._n)
+
+    def builds(self) -> Dict[str, int]:
+        """Launches per build of :data:`BUILDS`."""
+        with self._lock:
+            return dict(self._builds)
 
 
 LAUNCHES = LaunchCounts()
@@ -246,6 +266,10 @@ def library() -> ctypes.CDLL:
                 vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, *([i64] * 12),
                 ctypes.c_float, i32, i32, i32, vp,
             ]
+            lib.tft_flash_attention_mma.argtypes = [
+                vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, *([i64] * 12),
+                ctypes.c_float, i32, i32, vp,
+            ]
             lib.tft_flash_attention_bwd_dkv.argtypes = [
                 *([vp] * 9), i32, i32, i32, i32, i32, *([i64] * 18),
                 ctypes.c_float, i32, i32, i32, vp,
@@ -256,7 +280,7 @@ def library() -> ctypes.CDLL:
             ]
             for f in (lib.tft_segment_reduce, lib.tft_segment_sum,
                       lib.tft_ragged_gather, lib.tft_paged_decode_attention,
-                      lib.tft_int8_matmul, lib.tft_flash_attention,
+                      lib.tft_int8_matmul, lib.tft_flash_attention, lib.tft_flash_attention_mma,
                       lib.tft_flash_attention_bwd_dkv, lib.tft_flash_attention_bwd_dq):
                 f.restype = ctypes.c_int
             lib.tft_error_string.argtypes = [ctypes.c_int]
@@ -265,13 +289,13 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
-def check(kernel: str, rc: int) -> None:
+def check(kernel: str, rc: int, build: Optional[str] = None) -> None:
     """Raise if a C entry point returned a CUDA error; else count the
-    launch."""
+    launch (and the build's, when one is named)."""
     if rc != 0:
         msg = library().tft_error_string(rc).decode()
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc} ({msg})")
-    LAUNCHES.note(kernel)
+    LAUNCHES.note(kernel, build)
 
 
 def launch_target(device) -> tuple:

@@ -28,8 +28,11 @@ roundings:
 
 :func:`flash_attention` goes through the custom op ``tftpu::flash_attention``:
 
-* on a CUDA tensor the op launches ``csrc/flash_attention.cu`` (or raises:
-  there is no fallback), reading q/k/v at their own strides, so the
+* on a CUDA tensor the op launches one of two forward kernels, as
+  :func:`forward_build` chooses — ``csrc/flash_attention_mma.cu`` (bf16
+  on the tensor cores) or ``csrc/flash_attention.cu`` (scalar f32 FMAs:
+  f32 inputs and the bf16 rows the other cannot copy) — or raises: there
+  is no fallback. Both read q/k/v at their own strides, so the
   ``[b, s, 3, h, d] → [b, h, s, d]`` views the encoder passes are not
   copied; the output is a ``[b, h, s, d]`` view of a ``[b, s, h, d]``
   buffer, so the encoder's transpose back is free. When a gradient will
@@ -279,6 +282,34 @@ def _unit_last(*ts):
     return tuple(t if t.stride(-1) == 1 else t.contiguous() for t in ts)
 
 
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """Every ``[b, h, s]`` row of ``t`` starts on a 16-byte boundary: the
+    data pointer does, and so does every stride of a dim longer than 1."""
+    size = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        (st * size) % 16 == 0 for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1)
+
+
+def forward_build(q, k, v) -> str:
+    """The forward kernel a CUDA call launches: ``"mma"`` or ``"scalar"``.
+
+    ``"mma"`` (``csrc/flash_attention_mma.cu``, the tensor cores) takes
+    bfloat16 q/k/v (with a unit last stride) whose rows it copies into
+    shared memory 16 bytes at a time: head_dim a multiple of 8, and every
+    row of q, k and v starting on a 16-byte boundary. Everything else goes
+    to ``"scalar"`` (``csrc/flash_attention.cu``): float32 inputs, which
+    the tensor cores would take only as TF32 (10 mantissa bits, where the
+    f32 gate allows 1e-5), and the bfloat16 inputs above that fail the
+    rule. Both kernels compute the same function in the same order of
+    roundings; this chooses between two kernels and is not a fallback.
+    The encoder's and the training path's q/k/v — views of one ``[b, s,
+    3, h, 64]`` bf16 tensor — take ``"mma"``."""
+    if (q.dtype == torch.bfloat16 and q.shape[-1] % 8 == 0
+            and all(_rows_aligned(t) for t in (q, k, v))):
+        return "mma"
+    return "scalar"
+
+
 def _launch(q, k, v, causal: bool, sm_scale: float, stats: bool):
     b, h, sq, d = (int(x) for x in q.shape)
     sk = int(k.shape[2])
@@ -286,13 +317,17 @@ def _launch(q, k, v, causal: bool, sm_scale: float, stats: bool):
     out, l, m = _out_like(q), _stats_like(q, stats), _stats_like(q, stats)
     if b == 0 or sq == 0:
         return out, l, m
-    rc = library().tft_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        l.data_ptr() if stats else None, m.data_ptr() if stats else None, b, h, sq, sk, d,
-        *_strides(q), *_strides(k), *_strides(v), *_strides(out),
-        float(sm_scale), int(causal), int(q.dtype == torch.bfloat16), *launch_target(q.device),
-    )
-    check("flash_attention", rc)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            l.data_ptr() if stats else None, m.data_ptr() if stats else None, b, h, sq, sk, d,
+            *_strides(q), *_strides(k), *_strides(v), *_strides(out),
+            float(sm_scale), int(causal))
+    if forward_build(q, k, v) == "mma":
+        rc = library().tft_flash_attention_mma(*args, *launch_target(q.device))
+        check("flash_attention", rc, "flash_attention_mma")
+    else:
+        rc = library().tft_flash_attention(*args, int(q.dtype == torch.bfloat16),
+                                           *launch_target(q.device))
+        check("flash_attention", rc)
     return out, l, m
 
 

@@ -11,10 +11,13 @@ count.
 
 :func:`segment_sum` dispatches like the reference's: the kernel for
 1-D/2-D float32/bfloat16 values and at most ``MAX_SEGMENTS`` segments
-(cast back to the values' dtype), and otherwise — int64, float64, more
-segments — PyTorch's ``index_add_`` in the values' dtype, the counterpart
-of the reference's ``jax.ops.segment_sum`` route. The reference's host
-``np.bincount`` route (an XLA:CPU workaround) is not part of the port.
+(cast back to the values' dtype), and otherwise — float16, int64,
+float64, more segments — PyTorch's ``index_add_``. Floats accumulate
+there in float32 (float64 for float64 values) and are cast back once, as
+the reference's CPU route accumulates in float64 (``np.bincount``):
+a float16 or bfloat16 accumulator stops growing once the sum outgrows
+its step. Integers and bools add in their own dtype, wrapping as
+``jax.ops.segment_sum`` does.
 """
 
 from __future__ import annotations
@@ -77,18 +80,33 @@ def segment_sum_kernel(values: torch.Tensor, seg_ids: torch.Tensor,
     return out
 
 
-def segment_sum(values: torch.Tensor, seg_ids: torch.Tensor,
-                num_segments: int) -> torch.Tensor:
-    """Segment sum with kernel dispatch; result dtype matches ``values``."""
+def accumulator_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype a segment sum of ``dtype`` values adds in: float64 for
+    float64, float32 for the other floats, the dtype itself otherwise."""
+    if dtype == torch.float64 or not dtype.is_floating_point:
+        return dtype
+    return torch.float32
+
+
+def segment_total(values: torch.Tensor, seg_ids: torch.Tensor,
+                  num_segments: int) -> torch.Tensor:
+    """Segment sum with kernel dispatch, left in
+    :func:`accumulator_dtype` (not yet cast back to ``values.dtype``)."""
     v2 = values[:, None] if values.ndim == 1 else values
     if _kernel_eligible(v2, num_segments):
         out = segment_sum_kernel(v2.contiguous(), seg_ids, num_segments)
-        if values.ndim == 1:
-            out = out[:, 0]
-        return out.to(values.dtype)
-    out = torch.zeros((num_segments,) + tuple(values.shape[1:]),
-                      dtype=values.dtype, device=values.device)
-    return out.index_add_(0, seg_ids.long(), values)
+        return out[:, 0] if values.ndim == 1 else out
+    acc = accumulator_dtype(values.dtype)
+    out = torch.zeros((num_segments,) + tuple(values.shape[1:]), dtype=acc,
+                      device=values.device)
+    return out.index_add_(0, seg_ids.long(), values.to(acc))
+
+
+def segment_sum(values: torch.Tensor, seg_ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """Segment sum with kernel dispatch; result dtype matches ``values``
+    (one cast from the accumulator)."""
+    return segment_total(values, seg_ids, num_segments).to(values.dtype)
 
 
 def _identity(dtype: torch.dtype, op: str):

@@ -631,6 +631,7 @@ def _segment_reduce_best(ops_key, num_groups, val_cols, seg_ids, device):
     others. Returns numpy columns."""
     from ..kernels import segment_reduce as _ksr
 
+    _reject_bool_mean(ops_key, val_cols)
     vals = {x: dt.to_torch(val_cols[x], device) for x, _ in ops_key}
     sids = dt.to_torch(np.asarray(seg_ids).astype(np.int32), device)
     if _ksr.eligible(ops_key, vals, num_groups):
@@ -640,30 +641,44 @@ def _segment_reduce_best(ops_key, num_groups, val_cols, seg_ids, device):
     return {x: dt.to_numpy(res[x]) for x, _ in ops_key}
 
 
+def _reject_bool_mean(ops_key, vals) -> None:
+    """A keyed mean of a bool column raises the reference's ``TypeError``
+    (its segment sum of bool ones does not exist), before any route is
+    chosen: the fused kernel would return a mean cast back to bool."""
+    for out_name, op in ops_key:
+        if op == "reduce_mean" and str(vals[out_name].dtype).removeprefix("torch.") == "bool":
+            raise TypeError("add does not accept dtype bool")
+
+
 def run_segment_fast(ops_key, num_groups, vals, sids) -> Dict[str, torch.Tensor]:
     """The per-op keyed reduction (≙ the reference's ``_seg_fast_for``):
     sums through :func:`~tensorframes_tpu_torch.ops.segment.segment_sum`,
-    min/max through scatter reductions, means as sum / count cast back to
-    the value dtype. ``sids`` may arrive in any order."""
-    from .segment import segment_minmax, segment_sum
+    min/max through scatter reductions. A float mean divides the sum,
+    still in its accumulator (float32, float64 for float64), by an int64
+    row count and is cast to the value dtype once, as the reference's
+    float64 host route does. An integer mean sums and counts in the value
+    dtype, wrapping as the reference's segment sums do, and divides in the
+    reference's inexact type. ``sids`` may arrive in any order."""
+    from .segment import segment_minmax, segment_sum, segment_total
 
+    _reject_bool_mean(ops_key, vals)
     outs = {}
     with torch.inference_mode():
         for out_name, op in ops_key:
             v = vals[out_name]
             if op == "reduce_mean":
-                s = segment_sum(v, sids, num_groups)
-                c = torch.zeros(num_groups, dtype=v.dtype, device=v.device).index_add_(
-                    0, sids.long(), torch.ones(v.shape[:1], dtype=v.dtype, device=v.device)
+                s = segment_total(v, sids, num_groups)
+                count = torch.int64 if v.is_floating_point() else v.dtype
+                c = torch.zeros(num_groups, dtype=count, device=v.device).index_add_(
+                    0, sids.long(), torch.ones(v.shape[:1], dtype=count, device=v.device)
                 )
                 c = c.reshape((-1,) + (1,) * (v.ndim - 1))
-                if not v.is_floating_point():
-                    # integer true division computes in the reference's
-                    # inexact type (int64 -> float64, else float32)
-                    inexact = torch.float64 if v.dtype == torch.int64 else torch.float32
-                    s, c = s.to(inexact), c.to(inexact)
+                # integer true division computes in the reference's inexact
+                # type (int64 -> float64, else float32)
+                inexact = s.dtype if s.is_floating_point() else (
+                    torch.float64 if v.dtype == torch.int64 else torch.float32)
                 # cast back: fetch dtype == input dtype by contract
-                outs[out_name] = (s / c).to(v.dtype)
+                outs[out_name] = (s.to(inexact) / c.to(inexact)).to(v.dtype)
             elif op == "reduce_sum":
                 outs[out_name] = segment_sum(v, sids, num_groups)
             else:

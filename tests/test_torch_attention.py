@@ -193,3 +193,51 @@ def test_flash_shape_mismatch_raises():
     q = torch.zeros((1, 2, 4, 8))
     with pytest.raises(ValueError, match="do not match"):
         tatt.flash_attention(q, torch.zeros((1, 2, 4, 16)), torch.zeros((1, 2, 4, 16)))
+
+
+def _qkv_views(b, s, h, d, dtype):
+    """Three ``[b, h, s, d]`` views of one ``[b, s, 3, h, d]`` tensor, as
+    the encoder and the training path pass them."""
+    qkv = torch.zeros((b, s, 3, h, d), dtype=dtype)
+    return tuple(qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+
+
+def _off_by_one(shape, dtype):
+    """A contiguous tensor whose data starts one element past a 16-byte
+    boundary."""
+    return torch.zeros(int(np.prod(shape)) + 1, dtype=dtype)[1:].view(shape)
+
+
+@pytest.mark.parametrize("what,make,build", [
+    ("the encoder's bf16 views", lambda: _qkv_views(4, 128, 12, 64, torch.bfloat16), "mma"),
+    ("the training path's bf16 views", lambda: _qkv_views(2, 1024, 12, 64, torch.bfloat16),
+     "mma"),
+    ("bf16 head_dim 80", lambda: (torch.zeros((2, 8, 333, 80), dtype=torch.bfloat16),) * 3,
+     "mma"),
+    ("bf16 head_dim 8, one row", lambda: (torch.zeros((1, 2, 1, 8), dtype=torch.bfloat16),) * 3,
+     "mma"),
+    ("bf16, a length-1 dim's odd stride", lambda: (torch.zeros((1, 2, 5, 64), dtype=torch.bfloat16)
+                                                   .as_strided((1, 2, 5, 64), (3, 320, 64, 1)),) * 3,
+     "mma"),
+    ("f32 views", lambda: _qkv_views(4, 128, 12, 64, torch.float32), "scalar"),
+    ("f32 head_dim 128", lambda: (torch.zeros((3, 4, 1000, 128)),) * 3, "scalar"),
+    ("bf16 head_dim 36", lambda: (torch.zeros((2, 3, 77, 36), dtype=torch.bfloat16),) * 3,
+     "scalar"),
+    ("bf16 views of a head_dim-36 qkv", lambda: _qkv_views(2, 16, 3, 36, torch.bfloat16),
+     "scalar"),
+    ("bf16 rows off a 16-byte boundary", lambda: (_off_by_one((2, 3, 77, 64), torch.bfloat16),) * 3,
+     "scalar"),
+    ("bf16 k alone off a 16-byte boundary", lambda: (
+        torch.zeros((2, 3, 77, 64), dtype=torch.bfloat16),
+        _off_by_one((2, 3, 77, 64), torch.bfloat16),
+        torch.zeros((2, 3, 77, 64), dtype=torch.bfloat16)), "scalar"),
+    ("bf16 with a sequence stride of 12 elements", lambda: (
+        torch.zeros((1, 1, 16, 12), dtype=torch.bfloat16)[..., :8],) * 3, "scalar"),
+])
+def test_forward_build_chooses_the_kernel(what, make, build):
+    """The one rule between the two forward kernels: bf16 whose rows can be
+    copied 16 bytes at a time takes the tensor cores, the rest the scalar
+    kernel (the rule reads dtypes, shapes, strides and data pointers, so
+    CPU tensors exercise it)."""
+    q, k, v = make()
+    assert kfa.forward_build(q, k, v) == build, what

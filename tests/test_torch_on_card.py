@@ -313,32 +313,61 @@ def _assert_flash_close(got, want, bound, dtype):
     assert bool((diff <= rtol * (want.abs() + bound.double())).all()), float(diff.max())
 
 
-@pytest.mark.parametrize("shape,dtype,causal,strided", [
-    ((1024, 12, 128, 64), torch.bfloat16, False, True),   # BERT-base map_rows, q/k/v views
-    ((4, 8, 4096, 128), torch.bfloat16, True, False),     # the attention bench
-    ((3, 4, 200, 64), torch.float32, True, False),        # tile edges
-    ((2, 3, 77, 40), torch.bfloat16, True, False),
-    ((2, 2, 100, 128), torch.float32, False, True),
-    ((1, 1, 1, 8), torch.float32, True, False),
+@pytest.mark.parametrize("shape,sk,dtype,causal,layout,build", [
+    ((1024, 12, 128, 64), None, torch.bfloat16, False, "views", "mma"),  # BERT-base map_rows, views
+    ((4, 8, 4096, 128), None, torch.bfloat16, True, "dense", "mma"),    # the attention bench
+    ((3, 4, 200, 64), None, torch.float32, True, "dense", "scalar"),    # tile edges
+    ((2, 3, 77, 40), None, torch.bfloat16, True, "dense", "mma"),
+    ((2, 2, 100, 128), None, torch.float32, False, "views", "scalar"),
+    ((1, 1, 1, 8), None, torch.float32, True, "dense", "scalar"),
+    # the tensor-core build's edges: head_dims padded to 64 or 128, ragged
+    # last tiles, sq != sk, one row or one key
+    ((2, 4, 150, 32), None, torch.bfloat16, False, "dense", "mma"),
+    ((2, 4, 333, 80), None, torch.bfloat16, True, "views", "mma"),
+    ((2, 4, 200, 96), None, torch.bfloat16, False, "views", "mma"),
+    ((3, 2, 100, 128), None, torch.bfloat16, False, "dense", "mma"),
+    ((3, 2, 100, 128), None, torch.bfloat16, True, "views", "mma"),
+    ((2, 3, 70, 64), 190, torch.bfloat16, False, "dense", "mma"),
+    ((2, 3, 190, 64), 70, torch.bfloat16, True, "dense", "mma"),
+    ((4, 2, 1, 64), None, torch.bfloat16, True, "dense", "mma"),
+    ((4, 2, 1, 64), 100, torch.bfloat16, False, "dense", "mma"),
+    ((2, 3, 64, 64), 1, torch.bfloat16, False, "dense", "mma"),
+    ((1, 2, 8, 8), None, torch.bfloat16, True, "dense", "mma"),
+    # bf16 the tensor-core build cannot copy 16 bytes at a time: the scalar one
+    ((2, 3, 77, 36), None, torch.bfloat16, True, "dense", "scalar"),
+    ((2, 3, 77, 64), None, torch.bfloat16, False, "offset", "scalar"),
 ])
-def test_flash_attention_kernel_matches_plain_on_card(cuda_device, shape, dtype, causal, strided):
+def test_flash_attention_kernel_matches_plain_on_card(cuda_device, shape, sk, dtype, causal,
+                                                      layout, build):
     b, h, s, d = shape
-    rng = np.random.default_rng(s + d)
-    if strided:  # [b, s, 3, h, d] → three [b, h, s, d] views, as the encoder passes them
+    sk = s if sk is None else sk
+    rng = np.random.default_rng(s + d + 7 * sk)
+    if layout == "offset":  # every row one element past a 16-byte boundary
+        q, k, v = (torch.from_numpy(rng.standard_normal(int(np.prod(x)) + 1).astype(np.float32))
+                   .to(cuda_device, dtype)[1:].view(x) for x in (shape, (b, h, sk, d), (b, h, sk, d)))
+    elif layout == "views":  # [b, s, 3, h, d] → three [b, h, s, d] views, as the encoder passes them
+        assert sk == s
         qkv = torch.from_numpy(rng.standard_normal((b, s, 3, h, d)).astype(np.float32))
         q, k, v = (qkv.to(cuda_device, dtype)[:, :, i].permute(0, 2, 1, 3) for i in range(3))
     else:
-        q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
-            cuda_device, dtype) for _ in range(3))
+        q, k, v = (torch.from_numpy(rng.standard_normal(x).astype(np.float32)).to(
+            cuda_device, dtype) for x in (shape, (b, h, sk, d), (b, h, sk, d)))
+    assert kfa.forward_build(q, k, v) == build
     tft.kernels.LAUNCHES.reset()
     got = kfa.flash_attention(q, k, v, causal=causal)
     assert tft.kernels.LAUNCHES.snapshot()["flash_attention"] == 1
+    assert tft.kernels.LAUNCHES.builds()["flash_attention_mma"] == (build == "mma")
     assert got.dtype == dtype and tuple(got.shape) == shape
     scale = kfa.default_scale(d)
     want = kfa.flash_attention_reference(q, k, v, causal, scale)
     _assert_flash_close(got, want, kfa.flash_attention_reference(q, k, v.abs(), causal, scale),
                         dtype)
     assert torch.equal(kfa.flash_attention(q, k, v, causal=causal), got)  # deterministic
+    o, l, m = kfa.flash_attention_fwd(q, k, v, causal, scale)  # the build that keeps l and m
+    _, l_want, m_want = kfa.flash_attention_fwd_reference(q, k, v, causal, scale)
+    assert torch.equal(o, got)
+    assert bool(((l - l_want).abs() <= 1e-5 * l_want.abs()).all())
+    assert bool(((m - m_want).abs() <= 1e-5 * m_want.abs().clamp(min=1.0)).all())
 
 
 def test_flash_attention_kernel_limits_raise_on_card(cuda_device):
