@@ -9,7 +9,8 @@ through the package's entry points at full size on one GPU.
 Needs one CUDA GPU and ``nvcc`` (the kernels build on first use into
 ``build/torch_kernels/``). Exits nonzero, printing no result, when no GPU
 is visible or when the package is not beside this script. After the
-build it prints each flash forward build's ptxas registers and spills.
+build it prints each flash forward and backward build's ptxas registers and
+spills.
 Phases:
 
 1. kernels against their plain versions at the main path's shapes:
@@ -37,13 +38,18 @@ Phases:
    the training path's with and without l and m, and an f32 one logged;
    library: ``scaled_dot_product_attention``); the flash backward's dK/dV
    and dQ kernels at [1024, 12, 128, 64] bf16 (strided views), [8, 12,
-   1024, 64] bf16 causal (the training path's) and [3, 4, 1000, 128] f32
-   causal, from the forward kernel's own o, l and m (whose o must equal
-   the forward without l and m bit for bit and lie within the forward's
-   tolerance of the plain forward, which the three broken forward
-   versions exceed at these shapes too), within a tolerance that
-   three deliberately broken plain backward versions must exceed, two
-   launches bit for bit (timed at the training shape; library:
+   1024, 64] bf16 causal (the training path's), [2, 8, 1000, 128] bf16
+   causal, [2, 6, 333, 80] bf16 causal against 200 keys, [2, 3, 77, 36]
+   bf16 causal and [3, 4, 1000, 128] f32 causal, from the forward
+   kernel's own o, l and m (whose o must equal the forward without l and
+   m bit for bit and lie within the forward's tolerance of the plain
+   forward, which the three broken forward versions exceed at these
+   shapes too), each through the build it must reach (counted: the
+   tensor cores for bf16 with head_dims that are multiples of 8, the
+   scalar kernels for head_dim 36 and f32), within a tolerance (plus the
+   term of dP's summation order on the tensor cores) that three
+   deliberately broken plain backward versions must exceed four times
+   over, two launches bit for bit (timed at the training shape; library:
    ``scaled_dot_product_attention``'s backward); ``quantize.matmul`` under
    ``torch.func.vmap`` must launch once and match the plain call's bits;
 2. the main path with every launch count reset first: add-3
@@ -72,13 +78,13 @@ Phases:
    flash attention (f32 weights from seed 0, AdamW at lr 1e-3):
    ``training.train_on_frame`` takes 10 steps of 8 x 1024 tokens off a
    16-row frame, counts reset first; every step must launch the flash
-   forward (on its tensor-core build), dK/dV and dQ kernels 12 times
-   each, receive the batch
+   forward, dK/dV and dQ kernels 12 times each, all on their tensor-core
+   builds, receive the batch
    ``iterate_batches`` gives, and the loss must be finite, start near
    ln(32,000) and fall; a ``remat=True`` step launches the forward 24
-   times; one step's loss and gradients with flash agree with dense
-   attention, and steps whose backward is one of the broken versions do
-   not. Steps/s, tokens/s and peak memory follow.
+   times and each backward kernel 12, on the tensor cores; one step's
+   loss and gradients with flash agree with dense attention, and steps
+   whose backward is one of the broken versions do not. Steps/s, tokens/s and peak memory follow.
 3. where the time goes: ``torch.profiler`` device time by kernel for
    each segment kernel alone, for two verbs (aggregate, map_blocks) and
    for a 16-slot decode step and for one BERT-base ``map_rows`` call
@@ -107,6 +113,9 @@ SLICE1_KERNELS = ("segment_reduce", "segment_sum", "ragged_gather")
 SERVING_KERNELS = ("decode_attention", "int8_matmul")
 ENCODER_KERNELS = ("flash_attention",)
 TRAINING_KERNELS = ("flash_attention", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+# every launch of a training step's flash kernel counted, and on its tensor-core build
+TRAINING_BUILDS = (*TRAINING_KERNELS, "flash_attention_mma", "flash_attention_bwd_dkv_mma",
+                   "flash_attention_bwd_dq_mma")
 
 
 def log(msg: str) -> None:
@@ -617,10 +626,14 @@ def check_int8_vmap(dev) -> None:
         "un-vmapped call")
 
 
-FLASH_BWD_SHAPES = (  # (shape, dtype name, causal, q/k/v/dO as views of [b, s, ., h, d])
-    ((1024, 12, 128, 64), "bfloat16", False, True),  # BERT-base, as the encoder passes them
-    ((8, 12, 1024, 64), "bfloat16", True, True),     # the training path: gpt_small, 8 x 1024
-    ((3, 4, 1000, 128), "float32", True, False),     # tile edges: 1000 = 15 x 64 + 40
+FLASH_BWD_SHAPES = (  # (shape [b, h, sq, d], dtype name, causal, q/k/v/dO as views of
+    #                    [b, s, ., h, d], sk (None: sq), the build backward_build must choose)
+    ((1024, 12, 128, 64), "bfloat16", False, True, None, "mma"),  # BERT-base, as the encoder's
+    ((8, 12, 1024, 64), "bfloat16", True, True, None, "mma"),     # the training path: gpt_small
+    ((2, 8, 1000, 128), "bfloat16", True, False, None, "mma"),    # head_dim 128; 1000 = 15x64 + 40
+    ((2, 6, 333, 80), "bfloat16", True, False, 200, "mma"),       # sq != sk; 80 padded to 128
+    ((2, 3, 77, 36), "bfloat16", True, False, None, "scalar"),    # head_dim 36: 72-byte rows
+    ((3, 4, 1000, 128), "float32", True, False, None, "scalar"),  # f32: tile edges
 )
 # Twice the worst case of the backward's rounding differences (PERF.md): the
 # kernels and the plain versions round p and dS from f32 values that differ
@@ -628,33 +641,44 @@ FLASH_BWD_SHAPES = (  # (shape, dtype name, causal, q/k/v/dO as views of [b, s, 
 # value, up to 2^-8 of the value each, and each gradient moves by at most
 # 2^-7 of A, its sum over absolute values (kfa.flash_attention_bwd_bound),
 # plus 2^-7 of |ref| where the f32 sums round apart: rtol 2^-6 of
-# (|ref| + A) doubles that; in f32 1e-5 covers the summation order.
+# (|ref| + A) doubles that; in f32 1e-5 covers the summation order. The
+# tensor-core build is held to that plus E, the term dP's f32 summation
+# order adds where dP - di cancels (kfa.flash_attention_bwd_order_bound).
 FLASH_BWD_RTOL = {"bfloat16": 2.0 ** -6, "float32": 1e-5}
+BROKEN_BWD_MIN = 4.0  # each broken backward version's share of the tolerance must exceed it
 
 
-def bwd_inputs(dev, shape, dtype_name: str, strided: bool):
-    """q/k/v as ``flash_inputs`` gives them and a seeded dO, the latter a
-    ``[b, s, h, d] -> [b, h, s, d]`` view when ``strided``, as autograd
-    hands it to the flash op's gradient in the model."""
+def bwd_inputs(dev, shape, dtype_name: str, strided: bool, sk=None):
+    """q/k/v as ``flash_inputs`` gives them (k and v of ``sk`` rows when
+    that is given) and a seeded dO, the latter a ``[b, s, h, d] -> [b, h,
+    s, d]`` view when ``strided``, as autograd hands it to the flash op's
+    gradient in the model."""
     import numpy as np
     import torch
 
-    q, k, v = flash_inputs(dev, shape, dtype_name, strided)
     b, h, s, d = shape
+    dtype = getattr(torch, dtype_name)
+    q, k, v = flash_inputs(dev, shape, dtype_name, strided)
+    if sk is not None and sk != s:
+        rng = np.random.default_rng(SEED + 3 * sk)
+        k, v = (torch.from_numpy(rng.standard_normal((b, h, sk, d), dtype=np.float32)).to(
+            dev, dtype) for _ in range(2))
     rng = np.random.default_rng(SEED + 7 * s)
-    do = torch.from_numpy(rng.standard_normal((b, s, h, d), dtype=np.float32)).to(
-        dev, getattr(torch, dtype_name))
+    do = torch.from_numpy(rng.standard_normal((b, s, h, d), dtype=np.float32)).to(dev, dtype)
     return q, k, v, do.permute(0, 2, 1, 3) if strided else do.permute(0, 2, 1, 3).contiguous()
 
 
-def bwd_ratio(got, ref, bound, dtype_name: str) -> float:
-    """max |got - ref| / (rtol * (|ref| + A)), an equal entry counting 0
-    (also where its tolerance is 0); <= 1 passes."""
+def bwd_ratio(got, ref, bound, dtype_name: str, order=None) -> float:
+    """max |got - ref| / (rtol * (|ref| + A) + E), an equal entry counting 0
+    (also where its tolerance is 0); E (``order``) is 0 when not given;
+    <= 1 passes."""
     import torch
 
     got, ref = got.double(), ref.double()
     diff = (got - ref).abs()
     tol = FLASH_BWD_RTOL[dtype_name] * (ref.abs() + bound.double())
+    if order is not None:
+        tol = tol + order.double()
     return float(torch.where(diff == 0, 0.0, diff / tol).max())
 
 
@@ -686,40 +710,59 @@ def broken_bwd_versions(causal: bool) -> dict:
 
 
 def check_flash_backward(dev) -> dict:
-    """Both backward kernels against their plain versions at the three
-    shapes, from the forward kernel's own o, l and m; the broken versions
-    outside the same tolerance; two launches bit for bit. The forward that
-    keeps l and m (the build the training path launches) is held against
-    the plain forward at each shape too: its o within the forward's
-    tolerance (``flash_ratio``), which the broken forward versions must
-    exceed, and equal to the o bits of the forward without l and m; its l
-    and m within rtol 1e-5 (f32 sums in another order). Timed at the
-    training path's shape; the library call is
-    ``scaled_dot_product_attention``'s backward for dq, dk and dv together."""
+    """Both backward kernels against their plain versions at the
+    ``FLASH_BWD_SHAPES``, from the forward kernel's own o, l and m, each
+    through the build ``backward_build`` must choose (counted): the
+    tensor-core build held to ``rtol·(|ref| + A) + E``, the scalar build to
+    ``rtol·(|ref| + A)`` alone; each share is reported with and without E.
+    The broken versions must land above ``BROKEN_BWD_MIN`` of the same
+    tolerance; two launches bit for bit. The forward that keeps l and m
+    (the build the training path launches) is held against the plain
+    forward at each shape too: its o within the forward's tolerance
+    (``flash_ratio``), which the broken forward versions must exceed, and
+    equal to the o bits of the forward without l and m; its l and m within
+    rtol 1e-5 (f32 sums in another order). Timed at the training path's
+    shape; the library call is ``scaled_dot_product_attention``'s backward
+    for dq, dk and dv together."""
     import torch
     import torch.nn.functional as F
+    from tensorframes_tpu_torch import kernels
     from tensorframes_tpu_torch.kernels import flash_attention as kfa
 
     out = {"flash_attention_bwd_dkv": {"max_abs_err": 0.0},
            "flash_attention_bwd_dq": {"max_abs_err": 0.0}}
     worst = 0.0
-    for shape, dtype_name, causal, strided in FLASH_BWD_SHAPES:
-        q, k, v, do = bwd_inputs(dev, shape, dtype_name, strided)
+    for shape, dtype_name, causal, strided, sk, want in FLASH_BWD_SHAPES:
+        q, k, v, do = bwd_inputs(dev, shape, dtype_name, strided, sk)
         scale = kfa.default_scale(shape[-1])
+        build = kfa.backward_build(q, k, v, do)
         with torch.no_grad():
             o, l, m = kfa.flash_attention_fwd(q, k, v, causal, scale)
             o_plain = kfa.flash_attention(q, k, v, causal=causal)
         o_ref, l_ref, m_ref = kfa.flash_attention_fwd_reference(q, k, v, causal, scale)
         o_bound = kfa.flash_attention_reference(q, k, v.abs(), causal, scale)
         di = kfa.flash_attention_di(o, do)
+        kernels.LAUNCHES.reset()
         dk, dv = kfa.flash_attention_bwd_dkv(q, k, v, l, m, do, di, causal, scale)
         dq = kfa.flash_attention_bwd_dq(q, k, v, l, m, do, di, causal, scale)
         dk2, dv2 = kfa.flash_attention_bwd_dkv(q, k, v, l, m, do, di, causal, scale)
         dq2 = kfa.flash_attention_bwd_dq(q, k, v, l, m, do, di, causal, scale)
+        counts = (kernels.LAUNCHES.snapshot()["flash_attention_bwd_dkv"],
+                  kernels.LAUNCHES.snapshot()["flash_attention_bwd_dq"],
+                  kernels.LAUNCHES.builds()["flash_attention_bwd_dkv_mma"],
+                  kernels.LAUNCHES.builds()["flash_attention_bwd_dq_mma"])
         ref = (kfa.flash_attention_bwd_dq_reference(q, k, v, l, m, do, di, causal, scale),
                *kfa.flash_attention_bwd_dkv_reference(q, k, v, l, m, do, di, causal, scale))
         bound = kfa.flash_attention_bwd_bound(q, k, v, o, l, m, do, causal, scale)
+        # E is derived for bf16 products (exact in f32); the f32 build has none
+        order = (kfa.flash_attention_bwd_order_bound(q, k, v, l, m, do, causal, scale)
+                 if dtype_name == "bfloat16" else (None, None, None))
+        gate = order if build == "mma" else (None, None, None)
         torch.cuda.synchronize()
+        n_mma = 2 * (build == "mma")
+        if build != want or counts != (2, 2, n_mma, n_mma):
+            fail(f"flash backward {shape} {dtype_name}: build {build}, launches (dK/dV, dQ, "
+                 f"dK/dV on the tensor cores, dQ on the tensor cores) {counts}; want {want}")
         if not torch.equal(o, o_plain):
             fail(f"flash forward {shape}: o with l/m differs from o without them")
         l_err = float(((l - l_ref).abs() / l_ref.abs()).max())
@@ -732,16 +775,24 @@ def check_flash_backward(dev) -> dict:
         for name, g, r in zip(("dq", "dk", "dv"), got, ref):
             if g.shape != r.shape or g.dtype != r.dtype or not bool(torch.isfinite(g).all()):
                 fail(f"flash backward {shape}: {name} {tuple(g.shape)} {g.dtype} or not finite")
-        ratios = [bwd_ratio(g, r, a, dtype_name) for g, r, a in zip(got, ref, bound)]
+        ratios = [bwd_ratio(g, r, a, dtype_name, e) for g, r, a, e in zip(got, ref, bound, gate)]
+        with_e = [bwd_ratio(g, r, a, dtype_name, e) if e is not None else float("nan")
+                  for g, r, a, e in zip(got, ref, bound, order)]
+        without_e = [bwd_ratio(g, r, a, dtype_name) for g, r, a in zip(got, ref, bound)]
         broken = {}
         for what, fn in broken_bwd_versions(causal).items():
             bad = fn(q, k, v, l, m, do, di, causal, scale)
-            broken[what] = max(bwd_ratio(g, r, a, dtype_name) for g, r, a in zip(bad, ref, bound))
+            broken[what] = max(bwd_ratio(g, r, a, dtype_name, e)
+                               for g, r, a, e in zip(bad, ref, bound, gate))
             del bad
         errs = [float((g.double() - r.double()).abs().max()) for g, r in zip(got, ref)]
-        log(f"# flash backward {shape} {dtype_name} causal={causal} strided={strided}: max |err| "
-            f"dq {errs[0]:.6g}, dk {errs[1]:.6g}, dv {errs[2]:.6g}; share of the tolerance "
-            f"dq {ratios[0]:.4g}, dk {ratios[1]:.4g}, dv {ratios[2]:.4g}; broken versions at "
+        held = "A + E" if build == "mma" else "A"
+        log(f"# flash backward {shape} {dtype_name} causal={causal} strided={strided} sk="
+            f"{sk or shape[2]}: build {build} (launches {counts}), held to {held}, two "
+            f"launches bit for bit: max |err| dq {errs[0]:.6g}, dk {errs[1]:.6g}, dv "
+            f"{errs[2]:.6g}; share of the tolerance with E dq {with_e[0]:.4g}, dk "
+            f"{with_e[1]:.4g}, dv {with_e[2]:.4g}; without E dq {without_e[0]:.4g}, dk "
+            f"{without_e[1]:.4g}, dv {without_e[2]:.4g}; broken versions at "
             + ", ".join(f"{w} {r:.4g}" for w, r in broken.items()))
         log(f"# flash forward with l, m {shape}: o max |err| "
             f"{float((o.double() - o_ref.double()).abs().max()):.6g}, {o_ratio:.4g} of the "
@@ -759,19 +810,19 @@ def check_flash_backward(dev) -> dict:
             fail(f"flash forward {shape}: l or m off the plain forward's (rel {l_err}, {m_err})")
         if max(ratios) > 1:
             fail(f"flash backward {shape}: kernels off their plain versions by {ratios} of the "
-                 "tolerance")
+                 f"tolerance ({held})")
         for what, r in broken.items():
-            if r <= 1:
+            if r <= BROKEN_BWD_MIN:
                 fail(f"the flash backward gate cannot see a broken version at {shape} "
-                     f"({what}: {r} <= 1)")
+                     f"({what}: {r} <= {BROKEN_BWD_MIN})")
         out["flash_attention_bwd_dq"]["max_abs_err"] = max(
             out["flash_attention_bwd_dq"]["max_abs_err"], errs[0])
         out["flash_attention_bwd_dkv"]["max_abs_err"] = max(
             out["flash_attention_bwd_dkv"]["max_abs_err"], errs[1], errs[2])
         worst = max(worst, *ratios)
-        del o, l, m, o_ref, o_bound, dq, dk, dv, dq2, dk2, dv2, ref, bound, got
+        del o, l, m, o_ref, o_bound, dq, dk, dv, dq2, dk2, dv2, ref, bound, order, gate, got
 
-    shape, dtype_name, causal, strided = FLASH_BWD_SHAPES[1]
+    shape, dtype_name, causal, strided, _, _ = FLASH_BWD_SHAPES[1]
     q, k, v, do = bwd_inputs(dev, shape, dtype_name, strided)
     scale = kfa.default_scale(shape[-1])
     with torch.no_grad():
@@ -1176,10 +1227,12 @@ def training_path(tft, dev) -> dict:
     (``synthetic_batch`` seed 0) by ``training.train_on_frame``: batches of
     8 rows, shuffled per epoch (two batches an epoch), prefetched two
     ahead. Counts reset just before; each step must launch the flash
-    forward, dK/dV and dQ kernels 12 times each. Then the gates: finite
+    forward, dK/dV and dQ kernels 12 times each, on their tensor-core
+    builds. Then the gates: finite
     losses, the first near ln(32,000), the last below the first; the
     batches each step received equal ``iterate_batches``'s bit for bit; one
-    more step with ``remat=True`` launches the forward 24 times; one
+    more step with ``remat=True`` launches the forward 24 times (and each
+    backward kernel 12), all on the tensor cores; one
     step's loss and per-leaf gradients with flash agree with dense
     attention, and a step whose backward leaves out ``di`` does not."""
     import dataclasses
@@ -1236,11 +1289,10 @@ def training_path(tft, dev) -> dict:
         fail(f"train_on_frame ran {ran} steps (want {TRAIN_STEPS})")
     prev = {k: 0 for k in launches}
     for i, snap in enumerate(per_step):
-        got = {k: snap[k] - prev[k] for k in ("flash_attention", "flash_attention_mma",
-                                             "flash_attention_bwd_dkv", "flash_attention_bwd_dq")}
+        got = {k: snap[k] - prev[k] for k in TRAINING_BUILDS}
         if set(got.values()) != {cfg.num_layers}:
             fail(f"training step {i + 1} launched {got} (want {cfg.num_layers} of each, every "
-                 "forward on the tensor cores)")
+                 "flash kernel on the tensor cores)")
         prev = snap
     per_epoch = TRAIN_ROWS // TRAIN_BATCH
     for i, batch in enumerate(received):  # epoch e is shuffled with seed + e
@@ -1257,7 +1309,8 @@ def training_path(tft, dev) -> dict:
         fail(f"first loss {losses[0]} outside ln({cfg.vocab_size}) +- {FIRST_LOSS_WINDOW}")
     if not losses[-1] < losses[0]:
         fail(f"the loss did not fall: {losses}")
-    log("# training gates: 12 launches of each flash kernel in every step; every step's batch "
+    log("# training gates: 12 launches of each flash kernel in every step, all on the tensor "
+        "cores; every step's batch "
         "as iterate_batches gives it, bit for bit; the losses finite, the first in the window, "
         "the last below it")
 
@@ -1269,11 +1322,11 @@ def training_path(tft, dev) -> dict:
                                   received[0]["targets"])
     torch.cuda.synchronize()
     remat = launch_counts(tft)
-    if (remat["flash_attention"], remat["flash_attention_mma"], remat["flash_attention_bwd_dkv"],
-            remat["flash_attention_bwd_dq"]) != (2 * cfg.num_layers, 2 * cfg.num_layers,
-                                                 cfg.num_layers, cfg.num_layers):
-        fail(f"a remat step launched {remat} (want 24 forward, all on the tensor cores, "
-             "12 dK/dV, 12 dQ)")
+    want = {k: (2 if k in ("flash_attention", "flash_attention_mma") else 1) * cfg.num_layers
+            for k in TRAINING_BUILDS}  # the forward runs again in the backward
+    if {k: remat[k] for k in TRAINING_BUILDS} != want:
+        fail(f"a remat step launched {remat} (want {want}: 24 forward, 12 dK/dV, 12 dQ, all "
+             "on the tensor cores)")
     if not math.isfinite(float(remat_loss)):
         fail("the remat step's loss is not finite")
 
@@ -1688,6 +1741,8 @@ def main() -> int:
             log(f"# nvcc | {line.strip()}")
     for name, used in ptxas_report(build_log).items():
         log(f"# ptxas flash forward build {name}: {used}")
+    for name, used in ptxas_report(build_log, "flash_attention_bwd").items():
+        log(f"# ptxas flash backward build {name}: {used}")
 
     results = {
         "segment_reduce": check_segment_reduce(dev, 10_000_000, 4096),

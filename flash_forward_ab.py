@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the flash-attention forward kernel of several checkouts of this
-repo on one CUDA card, each checkout in a process of its own, in the order
-given:
+"""Time the flash-attention forward and backward kernels of several
+checkouts of this repo on one CUDA card, each checkout in a process of its
+own, in the order given:
 
     python3 flash_forward_ab.py DIR [DIR ...]
 
@@ -14,13 +14,16 @@ CUDA events) on ``chip_smoke.flash_inputs``' seeded q/k/v views of one qkv
 tensor, as the models pass them: at BERT-base's [1024, 12, 128, 64] bf16
 (the encoder's call) and at the training path's [8, 12, 1024, 64] bf16
 causal, each without the softmax statistics, and the latter also with l
-and m where the checkout writes them; each time is taken REPS times in
-turn. To compare two commits, give them as parent, change, change,
-parent (or more rounds). Prints one JSON line per DIR with the lists of
-times, the forward's launches during the timing (and, where the checkout
-counts them, how many ran on its tensor-core build), and each forward
-build's ptxas registers and spills from its build log; then the card's
-name and power limit. Exits nonzero without a GPU.
+and m where the checkout writes them; then the backward pair at the
+training path's shape, dK/dV and dQ each on their own
+(``chip_smoke.bwd_inputs``' seeded dO and the checkout's own forward's l
+and m); each time is taken REPS times in turn. To compare two commits,
+give them as parent, change, change, parent (or more rounds). Prints one
+JSON line per DIR with the lists of times, the launches of each flash
+kernel during the timing (and, where the checkout counts them, how many
+ran on its tensor-core builds), and each forward and backward build's
+ptxas registers and spills from its build log; then the card's name and
+power limit. Exits nonzero without a GPU.
 """
 
 from __future__ import annotations
@@ -65,6 +68,15 @@ def one(root: Path) -> dict:
             scale = kfa.default_scale(shape[-1])
             calls[f"{name}_stats_ms"] = (lambda q=q, k=k, v=v, c=causal, s=scale:
                                          kfa.flash_attention_fwd(q, k, v, c, s))
+    if hasattr(kfa, "flash_attention_bwd_dkv"):
+        shape, causal = SHAPES["train"]
+        q, k, v, do = cs.bwd_inputs(dev, shape, "bfloat16", True)
+        scale = kfa.default_scale(shape[-1])
+        with torch.no_grad():
+            o, l, m = kfa.flash_attention_fwd(q, k, v, causal, scale)
+        args = (q, k, v, l, m, do, kfa.flash_attention_di(o, do), causal, scale)
+        calls["train_bwd_dkv_ms"] = lambda a=args: kfa.flash_attention_bwd_dkv(*a)
+        calls["train_bwd_dq_ms"] = lambda a=args: kfa.flash_attention_bwd_dq(*a)
     res = {"dir": str(root), **{key: [] for key in calls}}
     counts = tft.kernels.LAUNCHES
     counts.reset()
@@ -72,10 +84,12 @@ def one(root: Path) -> dict:
         for _ in range(REPS):
             for key, fn in calls.items():
                 res[key].append(cs.time_ms(fn, f"{key} {root}"))
-    res["launches"] = {"flash_attention": counts.snapshot()["flash_attention"],
-                       **(counts.builds() if hasattr(counts, "builds") else {})}
+    res["launches"] = {k: n for k, n in counts.snapshot().items() if k.startswith("flash")}
+    res["launches"].update(counts.builds() if hasattr(counts, "builds") else {})
     log = tft.kernels.BUILD_LOG
-    res["ptxas"] = cs.ptxas_report(log.read_text() if log.exists() else "")
+    text = log.read_text() if log.exists() else ""
+    res["ptxas"] = cs.ptxas_report(text)
+    res["ptxas_bwd"] = cs.ptxas_report(text, "flash_attention_bwd")
     return res
 
 

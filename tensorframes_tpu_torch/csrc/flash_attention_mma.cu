@@ -64,24 +64,15 @@
 // or the diagonal evaluate the mask; q tiles run last-first. The STATS template
 // flag chooses at compile time whether each row's final l and m are written
 // ([batch * heads, sq] f32, the backward's residuals, by the quad's first
-// lane); o does not depend on it.
+// lane); o does not depend on it. The copies, fragment loads, mma and repack
+// are mma_common.cuh's, shared with the backward (flash_attention_bwd_mma.cu).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "mma_common.cuh"
 
 namespace {
 
 constexpr int kBK = 64;  // keys per tile
-constexpr int kPad = 8;  // bf16 of padding per shared row (16 bytes)
 constexpr int kMaxHeadDim = 128;
-
-using bf16 = __nv_bfloat16;
-
-struct Strides {
-  int64_t b, h, s;  // elements; the head_dim stride is 1
-};
 
 // the block's shape at head_dim D (the kernel's template argument)
 template <int D>
@@ -93,69 +84,6 @@ struct Block {
   static constexpr size_t kSmem =  // Q, then K and V twice each
       static_cast<size_t>(kBQ + 4 * kBK) * (D + kPad) * sizeof(bf16);
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory; when !in, reads nothing and writes zeros
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(in ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// c += a.b for a 16 x 16 bf16 A (row-major fragments) and a 16 x 8 bf16 B
-// (col-major), f32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two f32 values rounded to bf16, the first in the low half (the lower column)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// rows r0 .. r0 + ROWS - 1 of a [n, d] matrix (row stride ss) into a
-// [ROWS][D + kPad] shared tile; rows past n and columns past d become zeros
-template <int D, int ROWS>
-__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src, int64_t ss, int r0, int n,
-                                           int d, int tid) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  constexpr int kThreads = Block<D>::kThreads;
-#pragma unroll
-  for (int i = 0; i < ROWS * kChunks / kThreads; ++i) {
-    const int e = tid + i * kThreads;
-    const int r = e / kChunks, c = e % kChunks;
-    const bool in = r0 + r < n && c * 8 < d;
-    const bf16* p = in ? src + (r0 + r) * ss + c * 8 : src;
-    cp_async16(smem_addr(dst + r * (D + kPad) + c * 8), p, in);
-  }
-}
 
 template <int D, bool STATS>
 __global__ void __launch_bounds__(Block<D>::kThreads, Block<D>::kMinBlocks)
@@ -170,6 +98,7 @@ flash_attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restric
   constexpr int KD = D / 16;     // 16-wide head_dim steps of the S product
   constexpr int NS = kBK / 8;    // 8-key column blocks of S
   constexpr int NO = D / 8;      // 8-wide column blocks of o
+  constexpr int NT = Block<D>::kThreads;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [kBQ][LD]; o's staging at the end
   bf16* Ks = Qs + kBQ * LD;                       // [2][kBK][LD]
@@ -196,9 +125,9 @@ flash_attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restric
   const int k_end = causal ? (q_last + 1 < sk ? q_last + 1 : sk) : sk;
   const int ntk = (k_end + kBK - 1) / kBK;
 
-  stage_tile<D, kBQ>(Qs, qb, qs.s, q0, sq, d, tid);
-  stage_tile<D, kBK>(Ks, kb, ks.s, 0, sk, d, tid);
-  stage_tile<D, kBK>(Vs, vb, vs.s, 0, sk, d, tid);
+  stage_tile<D, kBQ, NT>(Qs, qb, qs.s, q0, sq, d, tid);
+  stage_tile<D, kBK, NT>(Ks, kb, ks.s, 0, sk, d, tid);
+  stage_tile<D, kBK, NT>(Vs, vb, vs.s, 0, sk, d, tid);
   cp_async_commit();
 
   uint32_t qf[KD][4];
@@ -210,8 +139,8 @@ flash_attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restric
   for (int t = 0; t < ntk; ++t) {
     const int cur = t & 1;
     if (t + 1 < ntk) {  // the next tile's copies run while this one computes
-      stage_tile<D, kBK>(Ks + (cur ^ 1) * TILE, kb, ks.s, (t + 1) * kBK, sk, d, tid);
-      stage_tile<D, kBK>(Vs + (cur ^ 1) * TILE, vb, vs.s, (t + 1) * kBK, sk, d, tid);
+      stage_tile<D, kBK, NT>(Ks + (cur ^ 1) * TILE, kb, ks.s, (t + 1) * kBK, sk, d, tid);
+      stage_tile<D, kBK, NT>(Vs + (cur ^ 1) * TILE, vb, vs.s, (t + 1) * kBK, sk, d, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -373,13 +302,6 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
                                     vs, os, sm_scale, causal, stream)
              : launch_with<D, false>(q, k, v, out, l_out, m_out, batch, heads, sq, sk, d, qs,
                                      ks, vs, os, sm_scale, causal, stream);
-}
-
-// 16-byte rows: the pointer 16-byte aligned and every stride (of a dim longer
-// than 1) a multiple of 8 bf16
-bool rows_aligned(const void* p, const Strides& s, int batch, int heads, int seq) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (batch < 2 || s.b % 8 == 0) &&
-         (heads < 2 || s.h % 8 == 0) && (seq < 2 || s.s % 8 == 0);
 }
 
 }  // namespace

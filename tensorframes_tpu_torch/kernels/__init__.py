@@ -38,7 +38,11 @@ writes each row's softmax statistics) and its gradient:
 * ``flash_attention_bwd_dkv`` and ``flash_attention_bwd_dq``
   (:mod:`.flash_attention`, both reached from the flash op's gradient,
   :func:`.flash_attention.flash_attention_backward`) — dK/dV and dQ, one
-  launch each per layer per step.
+  launch each per layer per step, in two builds each: bf16 inputs whose
+  rows it can copy 16 bytes at a time go to the tensor-core kernels
+  (``csrc/flash_attention_bwd_mma.cu``), everything else to the scalar
+  ones (``csrc/flash_attention_bwd.cu``), by
+  :func:`.flash_attention.backward_build`.
 
 The encoder's two wrappers are custom ops (``tftpu::``) with a fake
 implementation for shape analysis and a vmap rule that folds the vmapped
@@ -83,7 +87,9 @@ BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 _SOURCES = (
     "segment_reduce.cu", "ragged_gather.cu", "decode_attention.cu", "int8_matmul.cu",
     "flash_attention.cu", "flash_attention_mma.cu", "flash_attention_bwd.cu",
+    "flash_attention_bwd_mma.cu",
 )
+_HEADERS = ("mma_common.cuh",)  # included by the two tensor-core sources
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -137,14 +143,14 @@ KERNELS: Dict[str, KernelInfo] = {
             "tensorframes_tpu_torch.kernels.flash_attention.flash_attention",
         ),
         KernelInfo(
-            "flash_attention_bwd_dkv",
-            "tensorframes_tpu_torch/csrc/flash_attention_bwd.cu",
+            "flash_attention_bwd_dkv",  # tensor cores; scalar: csrc/flash_attention_bwd.cu
+            "tensorframes_tpu_torch/csrc/flash_attention_bwd_mma.cu",
             "jax/experimental/pallas/ops/tpu/flash_attention.py:941",
             "tensorframes_tpu_torch.kernels.flash_attention.flash_attention_bwd_dkv",
         ),
         KernelInfo(
-            "flash_attention_bwd_dq",
-            "tensorframes_tpu_torch/csrc/flash_attention_bwd.cu",
+            "flash_attention_bwd_dq",  # tensor cores; scalar: csrc/flash_attention_bwd.cu
+            "tensorframes_tpu_torch/csrc/flash_attention_bwd_mma.cu",
             "jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
             "tensorframes_tpu_torch.kernels.flash_attention.flash_attention_bwd_dq",
         ),
@@ -152,7 +158,11 @@ KERNELS: Dict[str, KernelInfo] = {
 }
 
 # builds of a kernel counted on their own as well: build -> kernel
-BUILDS = {"flash_attention_mma": "flash_attention"}
+BUILDS = {
+    "flash_attention_mma": "flash_attention",
+    "flash_attention_bwd_dkv_mma": "flash_attention_bwd_dkv",
+    "flash_attention_bwd_dq_mma": "flash_attention_bwd_dq",
+}
 
 DISPATCHES = {
     k: _counter(
@@ -222,7 +232,7 @@ def _build() -> Path:
     move it into place; reuse it while the sources and flags are
     unchanged. The compiler's output goes to :data:`BUILD_LOG`."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in _SOURCES:
+    for s in (*_SOURCES, *_HEADERS):
         h.update((CSRC / s).read_bytes())
     so = BUILD_DIR / f"libtftorch_kernels-{h.hexdigest()[:16]}.so"
     if so.exists():
@@ -278,10 +288,19 @@ def library() -> ctypes.CDLL:
                 *([vp] * 8), i32, i32, i32, i32, i32, *([i64] * 15),
                 ctypes.c_float, i32, i32, i32, vp,
             ]
+            lib.tft_flash_attention_bwd_dkv_mma.argtypes = [
+                *([vp] * 9), i32, i32, i32, i32, i32, *([i64] * 18),
+                ctypes.c_float, i32, i32, vp,
+            ]
+            lib.tft_flash_attention_bwd_dq_mma.argtypes = [
+                *([vp] * 8), i32, i32, i32, i32, i32, *([i64] * 15),
+                ctypes.c_float, i32, i32, vp,
+            ]
             for f in (lib.tft_segment_reduce, lib.tft_segment_sum,
                       lib.tft_ragged_gather, lib.tft_paged_decode_attention,
                       lib.tft_int8_matmul, lib.tft_flash_attention, lib.tft_flash_attention_mma,
-                      lib.tft_flash_attention_bwd_dkv, lib.tft_flash_attention_bwd_dq):
+                      lib.tft_flash_attention_bwd_dkv, lib.tft_flash_attention_bwd_dq,
+                      lib.tft_flash_attention_bwd_dkv_mma, lib.tft_flash_attention_bwd_dq_mma):
                 f.restype = ctypes.c_int
             lib.tft_error_string.argtypes = [ctypes.c_int]
             lib.tft_error_string.restype = ctypes.c_char_p

@@ -24,7 +24,8 @@ roundings:
   Its two halves, :func:`flash_attention_bwd_dkv_reference` and
   :func:`flash_attention_bwd_dq_reference`, are the two kernels' plain
   versions; :func:`flash_attention_bwd_bound` gives the scale of their
-  tolerance on the card.
+  tolerance on the card, and :func:`flash_attention_bwd_order_bound` the
+  term that the tensor-core build's order of dP's f32 sums adds to it.
 
 :func:`flash_attention` goes through the custom op ``tftpu::flash_attention``:
 
@@ -45,9 +46,11 @@ roundings:
   one per row;
 * its gradient (``register_autograd``) computes ``di`` with one torch
   reduction and calls ``tftpu::flash_attention_bwd_dkv`` and
-  ``tftpu::flash_attention_bwd_dq``, which launch
-  ``csrc/flash_attention_bwd.cu`` on a CUDA tensor and compute the plain
-  backward on a CPU tensor. Gradients of the gradient raise, as
+  ``tftpu::flash_attention_bwd_dq``, which on a CUDA tensor launch one of
+  two builds of each, as :func:`backward_build` chooses —
+  ``csrc/flash_attention_bwd_mma.cu`` (bf16 on the tensor cores) or
+  ``csrc/flash_attention_bwd.cu`` (scalar f32 FMAs) — and compute the
+  plain backward on a CPU tensor. Gradients of the gradient raise, as
   upstream's do; gradients under vmap are not supported.
 """
 
@@ -98,13 +101,19 @@ def flash_attention_reference(q, k, v, causal: bool = False, sm_scale: float = 1
     return flash_attention_fwd_reference(q, k, v, causal, sm_scale)[0]
 
 
-def _p_ds(q, k, v, l, m, do, di, causal: bool, sm_scale: float):
-    """The backward's f32 ``p`` and ``dS`` ``[b, h, sq, sk]`` from the
-    residuals, in upstream's order of roundings."""
+def _p(q, k, l, m, causal: bool, sm_scale: float):
+    """The backward's f32 ``p`` ``[b, h, sq, sk]`` from the residuals."""
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
     p = torch.exp(s - m[..., None]) * (1.0 / l)[..., None]
     if causal:
         p = p.masked_fill(~_causal_keep(*s.shape[-2:], q.device), 0.0)
+    return p
+
+
+def _p_ds(q, k, v, l, m, do, di, causal: bool, sm_scale: float):
+    """The backward's f32 ``p`` and ``dS`` ``[b, h, sq, sk]`` from the
+    residuals, in upstream's order of roundings."""
+    p = _p(q, k, l, m, causal, sm_scale)
     dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
     return p, (dp - di[..., None]) * p * sm_scale
 
@@ -155,6 +164,75 @@ def flash_attention_bwd_bound(q, k, v, o, l, m, do, causal: bool = False,
     return (torch.einsum("bhqk,bhkd->bhqd", ds, k.float().abs()),
             torch.einsum("bhqk,bhqd->bhkd", ds, q.float().abs()),
             torch.einsum("bhqk,bhqd->bhkd", p, do.float().abs()))
+
+
+F32_UNIT = 2.0 ** -24  # unit roundoff of f32 rounding to nearest
+DP_ORDER_C = 4        # E's factor on gamma_d: see flash_attention_bwd_order_bound
+
+
+def flash_attention_bwd_order_bound(q, k, v, l, m, do, causal: bool = False,
+                                    sm_scale: float = 1.0):
+    """``(E_dq, E_dk, E_dv)`` = ``(e·|k|, eᵀ·|q|, 0)`` in f32, with ``e_ij
+    = c·γ_d·(|dO|·|v|ᵀ)_ij·p_ij·sm_scale``, ``γ_d = d·u / (1 − d·u)``, ``u
+    = 2^-24``, ``d`` the head_dim and ``c`` = :data:`DP_ORDER_C` = 4: the
+    term that the f32 summation order of ``dP = dO·vᵀ`` adds to the gap
+    between a backward kernel and its plain version, beyond
+    :func:`flash_attention_bwd_bound`'s ``A``.
+
+    Derivation. Each of dP's ``d`` products is of two bf16 values (8
+    significant bits each), so it is exact in f32 (24 bits). A sum of
+    ``d`` terms taken in any order of f32 additions that round to nearest
+    lies within ``γ_d·Σ|terms|`` of the exact sum, here ``γ_d·(|dO|·|v|ᵀ)``.
+    The kernel and the plain version each commit that error in their own
+    order, so their dP differ by up to twice it. ``di`` is one tensor that
+    both read, so it adds nothing, and ``dS = (dP − di)·p·sm_scale`` carries
+    the gap times ``p·sm_scale``: that is ``e`` with ``c = 2``. Where ``dP −
+    di`` cancels, the plain version's dS and A are 0 (the causal first
+    row, whose o is v's first row, is one such place) while the kernel's
+    dS is not, so ``A`` cannot hold this term. ``c = 4`` takes the kernel's
+    side at twice the plain one's: PTX does not promise round-to-nearest
+    inside an ``mma``'s accumulation, and an accumulator that aligns its
+    addends to the largest one and truncates loses less than ``2u`` of
+    the largest addend on each of the others, which for blocks of ``k``
+    products summed at once with the accumulator keeps it within
+    ``2·(1 + 1/k)·γ_d``, at most ``2.5·γ_d`` for ``k ≥ 4``. With the plain
+    side's ``γ_d`` (an f32 GEMM that rounds to nearest) that is at most
+    ``3.5·γ_d``; what is left of 4 covers dS's rounding to bf16 and the
+    gradient's own rounding where ``ref`` and ``A`` are 0.
+    ``E_dq`` and ``E_dk`` are ``e`` summed through the dS products
+    (``dQ = dS·k``, ``dK = dSᵀ·q``); dV does not read dP (``E_dv = 0``).
+
+    The f32 order of ``s = q·kᵀ`` moves p too, but by a factor: p =
+    exp(s·sm_scale − m)/l moves by ``exp(±δ)``, ``δ = c·γ_d·(|q|·|k|ᵀ)
+    ·sm_scale``, and dS with it, so both stay within a step of their
+    rounded values. ``A`` already allows each side's p and dS to land on
+    a neighbouring bf16 value, which holds while ``δ`` stays below half of
+    bf16's smallest relative step, 2^-9. At the gates' shapes (standard
+    normal q and k, head_dim up to 128) ``δ`` stays several times below
+    that; this raises ``ValueError`` where it does not, since ``A`` then no
+    longer covers it, and for inputs other than bfloat16, whose products
+    the derivation needs exact."""
+    if {t.dtype for t in (q, k, v, do)} != {torch.bfloat16}:
+        raise ValueError("flash_attention_bwd_order_bound: derived for bfloat16 q/k/v/dO, "
+                         "whose products are exact in f32")
+    d = q.shape[-1]
+    gamma = d * F32_UNIT / (1.0 - d * F32_UNIT)
+    qa, ka = q.float().abs(), k.float().abs()
+    qk = torch.einsum("bhqd,bhkd->bhqk", qa, ka)
+    if causal:
+        qk = qk.masked_fill(~_causal_keep(*qk.shape[-2:], q.device), 0.0)
+    move = DP_ORDER_C * gamma * float(qk.max()) * sm_scale if qk.numel() else 0.0
+    if move > 2.0 ** -9:
+        raise ValueError(
+            f"flash_attention_bwd_order_bound: s's summation order moves p by up to "
+            f"{move:.3g} (relative), beyond the 2^-9 that A covers"
+        )
+    del qk
+    e = torch.einsum("bhqd,bhkd->bhqk", do.float().abs(), v.float().abs())
+    e = e * _p(q, k, l, m, causal, sm_scale) * (DP_ORDER_C * gamma * sm_scale)
+    return (torch.einsum("bhqk,bhkd->bhqd", e, ka),
+            torch.einsum("bhqk,bhqd->bhkd", e, qa),
+            torch.zeros(v.shape, dtype=torch.float32, device=v.device))
 
 
 def _out_like(q: torch.Tensor) -> torch.Tensor:
@@ -310,6 +388,25 @@ def forward_build(q, k, v) -> str:
     return "scalar"
 
 
+def backward_build(q, k, v, do) -> str:
+    """The backward kernels a CUDA call launches: ``"mma"`` or ``"scalar"``.
+
+    ``"mma"`` (``csrc/flash_attention_bwd_mma.cu``, the tensor cores) takes
+    bfloat16 q/k/v/dO (with a unit last stride) whose rows it copies into
+    shared memory 16 bytes at a time: head_dim a multiple of 8, and every
+    row of q, k, v and dO starting on a 16-byte boundary. Everything else
+    goes to ``"scalar"`` (``csrc/flash_attention_bwd.cu``): float32 inputs
+    and the bfloat16 inputs that fail the rule. This is the forward's rule
+    (:func:`forward_build`) with dO added; both builds compute the same
+    function in the same order of roundings, and this chooses between two
+    kernels: it is not a fallback. The training path's q/k/v (views of one
+    ``[b, s, 3, h, 64]`` bf16 tensor) and dO take ``"mma"``."""
+    if (q.dtype == torch.bfloat16 and q.shape[-1] % 8 == 0
+            and all(_rows_aligned(t) for t in (q, k, v, do))):
+        return "mma"
+    return "scalar"
+
+
 def _launch(q, k, v, causal: bool, sm_scale: float, stats: bool):
     b, h, sq, d = (int(x) for x in q.shape)
     sk = int(k.shape[2])
@@ -359,13 +456,17 @@ def _launch_dkv(q, k, v, l, m, do, di, causal: bool, sm_scale: float):
     dk, dv = _out_like(k), _out_like(v)
     if b == 0:
         return dk, dv
-    rc = library().tft_flash_attention_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), l.data_ptr(), m.data_ptr(),
-        di.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, sq, sk, d,
-        *_strides(q), *_strides(k), *_strides(v), *_strides(do), *_strides(dk), *_strides(dv),
-        float(sm_scale), int(causal), int(q.dtype == torch.bfloat16), *launch_target(q.device),
-    )
-    check("flash_attention_bwd_dkv", rc)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), l.data_ptr(), m.data_ptr(),
+            di.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, sq, sk, d,
+            *_strides(q), *_strides(k), *_strides(v), *_strides(do), *_strides(dk),
+            *_strides(dv), float(sm_scale), int(causal))
+    if backward_build(q, k, v, do) == "mma":
+        rc = library().tft_flash_attention_bwd_dkv_mma(*args, *launch_target(q.device))
+        check("flash_attention_bwd_dkv", rc, "flash_attention_bwd_dkv_mma")
+    else:
+        rc = library().tft_flash_attention_bwd_dkv(*args, int(q.dtype == torch.bfloat16),
+                                                   *launch_target(q.device))
+        check("flash_attention_bwd_dkv", rc)
     return dk, dv
 
 
@@ -376,13 +477,17 @@ def _launch_dq(q, k, v, l, m, do, di, causal: bool, sm_scale: float):
     dq = _out_like(q)
     if b == 0 or sq == 0:
         return dq
-    rc = library().tft_flash_attention_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), l.data_ptr(), m.data_ptr(),
-        di.data_ptr(), dq.data_ptr(), b, h, sq, sk, d,
-        *_strides(q), *_strides(k), *_strides(v), *_strides(do), *_strides(dq),
-        float(sm_scale), int(causal), int(q.dtype == torch.bfloat16), *launch_target(q.device),
-    )
-    check("flash_attention_bwd_dq", rc)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), l.data_ptr(), m.data_ptr(),
+            di.data_ptr(), dq.data_ptr(), b, h, sq, sk, d,
+            *_strides(q), *_strides(k), *_strides(v), *_strides(do), *_strides(dq),
+            float(sm_scale), int(causal))
+    if backward_build(q, k, v, do) == "mma":
+        rc = library().tft_flash_attention_bwd_dq_mma(*args, *launch_target(q.device))
+        check("flash_attention_bwd_dq", rc, "flash_attention_bwd_dq_mma")
+    else:
+        rc = library().tft_flash_attention_bwd_dq(*args, int(q.dtype == torch.bfloat16),
+                                                  *launch_target(q.device))
+        check("flash_attention_bwd_dq", rc)
     return dq
 
 

@@ -29,8 +29,12 @@ and dS to a neighbouring bf16 value (up to 2^-8 of it each): a gradient
 moves by at most 2^-7 of A, the same sums over absolute values
 (``kfa.flash_attention_bwd_bound``), and its own rounding by 2^-7 of
 |want|; the tests allow twice that, |got - want| <= 2^-6·(|want| + A) in
-bf16, and 1e-5·(|want| + A) in f32. Two launches give the same bits, and
-prefetched batches arrive bit for bit.
+bf16, and 1e-5·(|want| + A) in f32. The tensor-core build sums dP = dO·vᵀ
+in the mma's own order, which moves dS by an amount A cannot hold where
+dP − di cancels: it is held to 2^-6·(|want| + A) + E, E the term of that
+order (``kfa.flash_attention_bwd_order_bound``); the scalar build, whose
+order is the plain version's, to A alone. Two launches give the same
+bits, and prefetched batches arrive bit for bit.
 """
 
 import numpy as np
@@ -420,45 +424,78 @@ def test_encoder_map_rows_launches_per_layer_on_card(cuda_device):
     np.testing.assert_allclose(rows, blocks, rtol=0, atol=1e-2 * np.abs(blocks).max())
 
 
-def _bwd_case(device, shape, dtype, causal, strided, seed):
-    """q/k/v (views of one ``[b, s, 3, h, d]`` tensor when ``strided``),
-    dO, and the forward kernel's o, l, m."""
+def _bwd_case(device, shape, dtype, causal, strided, seed, sk=None, offset=False):
+    """q/k/v (views of one ``[b, s, 3, h, d]`` tensor when ``strided``; k
+    and v of ``sk`` rows when given; each starting one element past a
+    16-byte boundary when ``offset``), dO, and the forward kernel's o, l, m."""
     b, h, s, d = shape
     rng = np.random.default_rng(seed)
+    kv = (b, h, sk or s, d)
+
+    def make(sh):
+        t = torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+        if not offset:
+            return t.to(device, dtype)
+        flat = torch.empty(t.numel() + 1, dtype=dtype, device=device)
+        return flat[1:].view(sh).copy_(t)
+
     if strided:
         qkv = torch.from_numpy(rng.standard_normal((b, s, 3, h, d)).astype(np.float32))
         q, k, v = (qkv.to(device, dtype)[:, :, i].permute(0, 2, 1, 3) for i in range(3))
     else:
-        q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
-            device, dtype) for _ in range(3))
-    do = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device, dtype)
+        q, k, v = make(shape), make(kv), make(kv)
+    do = make(shape)
     with torch.no_grad():
         o, l, m = kfa.flash_attention_fwd(q, k, v, causal, kfa.default_scale(d))
     return q, k, v, do, o, l, m
 
 
-@pytest.mark.parametrize("shape,dtype,causal,strided", [
-    ((8, 12, 1024, 64), torch.bfloat16, True, True),     # the training path's
-    ((2, 3, 77, 40), torch.bfloat16, True, False),       # tile edges, head_dim 40
-    ((2, 2, 100, 128), torch.float32, False, True),
+@pytest.mark.parametrize("shape,sk,dtype,causal,strided,offset,build", [
+    ((8, 12, 1024, 64), None, torch.bfloat16, True, True, False, "mma"),  # the training path's
+    ((2, 3, 77, 40), None, torch.bfloat16, True, False, False, "mma"),    # tile edges, head_dim 40
+    ((2, 2, 100, 128), None, torch.float32, False, True, False, "scalar"),
+    ((2, 3, 130, 32), None, torch.bfloat16, True, False, False, "mma"),   # head_dim 32
+    ((2, 3, 130, 80), None, torch.bfloat16, False, False, False, "mma"),  # 80, ragged, not causal
+    ((2, 3, 200, 96), None, torch.bfloat16, True, False, False, "mma"),   # 96, ragged, causal
+    ((2, 4, 300, 128), None, torch.bfloat16, True, False, False, "mma"),  # head_dim 128
+    ((2, 3, 150, 64), 77, torch.bfloat16, True, False, False, "mma"),     # sq > sk, causal
+    ((2, 3, 50, 64), 170, torch.bfloat16, True, False, False, "mma"),     # keys no row sees
+    ((2, 3, 77, 64), 150, torch.bfloat16, False, False, False, "mma"),    # sq < sk
+    ((3, 2, 1, 64), None, torch.bfloat16, True, False, False, "mma"),     # one row
+    ((1, 2, 1, 64), 100, torch.bfloat16, False, False, False, "mma"),     # one row, 100 keys
+    ((2, 3, 77, 36), None, torch.bfloat16, True, False, False, "scalar"),  # 72-byte rows
+    ((2, 3, 77, 64), None, torch.bfloat16, True, False, True, "scalar"),  # rows off 16 bytes
 ])
-def test_flash_backward_kernels_match_plain_on_card(cuda_device, shape, dtype, causal, strided):
-    q, k, v, do, o, l, m = _bwd_case(cuda_device, shape, dtype, causal, strided, seed=shape[2])
+def test_flash_backward_kernels_match_plain_on_card(cuda_device, shape, sk, dtype, causal,
+                                                    strided, offset, build):
+    q, k, v, do, o, l, m = _bwd_case(cuda_device, shape, dtype, causal, strided,
+                                     seed=shape[2], sk=sk, offset=offset)
     scale = kfa.default_scale(shape[-1])
     di = kfa.flash_attention_di(o, do)
+    assert kfa.backward_build(q, k, v, do) == build
     tft.kernels.LAUNCHES.reset()
     dk, dv = kfa.flash_attention_bwd_dkv(q, k, v, l, m, do, di, causal, scale)
     dq = kfa.flash_attention_bwd_dq(q, k, v, l, m, do, di, causal, scale)
     launches = tft.kernels.LAUNCHES.snapshot()
+    builds = tft.kernels.LAUNCHES.builds()
+    n_mma = int(build == "mma")
     assert launches["flash_attention_bwd_dkv"] == 1 and launches["flash_attention_bwd_dq"] == 1
+    assert (builds["flash_attention_bwd_dkv_mma"], builds["flash_attention_bwd_dq_mma"]) == (
+        n_mma, n_mma)
     want = (kfa.flash_attention_bwd_dq_reference(q, k, v, l, m, do, di, causal, scale),
             *kfa.flash_attention_bwd_dkv_reference(q, k, v, l, m, do, di, causal, scale))
     bound = kfa.flash_attention_bwd_bound(q, k, v, o, l, m, do, causal, scale)
+    # the tensor-core build also carries E, the term of dP's summation order
+    order = (kfa.flash_attention_bwd_order_bound(q, k, v, l, m, do, causal, scale)
+             if build == "mma" else (None,) * 3)
     rtol = 2.0 ** -6 if dtype == torch.bfloat16 else 1e-5
-    for got, w, a in zip((dq, dk, dv), want, bound):
+    for got, w, a, e in zip((dq, dk, dv), want, bound, order):
         assert got.dtype == dtype and got.shape == w.shape
         diff = (got.double() - w.double()).abs()
-        assert bool((diff <= rtol * (w.double().abs() + a.double())).all()), float(diff.max())
+        tol = rtol * (w.double().abs() + a.double())
+        if e is not None:
+            tol = tol + e.double()
+        assert bool((diff <= tol).all()), float(diff.max())
     # deterministic: no float atomics, every sum in a fixed order
     dk2, dv2 = kfa.flash_attention_bwd_dkv(q, k, v, l, m, do, di, causal, scale)
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
@@ -468,16 +505,19 @@ def test_flash_backward_kernels_match_plain_on_card(cuda_device, shape, dtype, c
 def test_flash_gradient_launches_both_kernels_on_card(cuda_device):
     """``torch.autograd.grad`` through ``flash_attention`` on the card: one
     forward (with l and m, the o bits of the forward without them), one
-    dK/dV and one dQ launch, and the kernels' own results."""
+    dK/dV and one dQ launch, all three on their tensor-core builds, and the
+    kernels' own results."""
     shape = (2, 4, 200, 64)
     q, k, v, do, o, l, m = _bwd_case(cuda_device, shape, torch.bfloat16, True, True, seed=9)
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
     tft.kernels.LAUNCHES.reset()
     out = kfa.flash_attention(*leaves, causal=True)
     grads = torch.autograd.grad(out, leaves, do)
-    launches = tft.kernels.LAUNCHES.snapshot()
+    launches = {**tft.kernels.LAUNCHES.snapshot(), **tft.kernels.LAUNCHES.builds()}
     assert (launches["flash_attention"], launches["flash_attention_bwd_dkv"],
             launches["flash_attention_bwd_dq"]) == (1, 1, 1)
+    assert (launches["flash_attention_mma"], launches["flash_attention_bwd_dkv_mma"],
+            launches["flash_attention_bwd_dq_mma"]) == (1, 1, 1)
     assert torch.equal(out.detach(), o)
     want = kfa.flash_attention_backward(q, k, v, o, l, m, do, True, kfa.default_scale(64))
     assert all(torch.equal(g, w) for g, w in zip(grads, want))
