@@ -9,8 +9,8 @@ through the package's entry points at full size on one GPU.
 Needs one CUDA GPU and ``nvcc`` (the kernels build on first use into
 ``build/torch_kernels/``). Exits nonzero, printing no result, when no GPU
 is visible or when the package is not beside this script. After the
-build it prints each flash forward and backward build's ptxas registers and
-spills.
+build it prints the ptxas registers and spills of each flash forward and
+backward build, of both int8_matmul builds and of decode_attention.
 Phases:
 
 1. kernels against their plain versions at the main path's shapes:
@@ -24,11 +24,18 @@ Phases:
    an unfolded view for the gather); then the decode
    server's kernels in bf16 at gpt_small's shapes: ``int8_matmul`` at
    every (k, n) of a layer for m in {1, 16, 128}, a ragged m and an f32
-   case (timed: one layer's four products at m = 16; library:
-   ``torch.matmul`` on a pre-widened bf16 weight), and
-   ``decode_attention`` at 1 and 16 slots over a 193-page pool (timed at
-   16; library: ``scaled_dot_product_attention`` over pages already
-   gathered and dequantized, the gather not timed); ``flash_attention``
+   case, each through the build ``int8_matmul_build`` must choose
+   (counted: bf16 on the tensor cores, f32 on the scalar kernel), twice
+   bit for bit, a row's bits the same at every m, three broken plain
+   versions (the last 16 k rows, the scale, the last k-split dropped)
+   outside the tolerance (timed: one layer's four products at m = 16, m
+   = 1 and 128 logged; library: ``torch.matmul`` on a pre-widened bf16
+   weight), and ``decode_attention`` at 1 and 16 slots over a 193-page
+   pool and at 4 slots of 64-page tables (past its staging buffer), twice
+   bit for bit, each slot alone equal to the batch's, two broken plain
+   versions outside the tolerance (timed at 16; library:
+   ``scaled_dot_product_attention`` over pages already gathered and
+   dequantized, the gather not timed); ``flash_attention``
    at [1024, 12, 128, 64] bf16 (q/k/v the encoder's strided views of one
    qkv tensor), [4, 8, 4096, 128] bf16 causal, [3, 4, 200, 64] f32
    causal and [2, 8, 333, 80] bf16 causal, within a tolerance that three
@@ -64,9 +71,10 @@ Phases:
    16 slots, 16-position pages, prompts <= 128, 64 new tokens) answers 32
    requests; the first 8 re-run solo must match exactly; an engine with a
    4-horizon pool must preempt and still return the same tokens; the
-   kernels must have launched 12 (attention) and 48 (matmul) times per
-   step; one 16-slot step's logits, kernel path against plain path on the
-   same pool, within a tolerance that three deliberately broken plain
+   kernels must have launched 12 (attention) and 48 (matmul, every one on
+   its tensor-core build) times per step; one 16-slot step's logits,
+   kernel path against plain path on the same pool, within a tolerance
+   that three deliberately broken plain
    paths must exceed. Tokens/s, TTFT (each request's own, from its
    future) and step time follow. Then BERT-base embedding extraction with
    flash attention (f32 weights from seed 0, 1,024 rows of 128 tokens):
@@ -74,7 +82,8 @@ Phases:
    per call, all on its tensor-core build, agree with each other and with dense attention through the
    same verb, while an attention that drops the last key tile must not;
    a 64-row ``map_rows`` over int8 weights must launch 48 int8 and 12
-   flash kernels. Rows/s per verb follow. Then gpt_small training with
+   flash kernels, all on their tensor-core builds. Rows/s per verb
+   follow. Then gpt_small training with
    flash attention (f32 weights from seed 0, AdamW at lr 1e-3):
    ``training.train_on_frame`` takes 10 steps of 8 x 1024 tokens off a
    16-row frame, counts reset first; every step must launch the flash
@@ -334,28 +343,58 @@ def check_ragged_gather(dev, n_rows: int) -> dict:
 GEMM_SHAPES = ((768, 2304), (768, 768), (768, 3072), (3072, 768))  # a gpt_small layer
 
 
-def bf16_close(got, ref, what: str, f32: bool = False) -> float:
-    """Max |got - ref|; fails past 2^-7·|ref| + 1e-3·max|ref| in bf16 (the
+def bf16_ratio(got, ref, f32: bool = False) -> float:
+    """max |got - ref| / tol, tol = 2^-7·|ref| + 1e-3·max|ref| in bf16 (the
     kernel sums in f32 in another order than the plain version, so an
     output may round to the neighbouring bf16 value) or rtol 1e-5 / atol
-    1e-5·max|ref| in f32."""
+    1e-5·max|ref| in f32; <= 1 passes."""
     got, ref = got.double(), ref.double()
     scale = float(ref.abs().max())
     tol = (1e-5 if f32 else 2.0 ** -7) * ref.abs() + (1e-5 if f32 else 1e-3) * scale
-    diff = (got - ref).abs()
-    if not bool((diff <= tol).all()):
-        fail(f"{what}: off by {float(diff.max())} where the tolerance is "
-             f"{float(tol.flatten()[int((diff - tol).argmax())])}")
-    return float(diff.max())
+    return float(((got - ref).abs() / tol).max())
+
+
+def bf16_close(got, ref, what: str, f32: bool = False) -> float:
+    """Max |got - ref|; fails past :func:`bf16_ratio`'s tolerance."""
+    ratio = bf16_ratio(got, ref, f32)
+    if not ratio <= 1:
+        fail(f"{what}: off by {float((got.double() - ref.double()).abs().max())}, "
+             f"{ratio} of the tolerance")
+    return float((got.double() - ref.double()).abs().max())
+
+
+def broken_int8_versions() -> dict:
+    """Deliberately wrong plain int8 products ``(x, w) -> out``, for showing
+    that the kernel gate sees a wrong kernel: the step gate's product that
+    drops the last 16 k rows, one that drops the scale, and one that drops
+    the last k-split of the tensor-core build's partition."""
+    from tensorframes_tpu_torch.ops import quantize as tq
+
+    def no_scale(x, w):
+        return (x.float() @ w.q.float()).to(x.dtype)
+
+    def last_split_dropped(x, w):
+        chunk, splits = tq.int8_matmul_split(*w.q.shape)
+        cut = (splits - 1) * chunk
+        return tq.matmul_int8_plain(x[..., :cut], tq.QuantizedTensor(w.q[:cut], w.scale))
+
+    return {"last 16 k rows dropped": broken_plain_paths()["matmul dropping its last k tile"][1],
+            "scale dropped": no_scale, "last k-split dropped": last_split_dropped}
 
 
 def check_int8_matmul(dev) -> dict:
-    """Every (k, n) of a gpt_small layer at m = 1, 16 (slot counts) and 128
-    (the top prompt bucket) in bf16, plus a ragged m and an f32 case. The
-    timed unit is one layer's four products at m = 16 (a 16-slot decode
-    step's layer); the same at m = 128 is logged."""
+    """Every (k, n) of a gpt_small layer at m = 1, 16 (slot counts), 128
+    (the top prompt bucket) and a ragged 37 in bf16, plus an f32 case, each
+    through the build ``int8_matmul_build`` must choose (counted: the tensor
+    cores for bf16, the scalar kernel for f32), twice with the same bits;
+    the bf16 rows are the first m of one 128-row x, and each row must come
+    out with the same bits at every m. Three broken plain versions must
+    land outside the tolerance at every bf16 case. The timed unit is one
+    layer's four products at m = 16 (a 16-slot decode step's layer); the
+    same at m = 1 and m = 128 is logged."""
     import numpy as np
     import torch
+    from tensorframes_tpu_torch import kernels
     from tensorframes_tpu_torch.ops import quantize as tq
 
     rng = np.random.default_rng(SEED)
@@ -367,23 +406,58 @@ def check_int8_matmul(dev) -> dict:
         return {kn: torch.from_numpy(rng.standard_normal((m, kn[0])).astype(np.float32)).to(
             dev, dtype) for kn in GEMM_SHAPES}
 
-    err = 0.0
+    err, worst = 0.0, 0.0
+    broken = {what: float("inf") for what in broken_int8_versions()}
+    x128 = xs(128)
     cases = [(m, torch.bfloat16) for m in (1, 16, 128, 37)] + [(16, torch.float32)]
+    outs = {}
     for m, dtype in cases:
-        for kn, x in xs(m, dtype).items():
-            got, ref = tq.matmul_int8(x, weights[kn]), tq.matmul_int8_plain(x, weights[kn])
+        xm = {kn: x[:m] for kn, x in x128.items()} if dtype == torch.bfloat16 else xs(m, dtype)
+        for kn, x in xm.items():
+            w = weights[kn]
+            build = tq.int8_matmul_build(x, w)
+            want = "mma" if dtype == torch.bfloat16 else "scalar"
+            kernels.LAUNCHES.reset()
+            got, again = tq.matmul_int8(x, w), tq.matmul_int8(x, w)
+            counts = (kernels.LAUNCHES.snapshot()["int8_matmul"],
+                      kernels.LAUNCHES.builds()["int8_matmul_mma"])
+            ref = tq.matmul_int8_plain(x, w)
             torch.cuda.synchronize()
-            err = max(err, bf16_close(got, ref, f"int8_matmul m={m} (k, n)={kn} {dtype}",
-                                      f32=dtype == torch.float32))
+            what = f"int8_matmul m={m} (k, n)={kn} {dtype}"
+            if build != want or counts != (2, 2 * (build == "mma")):
+                fail(f"{what}: build {build}, launches (all, tensor cores) {counts}; want {want}")
+            if not torch.equal(got, again):
+                fail(f"{what}: two launches differ")
+            f32 = dtype == torch.float32
+            err = max(err, bf16_close(got, ref, what, f32=f32))
+            worst = max(worst, bf16_ratio(got, ref, f32))
+            if not f32:
+                outs[kn, m] = got
+                for bw, fn in broken_int8_versions().items():
+                    broken[bw] = min(broken[bw], bf16_ratio(fn(x, w), ref))
+    for kn in GEMM_SHAPES:  # a row's bits at every m
+        full = outs[kn, 128]
+        if not all(torch.equal(outs[kn, m], full[:m]) for m in (1, 16, 37)):
+            fail(f"int8_matmul (k, n)={kn}: a row's bits change with m")
+    log(f"# int8_matmul: every bf16 case on the tensor cores and the f32 one on the scalar "
+        f"kernel, two launches bit for bit, rows bit-equal at m = 1, 16, 37 and 128; the kernel "
+        f"used at most {worst:.4g} of the tolerance; broken versions at least "
+        + ", ".join(f"{w} {r:.4g}" for w, r in broken.items()))
+    for what, r in broken.items():
+        if r <= 1:
+            fail(f"the int8_matmul gate cannot see a broken version ({what}: {r} <= 1)")
     wide = {kn: w.dequantize(torch.bfloat16) for kn, w in weights.items()}
-    x16, x128 = xs(16), xs(128)
+    x16 = {kn: x[:16] for kn, x in x128.items()}
 
     def layer(fn, x):
         return lambda: [fn(x[kn], weights[kn]) for kn in GEMM_SHAPES]
 
-    log(f"# int8_matmul one layer's four products at m = 128: kernel "
-        f"{time_ms(layer(tq.matmul_int8, x128), 'int8_matmul m=128'):.6f} ms, library "
-        f"{time_ms(lambda: [x128[kn] @ wide[kn] for kn in GEMM_SHAPES], 'matmul m=128'):.6f} ms")
+    for m in (1, 128):
+        xm = {kn: x[:m] for kn, x in x128.items()}
+        log(f"# int8_matmul one layer's four products at m = {m}: kernel "
+            f"{time_ms(layer(tq.matmul_int8, xm), f'int8_matmul m={m}'):.6f} ms, library "
+            f"{time_ms(lambda: [xm[kn] @ wide[kn] for kn in GEMM_SHAPES], f'matmul m={m}'):.6f} "
+            "ms")
     nbytes = sum(k * n + 4 * n + 2 * 16 * k + 2 * 16 * n for k, n in GEMM_SHAPES)
     return {
         "max_abs_err": err,
@@ -421,21 +495,55 @@ def paged_inputs(dev, S: int, pages: int = 193, layers: int = 12, nh: int = 12,
     return (q, *kv, *sc, torch.from_numpy(tables).to(dev), torch.from_numpy(pos).to(dev))
 
 
+DECODE_CASES = (  # (slots, page-table width): the serving geometry, and a context
+    (1, 12), (16, 12), (4, 64))  # of up to 1,024 positions, past the 256-position staging
+
+
 def check_decode_attention(dev) -> dict:
-    """Kernel against plain at 1 and 16 slots (layer 5 of 12), timed at
-    16. The library call is SDPA over K/V already gathered and
-    dequantized to bf16 (that gather is not timed)."""
+    """Kernel against plain at 1 and 16 slots of the serving pool and at 4
+    slots of 64-page tables (layer 5 of 12), twice with the same bits, each
+    slot alone equal to the same slot in the batch, and two broken plain
+    versions (the step gate's: no V scale, the newest position missed)
+    outside the tolerance at each; timed at 16 slots. The library call is
+    SDPA over K/V already gathered and dequantized (that gather is not
+    timed)."""
     import torch
     import torch.nn.functional as F
+    from tensorframes_tpu_torch import kernels
     from tensorframes_tpu_torch.kernels import decode_attention as kda
 
-    err = 0.0
-    for S in (1, 16):
-        inputs = paged_inputs(dev, S)
+    err, worst = 0.0, 0.0
+    broken = {what: fn for what, (name, fn) in broken_plain_paths().items()
+              if name == "paged_attention_reference"}
+    for S, maxp in DECODE_CASES:
+        inputs = paged_inputs(dev, S, maxp=maxp)
         args = (*inputs[:5], 5, *inputs[5:])
-        got, ref = kda.paged_decode_attention(*args), kda.paged_attention_reference(*args)
+        kernels.LAUNCHES.reset()
+        got, again = kda.paged_decode_attention(*args), kda.paged_decode_attention(*args)
+        launched = kernels.LAUNCHES.snapshot()["decode_attention"]
+        ref = kda.paged_attention_reference(*args)
         torch.cuda.synchronize()
-        err = max(err, bf16_close(got, ref, f"decode_attention S={S}"))
+        what = f"decode_attention S={S} maxp={maxp}"
+        if launched != 2 or not torch.equal(got, again):
+            fail(f"{what}: {launched} launches for two calls, or two launches differ")
+        err = max(err, bf16_close(got, ref, what))
+        worst = max(worst, bf16_ratio(got, ref))
+        q, kp, vp, ks, vs, layer, tables, pos = args
+        for s in range(S):
+            alone = kda.paged_decode_attention(q[s:s + 1], kp, vp, ks, vs, layer,
+                                               tables[s:s + 1], pos[s:s + 1])
+            if not torch.equal(alone[0], got[s]):
+                fail(f"{what}: slot {s} alone differs from the same slot in the batch")
+        ratios = {w: bf16_ratio(fn(*args), ref) for w, fn in broken.items()}
+        log(f"# {what}: two launches bit for bit, every slot alone = in the batch, "
+            f"{bf16_ratio(got, ref):.4g} of the tolerance; broken versions at "
+            + ", ".join(f"{w} {r:.4g}" for w, r in ratios.items()))
+        for w, r in ratios.items():
+            if r <= 1:
+                fail(f"the decode_attention gate cannot see a broken version at {what} "
+                     f"({w}: {r} <= 1)")
+    inputs = paged_inputs(dev, 16)
+    args = (*inputs[:5], 5, *inputs[5:])
     q, kp, vp, ks, vs, _, tables, pos = args
     S, nh, hd = q.shape
     C = kp.shape[3] * tables.shape[1]
@@ -446,6 +554,7 @@ def check_decode_attention(dev) -> dict:
     mask = (torch.arange(C, device=dev)[None, :] <= pos.long()[:, None])[:, None, None, :]
     valid = int((pos.long() + 1).sum())  # the positions this run's slots attend
     nbytes = 2 * q.numel() * 2 + valid * nh * (2 * hd + 8) + tables.numel() * 4 + S * 4
+    log(f"# decode_attention: the kernel used at most {worst:.4g} of the tolerance")
     return {
         "max_abs_err": err,
         "ms": time_ms(lambda: kda.paged_decode_attention(*args), "decode_attention"),
@@ -1026,7 +1135,7 @@ def serving_path(tft, dev) -> dict:
             outs.append(f.result(600)["tokens"])
             lat.append(time.perf_counter() - t_sub)
         wall = time.perf_counter() - t1
-        launches = tft.kernels.LAUNCHES.snapshot()
+        launches = launch_counts(tft)
         steps = {p: int(sm.DECODE_STEPS[p].value - steps0[p]) for p in sm.DECODE_PHASES}
         # each request's own submit-to-first-token time; the burst's 32
         # first tokens are also the only observations of the histogram
@@ -1046,6 +1155,9 @@ def serving_path(tft, dev) -> dict:
         if launches["int8_matmul"] != 48 * (steps["decode"] + steps["prefill"]):
             fail(f"int8_matmul launched {launches['int8_matmul']} times in {steps} "
                  "(want 48 per decode step and per prefill)")
+        if launches["int8_matmul_mma"] != launches["int8_matmul"]:
+            fail(f"{launches['int8_matmul_mma']} of the {launches['int8_matmul']} int8_matmul "
+                 "launches went to the tensor-core build (want all)")
         # solo equals batched, exactly
         for i in range(8):
             solo = srv.call("gpt_small", {"prompt": prompts[i]}, timeout=600)["tokens"]
@@ -1168,11 +1280,11 @@ def encoder_path(tft, dev) -> dict:
     tft.kernels.LAUNCHES.reset()
     qemb, qsecs = embed_rows(tft, cfg, qparams, small, dev, "map_rows")
     qlaunches = launch_counts(tft)
-    if (qlaunches["int8_matmul"], qlaunches["flash_attention"],
-            qlaunches["flash_attention_mma"]) != (4 * cfg.num_layers, cfg.num_layers,
-                                                  cfg.num_layers):
-        fail(f"int8 map_rows launched {qlaunches} in one call (want 48 int8_matmul, "
-             "12 flash_attention, all 12 on the tensor cores)")
+    if (qlaunches["int8_matmul"], qlaunches["int8_matmul_mma"], qlaunches["flash_attention"],
+            qlaunches["flash_attention_mma"]) != (4 * cfg.num_layers, 4 * cfg.num_layers,
+                                                  cfg.num_layers, cfg.num_layers):
+        fail(f"int8 map_rows launched {qlaunches} in one call (want 48 int8_matmul and 12 "
+             "flash_attention, all on the tensor cores)")
     qblocks, _ = embed_rows(tft, cfg, qparams, small, dev, "map_blocks")
     qgap = float(np.abs(qemb - qblocks).max())
     if not np.isfinite(qemb).all() or qgap > tol:
@@ -1680,17 +1792,27 @@ def training_profile(train) -> dict:
 
 def kernel_name(mangled: str) -> str:
     """``flash_attention_fwd_mma_kernel<64, true>`` from a mangled kernel
-    name of the build log (anything else as it is)."""
+    name of the build log (anything else as it is): the length-prefixed
+    name that ends in ``_kernel`` and takes template arguments."""
     import re
 
-    m = re.search(r"([A-Za-z_]+_kernel)I(.*?)EEv", mangled)
-    if not m:
+    for i in range(len(mangled)):
+        size = re.match(r"\d+", mangled[i:])
+        if not size:
+            continue
+        start = i + len(size.group())
+        name = mangled[start:start + int(size.group())]
+        rest = mangled[start + len(name):]
+        m = re.match(r"I(.*?)EEv", rest) or re.match(r"I(.*?)Ev", rest)  # values / types
+        if name.endswith("_kernel") and m:
+            break
+    else:
         return mangled
-    args = m.group(2).replace("13__nv_bfloat16", "bf16,").replace("Lb0E", "false,")
+    args = m.group(1).replace("13__nv_bfloat16", "bf16,").replace("Lb0E", "false,")
     args = re.sub(r"Li(\d+)E", r"\1,", args.replace("Lb1E", "true,"))
     if args.startswith("f"):
         args = "float," + args[1:]
-    return f"{m.group(1)}<{args.rstrip(',').replace(',', ', ')}>"
+    return f"{name}<{args.rstrip(',').replace(',', ', ')}>"
 
 
 def ptxas_report(text: str, needle: str = "flash_attention_fwd") -> dict:
@@ -1743,6 +1865,10 @@ def main() -> int:
         log(f"# ptxas flash forward build {name}: {used}")
     for name, used in ptxas_report(build_log, "flash_attention_bwd").items():
         log(f"# ptxas flash backward build {name}: {used}")
+    for name, used in ptxas_report(build_log, "int8_matmul").items():
+        log(f"# ptxas int8_matmul build {name}: {used}")
+    for name, used in ptxas_report(build_log, "paged_decode_attention").items():
+        log(f"# ptxas decode_attention {name}: {used}")
 
     results = {
         "segment_reduce": check_segment_reduce(dev, 10_000_000, 4096),

@@ -1,9 +1,11 @@
-// Device pieces shared by the tensor-core flash kernels (sm_90a):
-// flash_attention_mma.cu (the forward) and flash_attention_bwd_mma.cu (dK/dV
-// and dQ). bf16 tiles staged in shared memory by 16-byte cp.async copies into
-// rows padded by 16 bytes, ldmatrix fragments (plain and transposed), mma.sync
-// m16n8k16 bf16 with f32 accumulators, and the repack of two f32 accumulator
-// values into one bf16x2 register of an A-fragment.
+// Device pieces shared by the tensor-core kernels (sm_90a):
+// flash_attention_mma.cu (the forward), flash_attention_bwd_mma.cu (dK/dV
+// and dQ) and int8_matmul_mma.cu, and by decode_attention.cu. bf16 tiles
+// staged in shared memory by 16-byte cp.async copies into rows padded by 16
+// bytes; mbarriers and the copy engine's bulk copies (TMA); ldmatrix
+// fragments (plain and transposed); the exact widening of int8 to f32;
+// mma.sync m16n8k16 bf16 with f32 accumulators, and the repack of two f32
+// accumulator values into one bf16x2 register of an A-fragment.
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, tg = lane % 4):
 //   A (16 x 16, row-major):  a[0] (row g,     cols 2tg, 2tg+1), a[1] (row g + 8, same),
@@ -56,6 +58,63 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t add
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
+}
+
+// mbarriers that count one arrival and the bytes of asynchronous copies (TMA)
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// the one arrival of the barrier's current phase, which then waits for `bytes`
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// until the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// before asynchronous copies overwrite shared memory that threads have read
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global to
+// shared memory by the copy engine, counted on the barrier
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// ldmatrix.x2.trans: lanes 0-15 address the rows of two 8 x 8 b16 matrices
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+// the four int8 of a word widened exactly to f32, byte i to f[i]: the float
+// 2^23 + (b + 128), built from the byte's bits, minus 2^23 + 128 (an integer
+// of magnitude <= 128, so its low 16 bits are 0 and it is also exact in bf16)
+__device__ __forceinline__ void widen_s8x4(uint32_t r, float (&f)[4]) {
+  const uint32_t u = r ^ 0x80808080u;  // each byte b + 128
+  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - 8388736.0f;
+  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - 8388736.0f;
+  f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - 8388736.0f;
+  f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - 8388736.0f;
 }
 
 // c += a.b for a 16 x 16 bf16 A (row-major fragments) and a 16 x 8 bf16 B

@@ -18,7 +18,11 @@ On the decode server's path:
   int8-KV attention for every running slot;
 * ``int8_matmul`` (:func:`tensorframes_tpu_torch.ops.quantize.matmul_int8`)
   — ``x @`` an int8 per-output-channel weight, every weight product of
-  the quantized model.
+  the quantized model, in two builds: bf16 ``x`` whose rows, and the
+  weight's, a tensor map can take goes to the tensor-core kernel, split
+  over k across a thread-block cluster (``csrc/int8_matmul_mma.cu``),
+  f32 and the rest to the scalar one (``csrc/int8_matmul.cu``), by
+  :func:`tensorframes_tpu_torch.ops.quantize.int8_matmul_build`.
 
 On the encoder's path (``attention_impl="flash"``, BERT through
 ``map_rows``/``map_blocks``):
@@ -86,10 +90,10 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 _SOURCES = (
     "segment_reduce.cu", "ragged_gather.cu", "decode_attention.cu", "int8_matmul.cu",
-    "flash_attention.cu", "flash_attention_mma.cu", "flash_attention_bwd.cu",
-    "flash_attention_bwd_mma.cu",
+    "int8_matmul_mma.cu", "flash_attention.cu", "flash_attention_mma.cu",
+    "flash_attention_bwd.cu", "flash_attention_bwd_mma.cu",
 )
-_HEADERS = ("mma_common.cuh",)  # included by the two tensor-core sources
+_HEADERS = ("mma_common.cuh",)  # shared device helpers, included by four of the sources
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -131,8 +135,8 @@ KERNELS: Dict[str, KernelInfo] = {
             "tensorframes_tpu_torch.kernels.decode_attention.paged_decode_attention",
         ),
         KernelInfo(
-            "int8_matmul",
-            "tensorframes_tpu_torch/csrc/int8_matmul.cu",
+            "int8_matmul",  # the tensor-core build; the scalar one is csrc/int8_matmul.cu
+            "tensorframes_tpu_torch/csrc/int8_matmul_mma.cu",
             "tensorframes_tpu/ops/quantize.py:130",
             "tensorframes_tpu_torch.ops.quantize.matmul_int8",
         ),
@@ -159,6 +163,7 @@ KERNELS: Dict[str, KernelInfo] = {
 
 # builds of a kernel counted on their own as well: build -> kernel
 BUILDS = {
+    "int8_matmul_mma": "int8_matmul",
     "flash_attention_mma": "flash_attention",
     "flash_attention_bwd_dkv_mma": "flash_attention_bwd_dkv",
     "flash_attention_bwd_dq_mma": "flash_attention_bwd_dq",
@@ -268,10 +273,11 @@ def library() -> ctypes.CDLL:
                 vp, i64, vp, i32, i32, i32, vp, i32, vp,
             ]
             lib.tft_paged_decode_attention.argtypes = [
-                vp, vp, vp, vp, vp, vp, vp, vp,
+                vp, i64, i64, vp, vp, vp, vp, vp, vp, vp,
                 i32, i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, i32, i32, vp,
             ]
             lib.tft_int8_matmul.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, vp]
+            lib.tft_int8_matmul_mma.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, vp]
             lib.tft_flash_attention.argtypes = [
                 vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, *([i64] * 12),
                 ctypes.c_float, i32, i32, i32, vp,
@@ -298,7 +304,8 @@ def library() -> ctypes.CDLL:
             ]
             for f in (lib.tft_segment_reduce, lib.tft_segment_sum,
                       lib.tft_ragged_gather, lib.tft_paged_decode_attention,
-                      lib.tft_int8_matmul, lib.tft_flash_attention, lib.tft_flash_attention_mma,
+                      lib.tft_int8_matmul, lib.tft_int8_matmul_mma,
+                      lib.tft_flash_attention, lib.tft_flash_attention_mma,
                       lib.tft_flash_attention_bwd_dkv, lib.tft_flash_attention_bwd_dq,
                       lib.tft_flash_attention_bwd_dkv_mma, lib.tft_flash_attention_bwd_dq_mma):
                 f.restype = ctypes.c_int

@@ -5,9 +5,11 @@ Replaces ``tensorframes_tpu/kernels/decode_attention.py::paged_decode_attention`
 kernel saves is the materialized gather: the plain chain
 (:func:`paged_attention_reference`) copies every slot's pages into a
 ``[S, heads, pages * page_size, head_dim]`` tensor, dequantizes it and
-attends; the kernel (``csrc/decode_attention.cu``) reads each slot's int8
-rows straight out of the pool through its page table and keeps scores
-and weights on chip.
+attends; the kernel (``csrc/decode_attention.cu``) stages each slot's
+int8 rows straight out of the pool through its page table into shared
+memory, all at once, and keeps scores and weights on chip. It reads
+``q`` at its strides, so the decode step's ``qkv[:, 0]`` view needs no
+copy.
 
 Null-page handling is the reference's: padding slots carry all-null
 tables (every page is page 0) and real slots mask to ``position <= pos``,
@@ -107,14 +109,16 @@ def paged_decode_attention(q, k_pages, v_pages, k_scale, v_scale, layer, tables,
                     ("v_scale", v_scale)):
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"paged_decode_attention: {name} must be contiguous on {dev}")
-    q = q.contiguous()
+    if q.stride(-1) != 1:
+        q = q.contiguous()  # the kernel reads q at its slot and head strides
     tables = tables.to(device=dev, dtype=torch.int32).contiguous()
     pos = pos.to(device=dev, dtype=torch.int32).contiguous()
-    out = torch.empty_like(q)
+    out = torch.empty((S, nh, hd), dtype=q.dtype, device=dev)
     if S == 0:
         return out
     rc = library().tft_paged_decode_attention(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), k_scale.data_ptr(),
+        q.data_ptr(), q.stride(0), q.stride(1), k_pages.data_ptr(), v_pages.data_ptr(),
+        k_scale.data_ptr(),
         v_scale.data_ptr(), tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
         S, nh, hd, page, maxp, int(layer), L, P, _sqrt_hd(hd),
         int(q.dtype == torch.bfloat16), *launch_target(dev),

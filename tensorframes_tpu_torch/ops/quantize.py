@@ -10,8 +10,12 @@ one forward pass serves plain and quantized trees.
 :func:`matmul` is ``x @ w``. For an eligible quantized weight (a 2-D
 ``q`` with per-output-channel scale, ``x`` in bf16 or f32) on a CUDA
 tensor it launches the hand-written int8-weight kernel
-(:func:`matmul_int8`, ``csrc/int8_matmul.cu``), which replaces the
-reference package's Pallas kernel ``ops/quantize.py::matmul_pallas_int8``.
+(:func:`matmul_int8`), which replaces the reference package's Pallas
+kernel ``ops/quantize.py::matmul_pallas_int8``, in one of two builds
+(:func:`int8_matmul_build`): bf16 ``x`` on the tensor cores, split over
+k (``csrc/int8_matmul_mma.cu``, partition :func:`int8_matmul_split`),
+f32 ``x`` and unaligned shapes on the scalar kernel
+(``csrc/int8_matmul.cu``).
 On a CPU tensor it keeps the reference's structural path
 (``(x @ q.to(x.dtype)) * scale``), so the CPU results match the JAX
 package's CPU results. :func:`matmul_int8_plain` is the kernel's plain
@@ -135,6 +139,59 @@ def matmul_int8_plain(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
     return (out * w.scale.reshape(-1)).to(x.dtype)
 
 
+SPLIT_TILE_N = 32     # output channels per block of the mma build
+SPLIT_QUANTUM = 32    # k rows a chunk is a multiple of: two 16-deep mma steps
+MAX_SPLITS = 8        # one cluster of blocks per output tile: the portable cluster size
+CARD_SMS = 132        # the H100's streaming multiprocessors
+
+
+def int8_matmul_split(k: int, n: int) -> tuple:
+    """``(chunk, splits)``: the mma build's partition of k. Split ``s``
+    sums rows ``s·chunk .. min(k, (s + 1)·chunk) - 1`` of the weight, and
+    the splits' partials are added in the order 0, 1, ..., splits - 1.
+    A function of ``(k, n)`` alone, so a row's sums never depend on how
+    many rows ride with it. It asks for enough splits that the ``n / 32``
+    output tiles of one 16-token block row put a block on each of the
+    card's 132 SMs (at most 8, one cluster), then rounds the chunk up to
+    a multiple of 32 and drops any split left empty."""
+    if k < 1 or n < 1:
+        raise ValueError(f"int8_matmul_split: k {k}, n {n}")
+    tiles = -(-n // SPLIT_TILE_N)
+    want = min(MAX_SPLITS, -(-CARD_SMS // tiles))
+    chunk = -(-(-(-k // want)) // SPLIT_QUANTUM) * SPLIT_QUANTUM
+    return chunk, -(-k // chunk)
+
+
+def _aligned_16(t: torch.Tensor) -> bool:
+    """The kernel reads ``t`` itself when it is contiguous (a view keeps
+    its data pointer), else a fresh, aligned copy."""
+    return not t.is_contiguous() or t.data_ptr() % 16 == 0
+
+
+def int8_matmul_build(x: torch.Tensor, w) -> str:
+    """The build a CUDA call of :func:`matmul_int8` launches: ``"mma"`` or
+    ``"scalar"``.
+
+    ``"mma"`` (``csrc/int8_matmul_mma.cu``, the tensor cores, split over
+    k) takes bfloat16 ``x`` whose rows, and the weight's, the copy engine
+    reads through a tensor map: row strides of a multiple of 16 bytes
+    (``k % 8 == 0`` for x, ``n % 16 == 0`` for the weight) and both on
+    16-byte boundaries. Everything else
+    goes to ``"scalar"`` (``csrc/int8_matmul.cu``): float32 ``x``, which
+    the tensor cores would take only as TF32, and the bfloat16 shapes
+    above that fail the rule. Both compute the same function with f32
+    sums, the scale on the sum and one rounding; this chooses between two
+    kernels and is not a fallback. Every weight product of the decode
+    server and of the quantized encoder takes ``"mma"``. ``w`` is a
+    :class:`QuantizedTensor` or its int8 ``q``."""
+    q = w.q if isinstance(w, QuantizedTensor) else w
+    k, n = int(q.shape[0]), int(q.shape[1])
+    if (x.dtype == torch.bfloat16 and k % 8 == 0 and n % 16 == 0
+            and _aligned_16(x) and _aligned_16(q)):
+        return "mma"
+    return "scalar"
+
+
 @torch.library.custom_op("tftpu::int8_matmul", mutates_args=())
 def _int8_op(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cuda":
@@ -166,20 +223,30 @@ def _launch_int8(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return out.reshape(*lead, n)
-    rc = library().tft_int8_matmul(
-        x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        m, k, n, int(x.dtype == torch.bfloat16), *launch_target(x.device),
-    )
-    check("int8_matmul", rc)
+    if int8_matmul_build(x2, q) == "mma":
+        chunk, _ = int8_matmul_split(k, n)
+        rc = library().tft_int8_matmul_mma(
+            x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            m, k, n, chunk, *launch_target(x.device),
+        )
+        check("int8_matmul", rc, "int8_matmul_mma")
+    else:
+        rc = library().tft_int8_matmul(
+            x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            m, k, n, int(x.dtype == torch.bfloat16), *launch_target(x.device),
+        )
+        check("int8_matmul", rc)
     return out.reshape(*lead, n)
 
 
 def matmul_int8(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
     """``x [..., k] @ int8 w.q [k, n]`` with per-output-channel scale, in
     ``x.dtype``, through the custom op ``tftpu::int8_matmul``. On a CUDA
-    tensor: the hand-written kernel (a 2-D view of ``x``'s leading dims;
-    each output row is summed over k in one fixed order, so a row's bits
-    do not depend on how many rows ride with it). On a CPU tensor:
+    tensor: the hand-written kernel, in the build
+    :func:`int8_matmul_build` chooses (a 2-D view of ``x``'s leading
+    dims; each output row is summed over k in an order fixed by ``(k,
+    n)``, so a row's bits do not depend on how many rows ride with it).
+    On a CPU tensor:
     :func:`matmul_int8_plain`. Shape analysis takes the op's fake
     implementation; under ``torch.func.vmap`` its vmap rule folds the
     vmapped dim into the rows and calls the op once."""

@@ -215,32 +215,46 @@ def _assert_kernel_close(got, want, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("m,k,n", [(1, 768, 2304), (16, 768, 768), (128, 3072, 768),
-                                   (37, 100, 72), (5, 64, 30)])
+                                   (37, 100, 72), (5, 64, 30),
+                                   # the tensor-core build's edges: k not a multiple of
+                                   # its chunk, n not of its 32-wide tile, m past 64
+                                   (16, 776, 96), (9, 1000, 304), (130, 776, 48)])
 def test_int8_matmul_kernel_matches_plain_on_card(cuda_device, dtype, m, k, n):
-    """Ragged m, k and n (the kernel masks its own edges; n = 30 takes the
-    byte path for the weight tile)."""
+    """Ragged m, k and n (the kernels mask their own edges), each through
+    the build ``int8_matmul_build`` chooses: bf16 with k % 8 == 0 and n %
+    16 == 0 on the tensor cores; k = 100, n = 30 and f32 on the scalar
+    kernel (n = 30 takes its byte path for the weight tile). Two launches
+    give the same bits."""
     rng = np.random.default_rng(m + k + n)
     w = tq.quantize(torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)))
     w = w.to(cuda_device)
     x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(cuda_device, dtype)
+    want = "mma" if dtype == torch.bfloat16 and (k, n) not in ((100, 72), (64, 30)) else "scalar"
+    assert tq.int8_matmul_build(x, w) == want
     tft.kernels.LAUNCHES.reset()
     got = tq.matmul_int8(x, w)
     assert tft.kernels.LAUNCHES.snapshot()["int8_matmul"] == 1
+    assert tft.kernels.LAUNCHES.builds()["int8_matmul_mma"] == (want == "mma")
     assert got.dtype == dtype and got.shape == (m, n)
+    assert torch.equal(tq.matmul_int8(x, w), got)
     _assert_kernel_close(got, tq.matmul_int8_plain(x, w), dtype)
 
 
 def test_int8_matmul_rows_do_not_depend_on_the_batch_on_card(cuda_device):
-    """A row's bits are the same alone and among 127 others."""
+    """On the tensor-core build, at each of gpt_small's four (k, n): a
+    row's bits are the same alone, among 15 others and among 127 others."""
     rng = np.random.default_rng(9)
-    w = tq.quantize(torch.from_numpy(rng.standard_normal((768, 3072)).astype(np.float32)))
-    w = w.to(cuda_device)
-    x = torch.from_numpy(rng.standard_normal((128, 768)).astype(np.float32)).to(
-        cuda_device, torch.bfloat16)
-    full = tq.matmul_int8(x, w)
-    for r in (0, 7, 77, 127):
-        assert torch.equal(tq.matmul_int8(x[r:r + 1], w), full[r:r + 1]), r
-        assert torch.equal(tq.matmul_int8(x[r:r + 16], w)[0], full[r]), r
+    for k, n in ((768, 2304), (768, 768), (768, 3072), (3072, 768)):
+        w = tq.quantize(torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)))
+        w = w.to(cuda_device)
+        x = torch.from_numpy(rng.standard_normal((128, k)).astype(np.float32)).to(
+            cuda_device, torch.bfloat16)
+        tft.kernels.LAUNCHES.reset()
+        full = tq.matmul_int8(x, w)
+        for r in (0, 7, 77, 127):
+            assert torch.equal(tq.matmul_int8(x[r:r + 1], w), full[r:r + 1]), (k, n, r)
+            assert torch.equal(tq.matmul_int8(x[r:r + 16], w)[0], full[r]), (k, n, r)
+        assert tft.kernels.LAUNCHES.builds()["int8_matmul_mma"] == 9, (k, n)
 
 
 def _paged_inputs(rng, S, P, L, nh, page, hd, maxp, device, dtype):
@@ -261,18 +275,21 @@ def _paged_inputs(rng, S, P, L, nh, page, hd, maxp, device, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("S,nh,page,hd,maxp", [(1, 12, 16, 64, 12), (16, 12, 16, 64, 12),
-                                               (5, 4, 8, 8, 6), (3, 2, 4, 128, 3)])
+                                               (5, 4, 8, 8, 6), (3, 2, 4, 128, 3),
+                                               # contexts past the 256-position staging
+                                               (4, 4, 16, 64, 64), (3, 2, 16, 128, 40)])
 def test_decode_attention_kernel_matches_plain_on_card(cuda_device, dtype, S, nh, page, hd,
                                                        maxp):
     rng = np.random.default_rng(S * 100 + hd)
-    q, kp, vp, ks, vs, tables, pos = _paged_inputs(rng, S, 40, 3, nh, page, hd, maxp,
-                                                   cuda_device, dtype)
+    q, kp, vp, ks, vs, tables, pos = _paged_inputs(rng, S, max(40, maxp + 8), 3, nh, page, hd,
+                                                   maxp, cuda_device, dtype)
     tft.kernels.LAUNCHES.reset()
     got = kda.paged_decode_attention(q, kp, vp, ks, vs, 1, tables, pos)
     assert tft.kernels.LAUNCHES.snapshot()["decode_attention"] == 1
     want = kda.paged_attention_reference(q, kp, vp, ks, vs, 1, tables, pos)
     assert got.dtype == dtype and got.shape == q.shape
     _assert_kernel_close(got, want, dtype)
+    assert torch.equal(kda.paged_decode_attention(q, kp, vp, ks, vs, 1, tables, pos), got)
     # a slot's context is the same alone and in the batch
     for s in range(S):
         alone = kda.paged_decode_attention(q[s:s + 1], kp, vp, ks, vs, 1, tables[s:s + 1],
