@@ -10,13 +10,20 @@ Needs one CUDA GPU and ``nvcc`` (the kernels build on first use into
 ``build/torch_kernels/``). Exits nonzero, printing no result, when no GPU
 is visible or when the package is not beside this script. After the
 build it prints the ptxas registers and spills of each flash forward and
-backward build, of both int8_matmul builds and of decode_attention.
+backward build, of both int8_matmul builds, of decode_attention and of the
+segment kernels' two launches (seg_fold, seg_merge).
 Phases:
 
 1. kernels against their plain versions at the main path's shapes:
    ``segment_reduce`` (10M rows, 4096 groups: f32 sum and mean, f32 [n, 8]
    max, int32 sum), ``segment_sum`` (f32 [10M, 8]) and ``ragged_gather``
-   (200,000 rows of lengths 16/32/64/128, bit-exact); device times per
+   (200,000 rows of lengths 16/32/64/128, bit-exact); both segment kernels
+   again on three more feeds: one key holding half of the 10M rows, the
+   logreg scores [262,144, 10] over 10 labels, and 16 f32 [100,000, 64]
+   columns (max and sum) over 256 groups, each exact where it must be,
+   within tolerance of float64 sums elsewhere, its float sums bit-exact
+   against the kernel-order emulation and relaunched bit for bit, timed
+   beside its plain version, library calls and byte bound; device times per
    call (ten calls queued behind a spin kernel and timed by CUDA events,
    so the card runs them back to back whatever the host's launch rate)
    for the kernel, the plain version and one PyTorch library call per
@@ -108,6 +115,7 @@ Phases:
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -209,6 +217,10 @@ def exact(got, ref, what: str) -> None:
 # phase 1: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+SEGMENT_OPS = (("v_sum", "reduce_sum"), ("v_mean", "reduce_mean"),
+               ("w", "reduce_max"), ("c", "reduce_sum"))
+
+
 def segment_inputs(n: int, groups: int, dev):
     import torch
 
@@ -225,8 +237,7 @@ def check_segment_reduce(dev, n: int, groups: int) -> dict:
     from tensorframes_tpu_torch.kernels import segment_reduce as ksr
 
     ids, v, w, c = segment_inputs(n, groups, dev)
-    ops = (("v_sum", "reduce_sum"), ("v_mean", "reduce_mean"),
-           ("w", "reduce_max"), ("c", "reduce_sum"))
+    ops = SEGMENT_OPS
     cols = {"v_sum": v, "v_mean": v, "w": w, "c": c}
     got = ksr.segment_reduce(ops, groups, cols, ids)
     ref = ksr.segment_reduce_plain(ops, groups, cols, ids)
@@ -288,6 +299,146 @@ def check_segment_sum(dev, n: int, groups: int) -> dict:
         "bound_ms": bound_ms(nbytes),
         "bound_by": "bytes",
     }
+
+
+def f64_sums(v, ids, groups: int):
+    """Float sums by group in float64, the reference for a leg whose groups
+    hold millions of rows (an f32 sum over one accumulator, as the plain
+    version's, drifts past the tolerance by itself there)."""
+    import torch
+
+    v = v.double().reshape(v.shape[0], -1)
+    return torch.zeros((groups, v.shape[1]), dtype=torch.float64, device=v.device).index_add_(
+        0, ids.long(), v)
+
+
+def segment_leg(dev, what: str, ids, cols, ops, groups: int) -> dict:
+    """One more feed through both segment kernels: ``segment_reduce`` over
+    ``ops`` (min/max and integer sums exact against the plain version,
+    float sums and means within ``float_close`` of the float64 sums, the
+    raw float sums bit-exact against ``segment_sum_in_kernel_order``),
+    ``segment_sum`` over the widest f32 column, each relaunched bit for bit;
+    device times of both kernels, their plain versions and library calls,
+    and their byte bounds."""
+    import torch
+    from tensorframes_tpu_torch.kernels import segment_reduce as ksr
+    from tensorframes_tpu_torch.ops import segment as seg
+
+    n = int(ids.shape[0])
+    counts = torch.bincount(ids.long(), minlength=groups)
+    got = ksr.segment_reduce(ops, groups, cols, ids)
+    again = ksr.segment_reduce(ops, groups, cols, ids)
+    ref = ksr.segment_reduce_plain(ops, groups, cols, ids)
+    raw, _ = ksr.segment_reduce_tables(ops, groups, cols, ids)
+    lanes = sum(1 if cols[x].ndim == 1 else int(cols[x].shape[1]) for x, _ in ops) + int(
+        any(op == "reduce_mean" for _, op in ops))
+    chunks = ksr.num_chunks(n, groups, lanes)
+    torch.cuda.synchronize()
+    err = 0.0
+    for x, op in ops:
+        if not torch.equal(got[x], again[x]):
+            fail(f"segment_reduce {what}: not deterministic ({x})")
+        if op in ("reduce_min", "reduce_max") or not cols[x].is_floating_point():
+            exact(got[x], ref[x], f"segment_reduce {what} {x}")
+            continue
+        if not torch.equal(raw[x].reshape(groups, -1).cpu(),
+                           ksr.segment_sum_in_kernel_order(cols[x], ids, groups, chunks)):
+            fail(f"segment_reduce {what}: {x} is not summed in the kernel's order")
+        want = f64_sums(cols[x], ids, groups).reshape(got[x].shape)
+        if op == "reduce_mean":
+            want = want / counts.reshape(-1, *([1] * (want.ndim - 1)))
+        err = max(err, float_close(got[x], want, counts, float(cols[x].abs().max()),
+                                   mean=op == "reduce_mean"))
+    w2 = widest_f32(cols, ops)
+    s_got = seg.segment_sum_kernel(w2, ids, groups)
+    if not torch.equal(s_got, seg.segment_sum_kernel(w2, ids, groups)):
+        fail(f"segment_sum {what}: not deterministic")
+    if not torch.equal(s_got.cpu(), ksr.segment_sum_in_kernel_order(
+            w2, ids, groups, ksr.num_chunks(n, groups, int(w2.shape[1])))):
+        fail(f"segment_sum {what}: not summed in the kernel's order")
+    err_sum = float_close(s_got, f64_sums(w2, ids, groups), counts, float(w2.abs().max()))
+    idx = ids.long()
+
+    def library():
+        for x, op in ops:
+            v = cols[x]
+            if op in ("reduce_sum", "reduce_mean"):
+                acc = torch.zeros((groups,) + tuple(v.shape[1:]), device=dev, dtype=v.dtype)
+                acc.index_add_(0, idx, v)
+            else:
+                v2 = v if v.ndim == 2 else v[:, None]
+                torch.full((groups, v2.shape[1]), float("-inf"), device=dev).scatter_reduce_(
+                    0, idx[:, None].expand_as(v2), v2,
+                    reduce="amax" if op == "reduce_max" else "amin")
+
+    distinct = {cols[x].data_ptr(): cols[x].nbytes for x, _ in ops}
+    in_bytes = 4 * n + sum(distinct.values())
+    out_lanes = sum(1 if cols[x].ndim == 1 else int(cols[x].shape[1]) for x, _ in ops)
+    return {
+        "segment_reduce": {
+            "max_abs_err": err,
+            "ms": time_ms(lambda: ksr.segment_reduce(ops, groups, cols, ids), f"segment_reduce {what}"),
+            "plain_ms": time_ms(lambda: ksr.segment_reduce_plain(ops, groups, cols, ids),
+                                f"segment_reduce {what} plain"),
+            "library_ms": time_ms(library, f"segment_reduce {what} library"),
+            "bound_ms": bound_ms(in_bytes + groups * out_lanes * 4), "bound_by": "bytes",
+        },
+        "segment_sum": {
+            "max_abs_err": err_sum,
+            "ms": time_ms(lambda: seg.segment_sum_kernel(w2, ids, groups), f"segment_sum {what}"),
+            "plain_ms": time_ms(lambda: seg.segment_sum_plain(w2, ids, groups),
+                                f"segment_sum {what} plain"),
+            "library_ms": time_ms(
+                lambda: torch.zeros((groups, w2.shape[1]), device=dev).index_add_(0, idx, w2),
+                f"segment_sum {what} library"),
+            "bound_ms": bound_ms(4 * n + w2.nbytes + groups * int(w2.shape[1]) * 4),
+            "bound_by": "bytes",
+        },
+    }
+
+
+def segment_feeds(dev) -> dict:
+    """The segment kernels' feeds, ``{name: (ids, cols, ops, groups)}``: the
+    main path's four columns over 4,096 groups with uniform keys
+    (``main``) and with one key holding half of the 10M rows (``skew``),
+    the logreg scores [262,144, 10] by label (``ten_groups``), and 16 f32
+    [100,000, 64] columns, max and sum in turn, over 256 groups (``wide``:
+    each column runs in two 32-lane slices)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    ids, v, w, c = segment_inputs(10_000_000, 4096, dev)
+    cols = {"v_sum": v, "v_mean": v, "w": w, "c": c}
+    hot = torch.where(torch.rand(ids.shape, generator=g, device=dev) < 0.5,
+                      torch.full_like(ids, 1234), ids)
+    feeds = {"main": (ids, cols, SEGMENT_OPS, 4096), "skew": (hot, cols, SEGMENT_OPS, 4096)}
+    n = 262_144
+    labels = torch.randint(0, 10, (n,), generator=g, device=dev, dtype=torch.int32)
+    scores = torch.randn((n, 10), generator=g, device=dev)
+    feeds["ten_groups"] = (labels, {"scores": scores}, (("scores", "reduce_sum"),), 10)
+    n = 100_000
+    ids = torch.randint(0, 256, (n,), generator=g, device=dev, dtype=torch.int32)
+    wide = {f"x{i}": torch.randn((n, 64), generator=g, device=dev) for i in range(16)}
+    wide_ops = tuple((f"x{i}", "reduce_max" if i % 2 else "reduce_sum") for i in range(16))
+    feeds["wide"] = (ids, wide, wide_ops, 256)
+    return feeds
+
+
+def widest_f32(cols, ops):
+    """The f32 column of ``ops`` with the most elements, as [n, d]: the
+    column a leg's ``segment_sum`` sums."""
+    import torch
+
+    w = max((cols[x] for x, _ in ops if cols[x].dtype == torch.float32), key=lambda t: t.numel())
+    return w if w.ndim == 2 else w[:, None]
+
+
+def segment_legs(dev) -> dict:
+    """Phase 1's segment legs beyond the main path's feed: ``segment_leg``
+    over the skew, 10-group and wide feeds of ``segment_feeds``."""
+    feeds = segment_feeds(dev)
+    del feeds["main"]
+    return {name: segment_leg(dev, name, *feed) for name, feed in feeds.items()}
 
 
 def ragged_cells(n_rows: int):
@@ -1625,8 +1776,7 @@ def where_the_time_goes(tft, dev) -> None:
 
     n, groups = 10_000_000, 4096
     ids, v, w, c = segment_inputs(n, groups, dev)
-    ops = (("v_sum", "reduce_sum"), ("v_mean", "reduce_mean"),
-           ("w", "reduce_max"), ("c", "reduce_sum"))
+    ops = SEGMENT_OPS
     cols = {"v_sum": v, "v_mean": v, "w": w, "c": c}
     rng = np.random.default_rng(SEED)
     big = tft.frame_from_arrays({
@@ -1869,10 +2019,16 @@ def main() -> int:
         log(f"# ptxas int8_matmul build {name}: {used}")
     for name, used in ptxas_report(build_log, "paged_decode_attention").items():
         log(f"# ptxas decode_attention {name}: {used}")
+    for name, used in ptxas_report(build_log, "seg_").items():
+        short = re.search(r"\d+(seg_[a-z]+)E", name)
+        log(f"# ptxas segment_reduce {short.group(1) if short else name}: {used}")
 
+    legs = segment_legs(dev)
     results = {
-        "segment_reduce": check_segment_reduce(dev, 10_000_000, 4096),
-        "segment_sum": check_segment_sum(dev, 10_000_000, 4096),
+        "segment_reduce": {**check_segment_reduce(dev, 10_000_000, 4096),
+                           "legs": {k: leg["segment_reduce"] for k, leg in legs.items()}},
+        "segment_sum": {**check_segment_sum(dev, 10_000_000, 4096),
+                        "legs": {k: leg["segment_sum"] for k, leg in legs.items()}},
         "ragged_gather": check_ragged_gather(dev, 200_000),
         "decode_attention": check_decode_attention(dev),
         "int8_matmul": check_int8_matmul(dev),

@@ -5,7 +5,13 @@ the verbs' path:
 
 * ``segment_reduce`` (:mod:`.segment_reduce`) — every (column, op) of a
   keyed ``aggregate`` in one launch pair: sum/mean (f32 or exact i32
-  accumulation), min/max, and the count table of means;
+  accumulation), min/max, and the count table of means. One coalesced
+  pass: row chunks streamed by bulk copies, each folded into a
+  shared-memory table (a row alone in its segment in a tile by its own
+  thread, the others by the warp that owns the segment, in row order),
+  then the chunks' tables folded in chunk order; no float atomics, the
+  order of every sum a function of the feed alone
+  (:func:`.segment_reduce.segment_sum_in_kernel_order` reproduces it);
 * ``segment_sum`` (:func:`tensorframes_tpu_torch.ops.segment.segment_sum_kernel`)
   — the single-op segment sum of the per-op ``aggregate`` route, built
   from the same device code;

@@ -6,10 +6,12 @@ Replaces ``tensorframes_tpu/kernels/segment_reduce.py::segment_reduce_pallas``
 ``[tile, segments]`` MXU contraction, min/max as masked reductions). The
 CUDA kernel is ``csrc/segment_reduce.cu``; its source note gives the
 design. In short: what bounds it on the H100 is bytes (each id and value
-read once); it is deterministic per feed — a counting sort puts the rows
-in a stable order by segment, and one warp per segment folds its rows in
-that order with a fixed shuffle tree, with no float atomics — and its
-gathers through the sort permutation keep it above the byte bound.
+read once); it reads them in one coalesced pass — :func:`num_chunks` row
+chunks, each streamed by bulk copies into a block whose warps own the
+segments and fold their rows into a shared-memory table in row order —
+then folds the chunks' tables in chunk order (a second launch). No float
+atomics: the order of every float sum depends on (n, chunks) alone, and
+:func:`segment_sum_in_kernel_order` reproduces it on the CPU bit for bit.
 
 Semantics, shared with the TPU kernel: sum/mean of float32/bfloat16
 accumulate in f32; sum/mean of int32/int16/int8/uint8/bool accumulate in
@@ -21,12 +23,12 @@ table (:func:`_finalize`), exactly as the TPU path runs it outside its
 kernel.
 
 Eligibility (re-derived for this kernel; the TPU bounds were VMEM
-budgets): the dtype/op set above, 1-D or 2-D values, at most
-:data:`MAX_SEGMENTS` (4096) segments — the per-chunk histogram and the
-scatter's slot counters are 16 KiB shared-memory arrays — at most
-:data:`MAX_COLS` (16) columns, and fewer than 2^31 rows (int32 slots). No
-table lives in shared memory, so the wide min/max columns the TPU
-kernel's mask budget refused are served.
+budgets): the dtype/op set above, 1-D or 2-D values of any inner width,
+at most :data:`MAX_SEGMENTS` (4096) segments, at most :data:`MAX_COLS`
+(16) columns, and fewer than 2^31 rows. The kernel folds the table's
+lanes in groups whose ``[S, lanes]`` table fits in shared memory (128 KB),
+one pass over the rows per group, and a column wider than a group in
+slices, so any width is served.
 
 :func:`segment_reduce` launches the kernel for CUDA tensors and computes
 :func:`segment_reduce_plain` (the plain PyTorch version) for CPU tensors.
@@ -58,7 +60,7 @@ _IDENTITY = {  # min/max seeds of the integer types, as in the TPU kernel
 }
 
 __all__ = ["eligible", "segment_reduce", "segment_reduce_plain", "segment_reduce_tables",
-           "MAX_SEGMENTS"]
+           "segment_sum_in_kernel_order", "num_chunks", "chunk_starts", "MAX_SEGMENTS"]
 
 
 def dtype_name(v) -> str:
@@ -162,18 +164,52 @@ def segment_reduce_plain(
     return _finalize(meta, raw, counts)
 
 
-def _num_chunks(n: int, device) -> int:
-    """Row chunks of the counting sort: up to eight per SM (one warp each
-    in the scatter), at least 4096 rows each."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(8 * sms, -(-n // 4096)))
+MAX_CHUNKS = 132             # row chunks at most: one per SM of an H100, a constant
+MIN_CHUNK_ROWS = 2048        # rows per chunk at least
+MAX_PARTIAL_WORDS = 1 << 24  # the chunks' [chunks, S, lanes] partials, 64 MiB at most
 
 
-def scratch_for(n: int, num_segments: int, chunks: int, device) -> torch.Tensor:
-    """The kernel's int32 scratch: chunk counts, totals, starts and the
-    sort permutation."""
-    return torch.empty(chunks * num_segments + 2 * num_segments + 1 + n,
-                       dtype=torch.int32, device=device)
+def num_chunks(n: int, num_segments: int, lanes: int) -> int:
+    """Row chunks of the kernel for ``n`` rows and an ``[S, lanes]`` table:
+    a function of the feed alone (not of the card), so the order of its
+    sums, and hence their bits, is the same on every card."""
+    return max(1, min(MAX_CHUNKS, -(-n // MIN_CHUNK_ROWS),
+                      MAX_PARTIAL_WORDS // (num_segments * lanes)))
+
+
+def chunk_starts(n: int, chunks: int) -> list:
+    """The chunks' first rows, and ``n`` last: multiples of 16 (as
+    ``chunk_lo`` in ``csrc/segment_reduce.cu``)."""
+    n16 = -(-n // 16)
+    return [min(n, 16 * (n16 * c // chunks)) for c in range(chunks + 1)]
+
+
+def scratch_for(chunks: int, num_segments: int, lanes: int, device) -> torch.Tensor:
+    """The kernel's scratch: the chunks' partial tables, 32-bit words
+    (none needed for one chunk, which writes the output itself)."""
+    words = chunks * num_segments * lanes if chunks > 1 else 1
+    return torch.empty(words, dtype=torch.int32, device=device)
+
+
+def segment_sum_in_kernel_order(values: torch.Tensor, seg_ids: torch.Tensor,
+                                num_segments: int, chunks: int) -> torch.Tensor:
+    """The kernel's f32 sum of ``[n, d]`` (or ``[n]``) values by segment,
+    computed on the CPU in the kernel's order: in each chunk of
+    :func:`chunk_starts`, every segment's rows added one by one in row
+    order to 0 (``index_add_`` on the CPU adds in index order), then the
+    chunks' tables added in chunk order. Ids outside ``[0, S)`` match
+    nothing. Equal bit for bit to the kernel's sums and means' sums."""
+    n = int(seg_ids.shape[0])
+    v = values.detach().to("cpu", torch.float32).reshape(n, -1)
+    ids = seg_ids.detach().to("cpu", torch.int64)
+    out = None
+    bounds = chunk_starts(n, chunks)
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        i, x = ids[lo:hi], v[lo:hi]
+        keep = (i >= 0) & (i < num_segments)
+        part = torch.zeros((num_segments, v.shape[1])).index_add_(0, i[keep], x[keep])
+        out = part if out is None else out + part
+    return out
 
 
 def segment_reduce_tables(ops_key, num_segments, val_cols, seg_ids):
@@ -201,9 +237,10 @@ def segment_reduce_tables(ops_key, num_segments, val_cols, seg_ids):
                 f"{device} with {n} rows"
             )
     need_counts = any(op == "reduce_mean" for *_, op in meta)
-    chunks = _num_chunks(n, device)
-    scratch = scratch_for(n, num_segments, chunks, device)
-    out = torch.empty((num_segments, _lanes(meta)), dtype=torch.int32, device=device)
+    lanes = _lanes(meta)
+    chunks = num_chunks(n, num_segments, lanes)
+    scratch = scratch_for(chunks, num_segments, lanes, device)
+    out = torch.empty((num_segments, lanes), dtype=torch.int32, device=device)
     k = len(meta)
     vals = (ctypes.c_void_p * k)(*[val_cols[x].data_ptr() for x, *_ in meta])
     codes = (ctypes.c_int * k)(*[_DTYPE_CODE[m[1]] for m in meta])

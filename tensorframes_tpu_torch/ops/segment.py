@@ -5,7 +5,9 @@ Replaces ``tensorframes_tpu/ops/segment.py``: its ``segment_sum_pallas``
 256-row tiles) becomes :func:`segment_sum_kernel`, a single-op launch of
 the segment-reduce CUDA kernel (``csrc/segment_reduce.cu``, entry point
 ``tft_segment_sum``): f32/bf16 values ``[n, d]`` → f32 ``[S, d]``,
-deterministic per feed, bounded by bytes (ids and values read once, the
+deterministic per feed (each chunk's rows added in row order, then the
+chunks in order: ``kernels.segment_reduce.segment_sum_in_kernel_order``),
+bounded by bytes (ids and values read once in one coalesced pass, the
 table written once). It keeps its own C entry point, wrapper and launch
 count.
 
@@ -25,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels as _k
-from ..kernels.segment_reduce import MAX_ROWS, MAX_SEGMENTS, _num_chunks, scratch_for
+from ..kernels.segment_reduce import MAX_ROWS, MAX_SEGMENTS, num_chunks, scratch_for
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -68,8 +70,8 @@ def segment_sum_kernel(values: torch.Tensor, seg_ids: torch.Tensor,
         raise ValueError("segment_sum_kernel: seg_ids must be contiguous int32 [n]")
     if values.device != device or not values.is_contiguous():
         raise ValueError(f"segment_sum_kernel: values must be contiguous on {device}")
-    chunks = _num_chunks(n, device)
-    scratch = scratch_for(n, num_segments, chunks, device)
+    chunks = num_chunks(n, num_segments, d)
+    scratch = scratch_for(chunks, num_segments, d, device)
     out = torch.empty((num_segments, d), dtype=torch.float32, device=device)
     rc = _k.library().tft_segment_sum(
         seg_ids.data_ptr(), n, num_segments, values.data_ptr(),

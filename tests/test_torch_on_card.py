@@ -155,6 +155,162 @@ def test_segment_sum_kernel_matches_plain_on_card(cuda_device):
                      float(v.float().abs().max()), torch.bincount(ids.long(), minlength=s), False)
 
 
+def _segment_case(rng, n, s, device, ids=None):
+    """Seeded ids (uniform over ``[0, s)`` unless given) and the feed every
+    segment test below folds: f32 sum and mean, an f32 [n, 8] max, a bf16
+    [n, 3] sum, an int32 sum and an int8 min."""
+    if ids is None:
+        ids = rng.integers(0, s, n).astype(np.int32)
+    cols = {"v_sum": _values(rng, "float32", (n,), device),
+            "v_mean": _values(rng, "float32", (n,), device),
+            "w": _values(rng, "float32", (n, 8), device),
+            "h": _values(rng, "bfloat16", (n, 3), device),
+            "c": _values(rng, "int32", (n,), device),
+            "b": _values(rng, "int8", (n, 2), device)}
+    ops = (("v_sum", "reduce_sum"), ("v_mean", "reduce_mean"), ("w", "reduce_max"),
+           ("h", "reduce_sum"), ("c", "reduce_sum"), ("b", "reduce_min"))
+    return torch.from_numpy(ids).to(device), cols, ops
+
+
+def _f64_sums(v, ids, s):
+    """Float sums by segment in float64: the reference for f32/bf16 sums and
+    means. The plain versions add in f32 into one accumulator per segment,
+    which over millions of rows of one key drifts past the tolerance by
+    itself."""
+    v = v.double().reshape(v.shape[0], -1)
+    return torch.zeros((s, v.shape[1]), dtype=torch.float64, device=v.device).index_add_(
+        0, ids.long(), v)
+
+
+def _check_segment_kernels(ids, cols, ops, s):
+    """Both kernels against their plain versions on the rows whose ids lie
+    in ``[0, s)`` (the kernels drop the others) — exact for min/max, integer
+    sums and counts, float sums and means within the tolerance of the f64
+    sums — their float sums against the kernel-order emulation bit for bit,
+    and a relaunch bit for bit."""
+    keep = (ids >= 0) & (ids < s)
+    kept = {k: v[keep] for k, v in cols.items()}
+    got = ksr.segment_reduce(ops, s, cols, ids)
+    again = ksr.segment_reduce(ops, s, cols, ids)
+    want = ksr.segment_reduce_plain(ops, s, kept, ids[keep])
+    raw, counts = ksr.segment_reduce_tables(ops, s, cols, ids)
+    n = int(ids.shape[0])
+    lanes = 1 + 1 + 8 + 3 + 1 + 2 + 1
+    chunks = ksr.num_chunks(n, s, lanes)
+    bins = torch.bincount(ids[keep].long(), minlength=s)
+    assert torch.equal(counts, bins.to(torch.int32))
+    for key, op in ops:  # (a mean of an empty segment is NaN on both launches)
+        torch.testing.assert_close(got[key], again[key], rtol=0, atol=0, equal_nan=True)
+        if op in ("reduce_sum", "reduce_mean") and cols[key].dtype in (torch.float32,
+                                                                       torch.bfloat16):
+            order = ksr.segment_sum_in_kernel_order(cols[key], ids, s, chunks)
+            assert torch.equal(raw[key].cpu(), order), f"{key}: not the kernel's order"
+            rtol = 1e-5 if cols[key].dtype == torch.float32 else 1e-2
+            ref = _f64_sums(kept[key], ids[keep], s)
+            if op == "reduce_mean":
+                ref = ref / bins[:, None]
+            ref = ref.reshape(want[key].shape)
+            seen = bins > 0  # a mean of no rows is NaN on both sides
+            assert torch.equal(got[key][~seen].isnan(), want[key][~seen].isnan()), key
+            _float_close(got[key][seen], ref[seen], rtol,
+                         float(cols[key].float().abs().max()), bins[seen], op == "reduce_mean")
+        else:
+            torch.testing.assert_close(got[key], want[key], rtol=0, atol=0, equal_nan=True)
+    w = cols["w"]
+    got = tseg.segment_sum_kernel(w, ids, s)
+    assert torch.equal(got, tseg.segment_sum_kernel(w, ids, s)), "segment_sum: not deterministic"
+    order = ksr.segment_sum_in_kernel_order(w, ids, s, ksr.num_chunks(n, s, 8))
+    assert torch.equal(got.cpu(), order), "segment_sum: not the kernel's order"
+    _float_close(got, _f64_sums(w[keep], ids[keep], s), 1e-5, float(w.abs().max()), bins, False)
+
+
+@pytest.mark.parametrize("n", [1, 15, 17, 100, 1025, 2049, 4097, 270_337])
+def test_segment_kernels_edge_row_counts_on_card(cuda_device, n):
+    """One row; fewer rows than a tile; one row past the 1,024-row tile, the
+    2,048-row chunk and a multiple of 16 (the last tile then reads device
+    memory directly instead of the staged copy)."""
+    rng = np.random.default_rng(n)
+    _check_segment_kernels(*_segment_case(rng, n, 37, cuda_device), 37)
+
+
+def test_segment_kernels_ids_outside_range_on_card(cuda_device):
+    """Ids below 0 or at/after S match nothing, in sums, min/max and counts."""
+    rng = np.random.default_rng(11)
+    n, s = 70_000, 300
+    ids = rng.integers(-20, s + 20, n).astype(np.int32)
+    _check_segment_kernels(*_segment_case(rng, n, s, cuda_device, ids), s)
+
+
+def test_segment_kernels_skewed_key_on_card(cuda_device):
+    """One key holds half of 10M rows (the others uniform over 4,096): one
+    warp owns it in every block."""
+    rng = np.random.default_rng(12)
+    n, s = 10_000_000, 4096
+    ids = rng.integers(0, s, n).astype(np.int32)
+    ids[rng.random(n) < 0.5] = 1234
+    _check_segment_kernels(*_segment_case(rng, n, s, cuda_device, ids), s)
+
+
+def test_segment_kernels_ten_groups_on_card(cuda_device):
+    """The logreg aggregate's shape: [262,144, 10] f32 scores over 10 labels."""
+    rng = np.random.default_rng(13)
+    n, s = 262_144, 10
+    ids = torch.from_numpy(rng.integers(0, s, n).astype(np.int32)).to(cuda_device)
+    scores = _values(rng, "float32", (n, 10), cuda_device)
+    got = tseg.segment_sum_kernel(scores, ids, s)
+    assert torch.equal(got, tseg.segment_sum_kernel(scores, ids, s))
+    chunks = ksr.num_chunks(n, s, 10)
+    assert torch.equal(got.cpu(), ksr.segment_sum_in_kernel_order(scores, ids, s, chunks))
+    bins = torch.bincount(ids.long(), minlength=s)
+    _float_close(got, tseg.segment_sum_plain(scores, ids, s), 1e-5,
+                 float(scores.abs().max()), bins, False)
+    ops = (("scores", "reduce_sum"),)
+    raw, _ = ksr.segment_reduce_tables(ops, s, {"scores": scores}, ids)
+    assert torch.equal(raw["scores"], got)
+
+
+@pytest.mark.parametrize("s", [256, 4096])
+def test_segment_reduce_wide_feed_on_card(cuda_device, s):
+    """16 columns of [n, 64] f32, max and sum in turn: at 256 segments each
+    column is a pass of its own (16 lane groups, staged); at 4,096 a table
+    holds 8 lanes, so each column runs in 8 slices read straight from
+    device memory."""
+    rng = np.random.default_rng(s)
+    n = 60_001
+    ids = torch.from_numpy(rng.integers(0, s, n).astype(np.int32)).to(cuda_device)
+    cols = {f"x{i}": _values(rng, "float32", (n, 64), cuda_device) for i in range(16)}
+    ops = tuple((f"x{i}", "reduce_max" if i % 2 else "reduce_sum") for i in range(16))
+    got = ksr.segment_reduce(ops, s, cols, ids)
+    again = ksr.segment_reduce(ops, s, cols, ids)
+    want = ksr.segment_reduce_plain(ops, s, cols, ids)
+    chunks = ksr.num_chunks(n, s, 16 * 64)
+    bins = torch.bincount(ids.long(), minlength=s)
+    for key, op in ops:
+        assert torch.equal(got[key], again[key]), key
+        if op == "reduce_max":
+            assert torch.equal(got[key], want[key]), key
+        else:
+            order = ksr.segment_sum_in_kernel_order(cols[key], ids, s, chunks)
+            assert torch.equal(got[key].cpu(), order), key
+            _float_close(got[key], want[key], 1e-5, float(cols[key].abs().max()), bins, False)
+
+
+def test_segment_kernels_unaligned_columns_on_card(cuda_device):
+    """Columns and ids whose data starts off a 16-byte boundary are read by
+    threads from device memory, in the same order as staged ones."""
+    rng = np.random.default_rng(14)
+    n, s = 50_000, 500
+    ids, cols, ops = _segment_case(rng, n, s, cuda_device)
+    shifted = {k: torch.cat([v[:1], v])[1:] for k, v in cols.items()}  # 1-row offset views
+    ids_shifted = torch.cat([ids[:1], ids])[1:]
+    assert ids_shifted.data_ptr() % 16 != 0 and shifted["b"].data_ptr() % 16 != 0
+    _check_segment_kernels(ids_shifted, shifted, ops, s)
+    for key, _ in ops:
+        a = ksr.segment_reduce(ops, s, cols, ids)[key]
+        b = ksr.segment_reduce(ops, s, shifted, ids_shifted)[key]
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.int8, torch.bfloat16])
 def test_gather_kernel_matches_plain_on_card(cuda_device, dtype):
     """16-byte, word and byte alignments all appear: lengths vary and int8

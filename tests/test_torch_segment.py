@@ -174,8 +174,8 @@ def test_eligibility_gates():
     assert not ksr.eligible((("v", "reduce_sum"),), {"v": torch.zeros(4, dtype=torch.float64)}, 2)
     many = {f"c{i}": torch.zeros(4) for i in range(17)}
     assert not ksr.eligible(tuple((k, "reduce_sum") for k in many), many, 2)
-    # no table lives in shared memory: a wide min the TPU kernel's
-    # VMEM budget refused is served
+    # a column wider than a shared-memory table runs in slices: a wide
+    # min the TPU kernel's VMEM budget refused is served
     assert ksr.eligible((("v", "reduce_min"),), {"v": torch.zeros((4, 4096))}, 4096)
 
 
@@ -197,3 +197,63 @@ def test_raw_tables_are_the_kernels_alone():
     with pytest.raises(ValueError, match="CUDA tensors only"):
         ksr.segment_reduce_tables((("v", "reduce_mean"),), 2, cols,
                                   torch.zeros(4, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("n,s", [(0, 7), (1, 1), (15, 3), (4097, 4096), (10_000_000, 4096),
+                                 (262_144, 10), (2**31 - 1, 4096)])
+@pytest.mark.parametrize("lanes", [1, 8, 12, 1024])
+def test_kernel_chunks_are_a_function_of_the_feed(n, s, lanes):
+    """The kernel's row chunks: between 1 and MAX_CHUNKS, no more than
+    MIN_CHUNK_ROWS rows each call for, their partial tables within
+    MAX_PARTIAL_WORDS, bounds on multiples of 16 that cover [0, n)."""
+    c = ksr.num_chunks(n, s, lanes)
+    assert c == ksr.num_chunks(n, s, lanes) and 1 <= c <= ksr.MAX_CHUNKS
+    assert c == 1 or (c * s * lanes <= ksr.MAX_PARTIAL_WORDS
+                      and c <= -(-n // ksr.MIN_CHUNK_ROWS))
+    if n <= 100_000_000:
+        b = ksr.chunk_starts(n, c)
+        assert b[0] == 0 and b[-1] == n and len(b) == c + 1
+        assert all(lo <= hi for lo, hi in zip(b[:-1], b[1:]))
+        assert all(x % 16 == 0 for x in b[:-1])
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 5])
+def test_kernel_order_emulation_is_a_row_order_fold(chunks):
+    """segment_sum_in_kernel_order adds each chunk's rows one by one in row
+    order (f32) and then the chunks in order; ids outside [0, S) match
+    nothing. Held against a plain loop bit for bit."""
+    rng = np.random.default_rng(chunks)
+    n, s, d = 3000, 7, 3
+    ids = rng.integers(-2, s + 2, n).astype(np.int32)
+    v = (rng.standard_normal((n, d)) * 100).astype(np.float32)
+    b = ksr.chunk_starts(n, chunks)
+    want = np.zeros((s, d), np.float32)
+    for lo, hi in zip(b[:-1], b[1:]):
+        part = np.zeros((s, d), np.float32)
+        for r in range(lo, hi):
+            if 0 <= ids[r] < s:
+                part[ids[r]] = part[ids[r]] + v[r]
+        want = part if lo == 0 else want + part
+    got = ksr.segment_sum_in_kernel_order(torch.from_numpy(v), torch.from_numpy(ids), s, chunks)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,s,d", [(300, 7, 1), (5000, 64, 8), (70_000, 10, 10)])
+def test_kernel_order_emulation_matches_pallas(name, n, s, d):
+    """The kernel's order of float sums, emulated on the CPU, lies within the
+    float tolerance of the JAX package's Pallas kernel (interpret mode):
+    rtol 1e-5 for float32, 1e-2 for bfloat16 (its result is rounded to
+    bfloat16)."""
+    rng = np.random.default_rng(n + d)
+    ids = _ids(rng, n, s)
+    v = _values(rng, name, (n, d))
+    chunks = ksr.num_chunks(n, s, d)
+    got = ksr.segment_sum_in_kernel_order(tdt.to_torch(v, "cpu"), torch.from_numpy(ids), s,
+                                          chunks).numpy()
+    want = jksr.segment_reduce_pallas((("v", "reduce_sum"),), s, {"v": v}, ids,
+                                      interpret=True)["v"]
+    # the Pallas kernel casts a bfloat16 column's f32 sum back to bfloat16
+    _assert_close(name, got, np.asarray(want).astype(np.float32),
+                  float(np.abs(v.astype(np.float64)).max()), n)
