@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Chip smoke for tensorframes_tpu_torch: build the CUDA kernels, hold each
 against its plain PyTorch version on the card, then drive the five verbs,
-the decode server, BERT-base embedding extraction and gpt_small training
-through the package's entry points at full size on one GPU.
+the decode server, BERT-base embedding extraction, gpt_small training and
+Inception-v3 scoring through the package's entry points at full size on
+one GPU.
 
     python3 chip_smoke.py
 
 Needs one CUDA GPU and ``nvcc`` (the kernels build on first use into
-``build/torch_kernels/``). Exits nonzero, printing no result, when no GPU
+``build/torch_kernels/``, one ``nvcc`` per source, all at once). Exits nonzero, printing no result, when no GPU
 is visible or when the package is not beside this script. After the
 build it prints the ptxas registers and spills of each flash forward and
 backward build, of both int8_matmul builds, of decode_attention and of the
@@ -17,7 +18,11 @@ Phases:
 1. kernels against their plain versions at the main path's shapes:
    ``segment_reduce`` (10M rows, 4096 groups: f32 sum and mean, f32 [n, 8]
    max, int32 sum), ``segment_sum`` (f32 [10M, 8]) and ``ragged_gather``
-   (200,000 rows of lengths 16/32/64/128, bit-exact); both segment kernels
+   (200,000 f32 rows of lengths 16/32/64/128 in 4 groups; and 200,000 rows
+   of lengths 1-256 in 256 groups, in f32 and in bf16: every group
+   bit-exact, one launch a call, timed over its launches and as a whole
+   call with its table upload; and 60,000 f32 rows of 1-4 KB); both
+   segment kernels
    again on three more feeds: one key holding half of the 10M rows, the
    logreg scores [262,144, 10] over 10 labels, and 16 f32 [100,000, 64]
    columns (max and sum) over 256 groups, each exact where it must be,
@@ -73,7 +78,9 @@ Phases:
    scores by predicted label, the 10M-row aggregate above, and an
    aggregate mixing float32 and int64 sums (the per-op route). Each output
    is checked; every kernel of the path must have launched. Rows/s per
-   verb follow. Then the decode server's path, counts reset again: a
+   verb follow. Then the ragged ``map_rows`` verb again on the main and
+   wide-lengths feeds: host wall, gather launches and busy share of one
+   call. Then the decode server's path, counts reset again: a
    ``Server`` with a gpt_small decode endpoint (int8 weights from seed 0,
    16 slots, 16-position pages, prompts <= 128, 64 new tokens) answers 32
    requests; the first 8 re-run solo must match exactly; an engine with a
@@ -101,13 +108,25 @@ Phases:
    times and each backward kernel 12, on the tensor cores; one step's
    loss and gradients with flash agree with dense attention, and steps
    whose backward is one of the broken versions do not. Steps/s, tokens/s and peak memory follow.
+   Then Inception-v3 at full width (299x299, bf16, weights from seed 0,
+   each conv's folded-BN scale and bias drawn at random):
+   1,024 synthetic images in two host blocks of 512 through
+   ``map_blocks`` (a warm-up call, then a timed one: rows/s, peak
+   memory); block 0 equal to a direct ``forward``; on 64 images the bf16
+   logits within ``INCEPTION_RTOL`` of an f32 forward of the same weights
+   (TF32 off in cuDNN and cuBLAS), labels equal where the margin is
+   clear, three broken forwards outside; a 64-image int8 leg
+   (``quantize_params``) within the same tolerance of the f32 forward of
+   its dequantized weights.
 3. where the time goes: ``torch.profiler`` device time by kernel for
    each segment kernel alone, for two verbs (aggregate, map_blocks) and
    for a 16-slot decode step and for one BERT-base ``map_rows`` call
    (flash against the dense products and copies), and for one gpt_small
    training step (forward, backward and optimizer by CUDA events; GEMMs,
-   the three flash kernels, norms, the embedding's backward), with the
-   device's busy share of each call's host wall time;
+   the three flash kernels, norms, the embedding's backward), and for one
+   Inception-v3 ``map_blocks`` call (convolutions, pools, elementwise,
+   host-to-device copies, the top operations), with the device's busy
+   share of each call's host wall time;
 4. one JSON line listing every kernel, the card's name and power limit,
    and as the last line ``{"ok": true, "device": {...}}``.
 """
@@ -150,7 +169,10 @@ def time_ms(fn, what: str, reps: int = 10) -> float:
     queues them all while the card spins, so the card runs them back to
     back and the host's launch rate is not in the time. A call that waits
     on the card (a host sync) lets the card drain the queue first; then
-    the time includes the host's share, and a line says so."""
+    the time includes the host's share, and a line says so. (So do calls of
+    hundreds of launches, which fill the card's queue of pending launches
+    and stall the host until the spin ends: time those through
+    :func:`graphed`.)"""
     import torch
 
     fn()
@@ -168,6 +190,21 @@ def time_ms(fn, what: str, reps: int = 10) -> float:
         log(f"# timing {what}: the card caught up with the host (the call syncs), so "
             "its time includes the host's share")
     return start.elapsed_time(end) / reps
+
+
+def graphed(fn):
+    """``fn``'s launches captured once into a CUDA graph, after a warm-up
+    call; the graph's replay runs them all as one launch, so a call of
+    hundreds of launches (one per length group) queues behind
+    :func:`time_ms`'s spin. Returns the replay."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
 
 
 def launch_counts(tft) -> dict:
@@ -441,54 +478,155 @@ def segment_legs(dev) -> dict:
     return {name: segment_leg(dev, name, *feed) for name, feed in feeds.items()}
 
 
-def ragged_cells(n_rows: int):
+RAGGED_ROWS = 200_000
+
+
+def ragged_cells(n_rows: int, wide: bool = False):
+    """Seeded row lengths, their starts in one flat buffer and the buffer's
+    float32 values: lengths drawn from {16, 32, 64, 128} (the main feed),
+    or uniformly from 1-256 (``wide``: ragged token or embedding rows of
+    every length, as tokenized text reaches ``map_rows``)."""
     import numpy as np
 
     rng = np.random.default_rng(SEED)
-    lens = rng.choice(np.array([16, 32, 64, 128]), size=n_rows)
+    if wide:
+        lens = rng.integers(1, 257, size=n_rows)
+    else:
+        lens = rng.choice(np.array([16, 32, 64, 128]), size=n_rows)
     flat = rng.standard_normal(int(lens.sum()), dtype=np.float32)
     starts = np.zeros(n_rows, np.int64)
     np.cumsum(lens[:-1], out=starts[1:])
     return lens, starts, flat
 
 
-def check_ragged_gather(dev, n_rows: int) -> dict:
-    """The main path's gathers: one per length group, bucket-padded."""
+def ragged_groups(lens, starts) -> list:
+    """The groups the ragged ``map_rows`` verb gathers: one per length,
+    its starts bucket-padded with rows at offset 0."""
     import numpy as np
-    import torch
-    from tensorframes_tpu_torch.kernels import ragged_gather as krg
     from tensorframes_tpu_torch.ops.executor import bucket_rows
 
-    lens, starts, flat = ragged_cells(n_rows)
-    flat_dev = torch.from_numpy(flat).to(dev)
     groups = []
     for L in np.unique(lens):
         idx = np.flatnonzero(lens == L)
         st = np.zeros(bucket_rows(len(idx)), np.int32)
         st[:len(idx)] = starts[idx]
-        groups.append((int(L), torch.from_numpy(st).to(dev)))
+        groups.append((st, int(L)))
+    return groups
+
+
+LONG_ROWS = 60_000
+
+
+def ragged_feeds(dev) -> dict:
+    """``{name: (flat buffer on dev, groups)}``: the main path's feed (4
+    length groups, f32); the wide-lengths feed (256 groups, a ~103 MB f32
+    buffer, larger than the 50 MB L2) in f32 and in bf16, whose odd starts
+    put rows at 2-byte offsets; and 60,000 f32 rows of 1, 2 or 4 KB
+    (lengths 256, 512, 1,024, every row 16-byte aligned: the long rows on
+    which bulk copies were weighed against the vector path, PERF.md)."""
+    import numpy as np
+    import torch
+
+    lens, starts, flat = ragged_cells(RAGGED_ROWS)
+    feeds = {"main": (torch.from_numpy(flat).to(dev), ragged_groups(lens, starts))}
+    lens, starts, flat = ragged_cells(RAGGED_ROWS, wide=True)
+    wide = torch.from_numpy(flat).to(dev)
+    groups = ragged_groups(lens, starts)
+    feeds["wide_f32"] = (wide, groups)
+    feeds["wide_bf16"] = (wide.to(torch.bfloat16), groups)
+    rng = np.random.default_rng(SEED)
+    lens = rng.choice(np.array([256, 512, 1024]), size=LONG_ROWS)
+    starts = np.zeros(LONG_ROWS, np.int64)
+    np.cumsum(lens[:-1], out=starts[1:])
+    flat = torch.from_numpy(rng.standard_normal(int(lens.sum()), dtype=np.float32)).to(dev)
+    feeds["long_f32"] = (flat, ragged_groups(lens, starts))
+    return feeds
+
+
+def host_ms(fn, reps: int = 10) -> float:
+    """Host wall time per call of ``fn`` through to the card's end of it
+    (a synchronize after each call), after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def source_bytes(groups, n_flat: int, es: int) -> int:
+    """The distinct bytes of an ``n_flat``-element buffer that ``groups``
+    read: the union of every row's span, each byte once (padding rows
+    re-read the first row's span, which then counts once)."""
+    import numpy as np
+
+    lo = np.concatenate([st for st, _ in groups]).astype(np.int64)
+    hi = np.concatenate([st.astype(np.int64) + L for st, L in groups])
+    depth = np.cumsum(np.bincount(lo, minlength=n_flat + 1) - np.bincount(hi, minlength=n_flat + 1))
+    return int(np.count_nonzero(depth[:n_flat])) * es
+
+
+def ragged_leg(dev, what: str, flat, groups) -> dict:
+    """One feed's gather: every group bit-exact against the plain version,
+    the launches a call takes (one per LAUNCH_BUDGET_BYTES of padded
+    output), the kernel's device time over the call's launches (tables
+    uploaded beforehand), the whole call's host wall (its table and starts
+    uploaded each time), the plain version's and the library's device
+    time over the groups (one call per group, replayed from a CUDA graph),
+    and the byte bound (each output byte written once, each distinct
+    source byte read once by :func:`source_bytes`, the starts read
+    once)."""
+    import torch
+    from tensorframes_tpu_torch import kernels
+    from tensorframes_tpu_torch.kernels import ragged_gather as krg
+
+    es = flat.element_size()
+    want_launches = len(krg.launch_groups([(len(st), L) for st, L in groups], es))
+    before = kernels.LAUNCHES.snapshot()["ragged_gather"]
+    outs = krg.ragged_gather_groups(flat, groups)
+    torch.cuda.synchronize()
+    per_call = kernels.LAUNCHES.snapshot()["ragged_gather"] - before
+    if per_call != want_launches:
+        fail(f"ragged_gather {what}: {per_call} launches a call, expected {want_launches}")
+    dev_groups = [(torch.from_numpy(st).to(dev), L) for st, L in groups]
     err = 0.0
-    for L, st in groups:
-        got, plain = krg.ragged_gather_rows(flat_dev, st, L), krg.gather_plain(flat_dev, st, L)
-        exact(got, plain, f"ragged_gather length {L}")
+    for (st, L), got in zip(dev_groups, outs):
+        plain = krg.gather_plain(flat, st, L)
+        exact(got, plain, f"ragged_gather {what} length {L}")
         err = max(err, float((got.double() - plain.double()).abs().max()))
-
-    def run(fn):
-        return lambda: [fn(flat_dev, st, L) for L, st in groups]
-
-    def library(flat_t, st, L):
-        return flat_t.unfold(0, L, 1).index_select(0, st.long())
-
-    out_bytes = sum(int(st.shape[0]) * L * 4 for L, st in groups)
-    nbytes = 2 * out_bytes + sum(int(st.shape[0]) * 4 for _, st in groups)
+    del outs
+    launches = krg.plan_launches(flat, groups)
+    out_bytes = sum(len(st) * L * es for st, L in groups)
+    in_bytes = source_bytes(groups, int(flat.shape[0]), es)
+    nbytes = out_bytes + in_bytes + sum(4 * len(st) for st, _ in groups)
     return {
         "max_abs_err": err,
-        "ms": time_ms(run(krg.ragged_gather_rows), "ragged_gather"),
-        "plain_ms": time_ms(run(krg.gather_plain), "ragged_gather plain"),
-        "library_ms": time_ms(run(library), "ragged_gather library"),
+        "ms": time_ms(lambda: [krg.gather_launch(flat, launch) for launch in launches],
+                      f"ragged_gather {what}"),
+        "call_host_ms": host_ms(lambda: krg.ragged_gather_groups(flat, groups)),
+        "plain_ms": time_ms(graphed(
+            lambda: [krg.gather_plain(flat, st, L) for st, L in dev_groups]),
+            f"ragged_gather {what} plain"),
+        "library_ms": time_ms(graphed(
+            lambda: [flat.unfold(0, L, 1).index_select(0, st.long()) for st, L in dev_groups]),
+            f"ragged_gather {what} library"),
         "bound_ms": bound_ms(nbytes),
         "bound_by": "bytes",
+        "launches_per_call": per_call,
+        "groups": len(groups),
+        "out_bytes": out_bytes,
+        "in_bytes": in_bytes,
     }
+
+
+def check_ragged_gather(dev) -> dict:
+    """The main feed's leg (the kernel line's numbers), with the
+    wide-lengths legs under ``legs``."""
+    legs = {name: ragged_leg(dev, name, *feed) for name, feed in ragged_feeds(dev).items()}
+    return {**legs.pop("main"), "legs": legs}
 
 
 GEMM_SHAPES = ((768, 2304), (768, 768), (768, 3072), (3072, 768))  # a gpt_small layer
@@ -1161,7 +1299,7 @@ def main_path(tft, dev) -> dict:
     del fr, w, y
 
     # map_rows on ragged cells (the ragged-gather kernel stages each group)
-    lens, starts, flat = ragged_cells(200_000)
+    lens, starts, flat = ragged_cells(RAGGED_ROWS)
     cells = [flat[s:s + n] for s, n in zip(starts, lens)]
     rf = tft.frame_from_arrays({"r": cells})
     with tft.with_graph():
@@ -1251,6 +1389,48 @@ def main_path(tft, dev) -> dict:
     float_close(torch.from_numpy(mixed_got.column_values("v")),
                 torch.from_numpy(ref.column_values("v")), counts, vmax)
     return {"launches": launches, "verbs": rates}
+
+
+def ragged_verb_legs(tft, dev) -> dict:
+    """The ragged ``map_rows`` verb (``reduce_max`` of each row) on the main
+    and wide-lengths f32 feeds: a warm-up call checked against the host's
+    row maxima, then one call's host wall (to its result on the host), the
+    gather's launches in it, and the device's busy share of a profiled
+    call."""
+    import numpy as np
+
+    out = {}
+    for name, wide in (("main", False), ("wide_f32", True)):
+        lens, starts, flat = ragged_cells(RAGGED_ROWS, wide=wide)
+        cells = [flat[s:s + n] for s, n in zip(starts, lens)]
+        rf = tft.frame_from_arrays({"r": cells})
+
+        def call():
+            with tft.with_graph():
+                return tft.map_rows(tft.reduce_max(
+                    tft.placeholder(np.float32, (None,), name="r"), name="m"),
+                    rf, device=dev).column_values("m")
+
+        if not np.array_equal(call(), np.array([c.max() for c in cells])):
+            fail(f"map_rows ragged cells ({name} feed)")
+        tft.kernels.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        call()
+        wall = time.perf_counter() - t0
+        launches = tft.kernels.LAUNCHES.snapshot()["ragged_gather"]
+        prof_wall, device = device_profile(call, reps=1)
+        busy = sum(device.values())
+        out[name] = {"wall_ms": wall * 1e3, "launches_per_call": launches,
+                     "groups": len(np.unique(lens)), "profiled_wall_ms": prof_wall,
+                     "busy_ms": busy, "busy_share": busy / prof_wall,
+                     "top": sorted(device.items(), key=lambda kv: -kv[1])[:5]}
+        log(f"# verb map_rows ragged {name} ({RAGGED_ROWS} rows, {out[name]['groups']} length "
+            f"groups): {wall * 1e3:.3f} ms host wall, {launches} ragged_gather launch(es); "
+            f"profiled {prof_wall:.3f} ms, device busy {busy:.3f} ms "
+            f"({100 * busy / prof_wall:.1f}%)")
+        for k, ms in out[name]["top"]:
+            log(f"#   {ms:9.3f} ms  {k[:80]}")
+    return out
 
 
 def serving_path(tft, dev) -> dict:
@@ -1450,6 +1630,171 @@ def encoder_path(tft, dev) -> dict:
 
 
 TRAIN_ROWS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 16, 1024, 8, 10, 1e-3
+# bf16 against the f32 forward of the same weights (TF32 off), of max |logit|:
+# ~3x the gap of a sound run (1.26e-3 on an H100, PERF.md).
+INCEPTION_RTOL = 4e-3
+INC_ROWS, INC_BLOCK, INC_CHECK = 1024, 512, 64
+
+
+def inception_logits(inc, cfg, params, images, dev):
+    import torch
+
+    with torch.inference_mode():
+        return inc.forward(cfg, params, torch.from_numpy(images).to(dev)).float().cpu().numpy()
+
+
+def inception_ratio(got, ref) -> float:
+    """max |got - ref| over INCEPTION_RTOL·max |ref|."""
+    import numpy as np
+
+    return float(np.abs(got - ref).max() / (INCEPTION_RTOL * np.abs(ref).max()))
+
+
+def conv_leaves(params: dict, leaf: str, fn) -> dict:
+    """Inception ``params`` with ``fn`` applied to one leaf (``"scale"``
+    or ``"bias"``) of every conv; the classifier as it is."""
+    return {block: convs if block == "fc" else
+            {name: {**p, leaf: fn(p[leaf])} for name, p in convs.items()}
+            for block, convs in params.items()}
+
+
+def random_affine(params: dict, seed: int) -> dict:
+    """``params`` with every conv's folded-BN scale drawn from U(0.5, 1.5)
+    and bias from N(0, 0.1), as a frozen graph's folded batch-norm gives
+    them (``init_params`` folds an identity one, which would hide a
+    dropped or misplaced affine)."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    with_scale = conv_leaves(params, "scale", lambda t: (0.5 + torch.rand(
+        t.shape, generator=g)).to(t.device, t.dtype))
+    return conv_leaves(with_scale, "bias", lambda t: (0.1 * torch.randn(
+        t.shape, generator=g)).to(t.device, t.dtype))
+
+
+def inception_path(tft, dev) -> dict:
+    """Inception-v3 scoring at full width (299x299, bf16, random weights
+    from seed 0 through the port's ``init_params``, each conv's folded-BN
+    scale and bias then drawn by ``random_affine``) over 1,024 synthetic
+    images in two host blocks of 512 through ``map_blocks`` of a program
+    compiled (shape analysis) beforehand, counts reset just before: a
+    warm-up call, then a timed one (rows/s, peak memory). Then the gates: the verb's block 0 equals a direct ``forward`` call's
+    scores and labels; on 64 images the bf16 logits lie within
+    INCEPTION_RTOL of an f32 forward of the same weights with TF32 off in
+    cuDNN and cuBLAS, labels equal wherever the reference's top-2 margin
+    exceeds twice that (each logit may move by the tolerance), and three
+    broken forwards (the convs' biases dropped, the last pool branch
+    dropped, the average pool skipped) do not; a 64-image call over ``quantize_params``
+    weights lies within the same tolerance of an f32 forward of its
+    dequantized weights (as the bf16 forward rounds them)."""
+    import numpy as np
+    import torch
+    from tensorframes_tpu_torch.models import inception as inc
+    from tensorframes_tpu_torch.ops import quantize as q
+
+    cfg = inc.inception_v3()
+    params = random_affine(inc.init_params(cfg, seed=SEED, device=dev), SEED)
+    images = inc.synthetic_images(cfg, INC_ROWS, seed=SEED)
+    frame = tft.frame_from_arrays({"images": images}, num_blocks=INC_ROWS // INC_BLOCK)
+    fn = inc.scoring_program(cfg, params)
+    # shape analysis once, outside the timed calls, as the reference's bench does
+    prog = tft.compile_program(fn, frame, device=dev)
+
+    def score(frame):
+        out = tft.map_blocks(prog, frame, device=dev)
+        return out.column_values("scores"), out.column_values("label")
+
+    t0 = time.perf_counter()
+    score(frame)  # warm-up: cuDNN's algorithm choice, the allocator's pools
+    warm_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tft.kernels.LAUNCHES.reset()
+    t1 = time.perf_counter()
+    scores, labels = score(frame)
+    wall = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated()
+    launches = launch_counts(tft)
+    if scores.shape != (INC_ROWS, cfg.num_classes) or scores.dtype != np.float32:
+        fail(f"inception scores of shape {scores.shape} / {scores.dtype}")
+    if not np.isfinite(scores).all() or np.abs(scores.sum(1) - 1).max() > 1e-3:
+        fail("inception scores not finite or not summing to 1")
+    if labels.dtype != np.int32 or labels.min() < 0 or labels.max() >= cfg.num_classes:
+        fail("inception labels out of range")
+    with torch.inference_mode():
+        direct = fn(torch.from_numpy(images[:INC_BLOCK]).to(dev))
+    if not (np.array_equal(direct["scores"].cpu().numpy(), scores[:INC_BLOCK])
+            and np.array_equal(direct["label"].cpu().numpy(), labels[:INC_BLOCK])):
+        fail("inception: map_blocks block 0 differs from a direct forward")
+
+    sub = images[:INC_CHECK]
+    cfg32 = inc.inception_v3(compute_dtype="float32")
+    # the weights the bf16 forward computes with, in f32: convs as asarray(w,
+    # bf16) gives them, the classifier as asarray(w, f32) does
+    to32 = lambda tree: q._tree_map(  # noqa: E731
+        lambda path, leaf: q.asarray(leaf, torch.float32 if path[0] == "fc" else cfg.dtype)
+        .float(), tree)
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ref = inception_logits(inc, cfg32, to32(params), sub, dev)
+        qparams = inc.quantize_params(params)
+        qref = inception_logits(inc, cfg32, to32(qparams), sub, dev)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    got = inception_logits(inc, cfg, params, sub, dev)
+    ratio = inception_ratio(got, ref)
+    if not np.isfinite(got).all() or ratio > 1:
+        fail(f"inception bf16 logits off the f32 forward by {ratio:.3f} of the tolerance")
+    top2 = np.sort(ref, axis=1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > 2 * INCEPTION_RTOL * np.abs(ref).max()
+    if not np.array_equal(labels[:INC_CHECK][clear], ref.argmax(1)[clear]):
+        fail("inception labels differ from the f32 forward's where its margin is clear")
+
+    broken = {"folded-BN bias dropped": inception_ratio(inception_logits(
+        inc, cfg, conv_leaves(params, "bias", torch.zeros_like), sub, dev), ref)}
+    dropped = {**params, "mixed_e1": {**params["mixed_e1"], "bp": {
+        **params["mixed_e1"]["bp"], "scale": torch.zeros_like(params["mixed_e1"]["bp"]["scale"])}}}
+    broken["last pool branch dropped"] = inception_ratio(
+        inception_logits(inc, cfg, dropped, sub, dev), ref)
+    real_pool = inc._avgpool3
+    inc._avgpool3 = lambda x: x
+    try:
+        broken["3x3 average pool skipped"] = inception_ratio(
+            inception_logits(inc, cfg, params, sub, dev), ref)
+    finally:
+        inc._avgpool3 = real_pool
+    for what, r in broken.items():
+        if r <= 1:
+            fail(f"inception: a broken forward ({what}) lies within the tolerance ({r:.3f})")
+
+    qframe = tft.frame_from_arrays({"images": sub}, num_blocks=1)
+    qprog = tft.compile_program(inc.scoring_program(cfg, qparams), qframe, device=dev)
+    tft.map_blocks(qprog, qframe, device=dev).column_values("label")  # warm-up
+    t2 = time.perf_counter()
+    qlabels = tft.map_blocks(qprog, qframe, device=dev).column_values("label")
+    qwall = time.perf_counter() - t2
+    qratio = inception_ratio(inception_logits(inc, cfg, qparams, sub, dev), qref)
+    if qratio > 1:
+        fail(f"inception int8 logits off the f32 forward of their weights by {qratio:.3f}")
+    qtop2 = np.sort(qref, axis=1)[:, -2:]
+    qclear = qtop2[:, 1] - qtop2[:, 0] > 2 * INCEPTION_RTOL * np.abs(qref).max()
+    if not np.array_equal(qlabels[qclear], qref.argmax(1)[qclear]):
+        fail("inception int8 labels differ from the f32 forward's where its margin is clear")
+    log(f"# inception gates: block 0 = direct forward; bf16 vs f32 {ratio:.4f} of the "
+        f"tolerance ({int(clear.sum())} of {INC_CHECK} labels clear and equal); broken "
+        + ", ".join(f"{k} {v:.3f}" for k, v in broken.items())
+        + f"; int8 vs f32 of its weights {qratio:.4f} ({int(qclear.sum())} clear and equal)")
+    return {
+        "rows_per_s": INC_ROWS / wall, "wall_s": wall, "warm_s": warm_s,
+        "peak_bytes": peak, "held_bytes": held, "launches": launches,
+        "ratio": ratio, "broken": broken, "int8_ratio": qratio,
+        "int8_rows_per_s": INC_CHECK / qwall, "weight_bytes": q.tree_nbytes(params),
+        "frame": frame, "prog": prog,
+    }
+
+
 # The first loss: random tied embeddings of scale 0.02 against unit-variance
 # final hidden states give logits of std sqrt(768) * 0.02 ~ 0.55, so the
 # expected cross entropy is ln(32,000) + 0.55^2 / 2 ~ 10.53; a window of
@@ -1940,6 +2285,40 @@ def training_profile(train) -> dict:
     return {"step_ms": plain_wall, "split_ms": split, "busy_ms": busy, "groups_ms": groups}
 
 
+def inception_profile(tft, incep, dev) -> None:
+    """One Inception-v3 ``map_blocks`` call (1,024 images, two blocks of
+    512): host wall, the device's busy share, device time by group
+    (convolutions, pools, elementwise, host-to-device copies) and the top
+    device operations."""
+    def call():
+        tft.map_blocks(incep["prog"], incep["frame"], device=dev).column_values("label")
+
+    wall, device = device_profile(call, reps=1)
+    busy = sum(device.values())
+    groups = {"convolutions": 0.0, "memcpy HtoD": 0.0, "pools": 0.0, "other copies": 0.0,
+              "elementwise and other": 0.0}
+    for name, ms in device.items():
+        low = name.lower()
+        if "memcpy htod" in low:
+            groups["memcpy HtoD"] += ms
+        elif any(w in low for w in ("conv", "xmma", "cudnn", "implicit", "sm90_", "nvjet",
+                                    "cutlass", "gemm")):
+            groups["convolutions"] += ms
+        elif "pool" in low:
+            groups["pools"] += ms
+        elif "copy" in low or "memcpy" in low or "memset" in low:
+            groups["other copies"] += ms
+        else:
+            groups["elementwise and other"] += ms
+    log(f"# profile map_blocks inception-v3, {INC_ROWS} images: {wall:.3f} ms per call on the "
+        f"host clock under the profiler, device busy {busy:.3f} ms ({100 * busy / wall:.1f}%); "
+        f"Memcpy HtoD {groups['memcpy HtoD']:.3f} ms ({100 * groups['memcpy HtoD'] / wall:.1f}% "
+        "of the call)")
+    log("# profile inception by group: " + ", ".join(f"{k} {v:.3f} ms" for k, v in groups.items()))
+    for name, ms in sorted(device.items(), key=lambda kv: -kv[1])[:12]:
+        log(f"#   {ms:9.3f} ms  {name[:80]}")
+
+
 def kernel_name(mangled: str) -> str:
     """``flash_attention_fwd_mma_kernel<64, true>`` from a mangled kernel
     name of the build log (anything else as it is): the length-prefixed
@@ -2029,7 +2408,7 @@ def main() -> int:
                            "legs": {k: leg["segment_reduce"] for k, leg in legs.items()}},
         "segment_sum": {**check_segment_sum(dev, 10_000_000, 4096),
                         "legs": {k: leg["segment_sum"] for k, leg in legs.items()}},
-        "ragged_gather": check_ragged_gather(dev, 200_000),
+        "ragged_gather": check_ragged_gather(dev),
         "decode_attention": check_decode_attention(dev),
         "int8_matmul": check_int8_matmul(dev),
         "flash_attention": check_flash_attention(dev),
@@ -2048,6 +2427,10 @@ def main() -> int:
     missing = [k for k in SLICE1_KERNELS if path["launches"][k] <= 0]
     if missing:
         fail(f"kernels never launched on the verbs' path: {missing}")
+    if path["launches"]["ragged_gather"] != 1:
+        fail(f"the ragged map_rows call launched ragged_gather "
+             f"{path['launches']['ragged_gather']} times (want 1: every group in one launch)")
+    ragged_verbs = ragged_verb_legs(tft, dev)
 
     t2 = time.perf_counter()
     serving = serving_path(tft, dev)
@@ -2081,10 +2464,21 @@ def main() -> int:
         f"{train['peak_bytes']} bytes ({train['peak_bytes'] - train['held_bytes']} above what "
         "was held before the first step)")
 
+    t5 = time.perf_counter()
+    incep = inception_path(tft, dev)
+    log(f"# inception path: {time.perf_counter() - t5:.1f} s")
+    log(f"# inception-v3 299x299 bf16 map_blocks: {incep['rows_per_s']:.1f} rows/s ({INC_ROWS} "
+        f"images in {INC_ROWS // INC_BLOCK} blocks of {INC_BLOCK} in {incep['wall_s']:.4f} s; "
+        f"warm-up call {incep['warm_s']:.3f} s); peak memory {incep['peak_bytes']} bytes "
+        f"({incep['peak_bytes'] - incep['held_bytes']} above what was held, weights "
+        f"{incep['weight_bytes']} bytes); int8 weights, {INC_CHECK} images: "
+        f"{incep['int8_rows_per_s']:.1f} rows/s; launches {incep['launches']}")
+
     where_the_time_goes(tft, dev)
     step_ms = decode_step_profile(serving, state)
     encoder_profile(tft, encoder, dev)
     training_profile(train)
+    inception_profile(tft, incep, dev)
     log(f"# serving gpt_small: {serving['tokens_per_s']:.1f} generated tokens/s (32 requests "
         f"x 64 tokens in {serving['wall_s']:.3f} s); TTFT p50 {serving['ttft_s']['p50']:.4f} s, "
         f"p99 {serving['ttft_s']['p99']:.4f} s (each request's own); request latency "
@@ -2104,6 +2498,8 @@ def main() -> int:
             "replaces": info.replaces, "launches": launches,
             **{f"{b}_launches": n for b, n in builds.items()}, **results[name],
         })
+    log(f"# ragged verb legs: {json.dumps({k: {m: v[m] for m in ('wall_ms', 'launches_per_call', 'busy_share')} for k, v in ragged_verbs.items()})}")
+    log(f"# total: {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(gpu_line())
     log(json.dumps({"ok": True, "device": {

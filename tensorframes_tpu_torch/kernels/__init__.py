@@ -16,7 +16,9 @@ the verbs' path:
   — the single-op segment sum of the per-op ``aggregate`` route, built
   from the same device code;
 * ``ragged_gather`` (:mod:`.ragged_gather`) — device-side staging of
-  ragged ``map_rows`` rows out of one flat buffer.
+  ragged ``map_rows`` rows out of one flat buffer: every shape group of
+  a call in one launch (one per 256 MiB of padded output), threads on
+  the output's 16-byte chunks.
 
 On the decode server's path:
 
@@ -61,8 +63,8 @@ per layer per block; the flash op's gradient calls two more custom ops,
 one per backward kernel.
 
 The sources live in ``tensorframes_tpu_torch/csrc/``. They compile with
-one ``nvcc`` call into one shared library with a plain C interface, on
-first use, under ``build/torch_kernels/`` beside the package, and load
+one ``nvcc`` call each, all at once, linked into one shared library with
+a plain C interface, on first use, under ``build/torch_kernels/`` beside the package, and load
 through ``ctypes``. Every C entry point launches on the caller's stream,
 allocates nothing, and returns ``cudaGetLastError()``; the Python
 wrappers check device, dtype, shape and contiguity first and raise on a
@@ -132,7 +134,7 @@ KERNELS: Dict[str, KernelInfo] = {
             "ragged_gather",
             "tensorframes_tpu_torch/csrc/ragged_gather.cu",
             "tensorframes_tpu/kernels/ragged_gather.py:80",
-            "tensorframes_tpu_torch.kernels.ragged_gather.ragged_gather_rows",
+            "tensorframes_tpu_torch.kernels.ragged_gather.ragged_gather_groups",
         ),
         KernelInfo(
             "decode_attention",
@@ -238,10 +240,10 @@ def _nvcc() -> str:
 
 
 def _build() -> Path:
-    """Compile every source into one shared library with a single
-    ``nvcc`` call (it builds the translation units and links them), then
-    move it into place; reuse it while the sources and flags are
-    unchanged. The compiler's output goes to :data:`BUILD_LOG`."""
+    """Compile every source into an object with one ``nvcc`` each, all
+    started together, link them into one shared library, then move it
+    into place; reuse it while the sources and flags are unchanged. The
+    compilers' output goes to :data:`BUILD_LOG`, in source order."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in (*_SOURCES, *_HEADERS):
         h.update((CSRC / s).read_bytes())
@@ -250,12 +252,24 @@ def _build() -> Path:
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-shared", *(str(CSRC / s) for s in _SOURCES), "-o", str(tmp)]
-    res = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    BUILD_LOG.write_text(f"== {' '.join(cmd)} (rc {res.returncode})\n{res.stdout}")
-    if res.returncode != 0:
+    objs = [tmp.with_name(f"{tmp.name}.{Path(s).stem}.o") for s in _SOURCES]
+    cmds = [[_nvcc(), *NVCC_FLAGS, "-c", str(CSRC / s), "-o", str(o)]
+            for s, o in zip(_SOURCES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    runs = [(c, p.communicate()[0], p.returncode) for c, p in zip(cmds, procs)]
+    link = [_nvcc(), *NVCC_FLAGS, "-shared", *(str(o) for o in objs), "-o", str(tmp)]
+    if all(rc == 0 for _, _, rc in runs):
+        res = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        runs.append((link, res.stdout, res.returncode))
+    BUILD_LOG.write_text("".join(f"== {' '.join(c)} (rc {rc})\n{out}" for c, out, rc in runs))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    failed = [(c, out, rc) for c, out, rc in runs if rc != 0]
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed (rc {res.returncode}):\n{res.stdout}")
+        c, out, rc = failed[0]
+        raise RuntimeError(f"nvcc failed (rc {rc}): {' '.join(c)}\n{out}")
     os.replace(tmp, so)
     return so
 
@@ -275,9 +289,7 @@ def library() -> ctypes.CDLL:
             lib.tft_segment_sum.argtypes = [
                 vp, i64, i32, vp, i32, i32, i32, vp, vp, i32, vp,
             ]
-            lib.tft_ragged_gather.argtypes = [
-                vp, i64, vp, i32, i32, i32, vp, i32, vp,
-            ]
+            lib.tft_ragged_gather.argtypes = [vp, i64, vp, vp, i32, i64, i32, vp, i32, vp]
             lib.tft_paged_decode_attention.argtypes = [
                 vp, i64, i64, vp, vp, vp, vp, vp, vp, vp,
                 i32, i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, i32, i32, vp,

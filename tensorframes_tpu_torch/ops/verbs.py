@@ -279,11 +279,13 @@ def _group_rows_by_shape(
 
 def _ragged_gather_plan(cols, input_names, n, device):
     """Device-side ragged staging: a single 1-D ragged column's cells move
-    ONCE as a flat buffer, and each shape group's bucket-padded batch is
+    ONCE as a flat buffer, and the shape groups' bucket-padded batches are
     gathered on the device by the ragged-gather kernel
-    (``kernels/ragged_gather.py``). Returns a ``gather(idx) -> feeds``
-    closure, or None when the column is not that shape (then groups stage
-    on the host)."""
+    (``kernels/ragged_gather.py``), every group in one launch (one per
+    ``LAUNCH_BUDGET_BYTES`` of padded output). Returns a ``gather(groups)
+    -> iterator of feeds`` closure, one feeds dict per group in order, or
+    None when the column is not that shape (then groups stage on the
+    host)."""
     if len(input_names) != 1:
         return None
     name = input_names[0]
@@ -306,11 +308,19 @@ def _ragged_gather_plan(cols, input_names, n, device):
     np.cumsum(lens[:-1], out=starts[1:])
     flat_dev = dt.to_torch(np.concatenate(cells), device)
 
-    def gather(idx):
-        g = len(idx)
-        st = np.zeros(bucket_rows(g), np.int32)  # padding rows re-read offset 0;
-        st[:g] = starts[np.asarray(idx)]          # their outputs are sliced off
-        return {name: _krg.ragged_gather_rows(flat_dev, st, int(lens[int(idx[0])]))}
+    def gather(group_list):
+        groups = []
+        for idx in group_list:
+            st = np.zeros(bucket_rows(len(idx)), np.int32)  # padding rows re-read offset 0;
+            st[:len(idx)] = starts[np.asarray(idx)]         # their outputs are sliced off
+            groups.append((st, int(lens[int(idx[0])])))
+        # every launch's table and starts go up in one copy; a launch's
+        # batches are handed out (and dropped here) before the next launch
+        # allocates its own, so one launch's output is alive at a time
+        for launch in _krg.plan_launches(flat_dev, groups):
+            batches = _krg.gather_launch(flat_dev, launch)
+            while batches:
+                yield {name: batches.pop(0)}
 
     return gather
 
@@ -348,10 +358,12 @@ def _ragged_rows_outs(
         }
         return pad_lead_dim(feeds, g, bucket_rows(g))
 
+    staged = (gather(group_list) if gather is not None
+              else (group_feeds(idx) for idx in group_list))
     outs_list: List[Dict[str, np.ndarray]] = []
-    for idx in group_list:
-        feeds = gather(idx) if gather is not None else group_feeds(idx)
+    for feeds in staged:
         outs_list.append(compiled.run_rows(feeds, device))
+        del feeds  # its batch views a gather launch's buffer: free it first
     # scatter: a uniform output column writes whole groups via index
     # assignment; ragged outputs (cell shapes differ across groups) keep
     # the per-row list form.

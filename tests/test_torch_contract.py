@@ -75,7 +75,7 @@ def test_port_and_chip_smoke_import_no_jax():
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
     + ["chip_smoke.py", "flash_forward_ab.py", "serving_kernels_ab.py",
-       "segment_kernels_ab.py", "tests/test_torch_on_card.py"]
+       "segment_kernels_ab.py", "ragged_gather_ab.py", "tests/test_torch_on_card.py"]
 ))
 def test_no_source_imports_jax_or_the_reference(path):
     tree = ast.parse((ROOT / path).read_text())

@@ -311,21 +311,100 @@ def test_segment_kernels_unaligned_columns_on_card(cuda_device):
         torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.int8, torch.bfloat16])
-def test_gather_kernel_matches_plain_on_card(cuda_device, dtype):
-    """16-byte, word and byte alignments all appear: lengths vary and int8
-    offsets land on every byte. Padding rows re-read offset 0."""
+def _gather_groups(lens, starts, pad):
+    groups = []
+    for L in np.unique(lens):
+        st = np.zeros(int((lens == L).sum()) + pad, np.int32)  # pad padding rows
+        st[:-pad] = starts[lens == L]
+        groups.append((st, int(L)))
+    return groups
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.int8, torch.bfloat16,
+                                   torch.int16, torch.complex128])
+@pytest.mark.parametrize("shift", [0, 1, 3, 8])
+def test_gather_kernel_matches_plain_on_card(cuda_device, dtype, shift):
+    """Every alignment: lengths 1-256 put row starts at every element
+    offset, and the flat buffer itself starts ``shift`` elements into its
+    allocation (an int8 buffer at a byte offset, bf16 at 2 bytes, ...).
+    Every group of the call in one launch, bit for bit against the plain
+    version; padding rows re-read offset 0."""
     rng = np.random.default_rng(2)
-    lens = rng.integers(1, 40, 5000)
+    lens = rng.integers(1, 257, 3000)
+    starts = np.zeros(len(lens), np.int64)
+    np.cumsum(lens[:-1], out=starts[1:])
+    base = torch.from_numpy(rng.standard_normal(int(lens.sum()) + shift) * 100)
+    flat = base.to(cuda_device, dtype)[shift:]
+    groups = _gather_groups(lens, starts, 5)
+    tft.kernels.LAUNCHES.reset()
+    got = krg.ragged_gather_groups(flat, groups)
+    assert tft.kernels.LAUNCHES.snapshot()["ragged_gather"] == 1
+    for (st, L), g in zip(groups, got):
+        st_t = torch.from_numpy(st).to(cuda_device)
+        assert torch.equal(g, krg.gather_plain(flat, st_t, L)), int(L)
+        assert torch.equal(g, krg.ragged_gather_rows(flat, st_t, L)), int(L)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64, torch.int8])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_gather_long_rows_on_card(cuda_device, dtype, aligned):
+    """Rows of 1-5 KB, their starts on 16-byte bounds or anywhere, in groups
+    that span many blocks; padding rows re-read offset 0. Bit for bit
+    against the plain version, in one launch."""
+    rng = np.random.default_rng(6)
+    es = torch.empty(0, dtype=dtype).element_size()
+    step = 16 // es if aligned else 1  # lengths and so starts on 16-byte bounds, or anywhere
+    # six lengths, so each group spans many 16 KB blocks
+    lens = rng.choice(rng.integers(1024 // es // step, 5000 // es // step, 6) * step, 1500)
     starts = np.zeros(len(lens), np.int64)
     np.cumsum(lens[:-1], out=starts[1:])
     flat = torch.from_numpy(rng.standard_normal(int(lens.sum())) * 100).to(cuda_device, dtype)
-    for L in np.unique(lens):
-        st = np.zeros(len(np.flatnonzero(lens == L)) + 5, np.int32)  # 5 padding rows
-        st[:-5] = starts[lens == L]
-        st_t = torch.from_numpy(st).to(cuda_device)
-        got = krg.ragged_gather_rows(flat, st_t, int(L))
-        assert torch.equal(got, krg.gather_plain(flat, st_t, int(L))), int(L)
+    groups = _gather_groups(lens, starts, 3)
+    tft.kernels.LAUNCHES.reset()
+    got = krg.ragged_gather_groups(flat, groups)
+    assert tft.kernels.LAUNCHES.snapshot()["ragged_gather"] == 1
+    for (st, L), g in zip(groups, got):
+        assert torch.equal(g, krg.gather_plain(flat, torch.from_numpy(st).to(cuda_device), L)), L
+
+
+def test_gather_launches_follow_the_budget(cuda_device, monkeypatch):
+    """Past the launch budget the groups take ceil(padded bytes / budget)
+    launches or more (groups are not split), each result unchanged."""
+    rng = np.random.default_rng(3)
+    lens = rng.integers(1, 200, 4000)
+    starts = np.zeros(len(lens), np.int64)
+    np.cumsum(lens[:-1], out=starts[1:])
+    flat = torch.from_numpy(rng.standard_normal(int(lens.sum())).astype(np.float32)).to(cuda_device)
+    groups = _gather_groups(lens, starts, 1)
+    want = krg.ragged_gather_groups(flat, groups)
+    budget = 64 << 10
+    monkeypatch.setattr(krg, "LAUNCH_BUDGET_BYTES", budget)
+    padded = sum(-(-len(st) * L * 4 // 16) * 16 for st, L in groups)
+    tft.kernels.LAUNCHES.reset()
+    got = krg.ragged_gather_groups(flat, groups)
+    n = tft.kernels.LAUNCHES.snapshot()["ragged_gather"]
+    assert n == len(krg.launch_groups([(len(st), L) for st, L in groups], 4))
+    assert n >= -(-padded // budget) > 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_ragged_map_rows_launches_the_gather_once(cuda_device):
+    """A ragged ``map_rows`` over many lengths gathers every group in one
+    launch, and its results equal the CPU run's."""
+    rng = np.random.default_rng(4)
+    rows = [{"r": rng.standard_normal(int(m)).astype(np.float32)} for m in rng.integers(1, 90, 3000)]
+    out = {}
+    for device in (cuda_device, "cpu"):
+        tft.kernels.LAUNCHES.reset()
+        df = tft.frame_from_rows(rows, num_blocks=1)
+        with tft.with_graph():
+            r = tft.placeholder(np.float32, (None,), name="r")
+            out[str(device)] = tft.map_rows(tft.reduce_max(r, name="m"), df,
+                                            device=device).column_values("m")
+        if device != "cpu":
+            assert tft.kernels.LAUNCHES.snapshot()["ragged_gather"] == 1
+    np.testing.assert_array_equal(out[str(cuda_device)], out["cpu"])
 
 
 def test_slice_on_card_launches_every_kernel(cuda_device):

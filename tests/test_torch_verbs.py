@@ -226,25 +226,93 @@ def test_bucket_ladder_and_padding_match(min_bucket, doublings):
 
 def test_ragged_map_rows_stages_through_the_gather():
     """A single 1-D ragged column takes the gather route (its plain
-    version on CPU tensors; the kernel on the card)."""
+    version on CPU tensors; the kernel on the card): every shape group in
+    one planned launch."""
     from tensorframes_tpu_torch.kernels import ragged_gather as krg
 
     calls = []
-    real = krg.ragged_gather_rows
+    real = krg.plan_launches
 
-    def spy(flat, starts, length):
-        calls.append(length)
-        return real(flat, starts, length)
+    def spy(flat, groups):
+        launches = real(flat, groups)
+        calls.append([[L for _, _, L in launch.groups] for launch in launches])
+        return launches
 
-    krg.ragged_gather_rows = spy
+    krg.plan_launches = spy
     try:
         df = tft.frame_from_rows(_ragged_rows("float64"))
         with tft.with_graph():
             r = tft.placeholder("float64", (None,), name="r")
             tft.map_rows(tft.reduce_sum(r, name="s"), df, device="cpu").blocks()
     finally:
-        krg.ragged_gather_rows = real
-    assert sorted(calls) == list(range(1, 9))
+        krg.plan_launches = real
+    assert calls == [[list(range(1, 9))]]
+
+
+def _many_length_rows(dtype, n=1500, seed=21):
+    rng = np.random.default_rng(seed)
+    return [{"r": (rng.standard_normal(int(m)) * 10).astype(dtype)}
+            for m in rng.integers(1, 120, n)]
+
+
+@pytest.mark.parametrize("budget", [None, 4096])
+def test_ragged_map_rows_many_length_groups(monkeypatch, budget):
+    """A ragged column of 100+ distinct lengths through ``map_rows`` equals
+    the JAX package's, row for row; with the launch budget shrunk (a test
+    of the module constant, not a knob) the groups take many launches and
+    the results stay the same."""
+    from tensorframes_tpu_torch.kernels import ragged_gather as krg
+
+    if budget is not None:
+        monkeypatch.setattr(krg, "LAUNCH_BUDGET_BYTES", budget)
+    plans = []
+    real = krg.plan_launches
+    monkeypatch.setattr(krg, "plan_launches",
+                        lambda flat, groups: plans.append(real(flat, groups)) or plans[-1])
+    rows = _many_length_rows("float32")
+    outs = []
+    for pkg in (tfs, tft):
+        df = pkg.frame_from_rows(rows, num_blocks=1)
+        with pkg.with_graph():
+            r = pkg.placeholder("float32", (None,), name="r")
+            outs.append(pkg.map_rows(
+                [pkg.reduce_max(r, name="m"), pkg.mul(r, 2.0, name="t")], df, **_kw(pkg)))
+    j, t = outs
+    np.testing.assert_array_equal(t.column_values("m"), j.column_values("m"))
+    assert len(plans) == 1
+    groups = sum(len(launch.groups) for launch in plans[0])
+    assert groups >= 100
+    assert (len(plans[0]) == 1) == (budget is None)
+    for a, b in zip((r["t"] for r in t.collect()), (r["t"] for r in j.collect())):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+def test_ragged_map_rows_frees_each_launch_before_the_next(monkeypatch):
+    """Under a shrunk launch budget, every batch of a gather launch is
+    released before the next launch allocates its output, so the verb
+    holds one launch's output at a time."""
+    import weakref
+
+    from tensorframes_tpu_torch.kernels import ragged_gather as krg
+
+    monkeypatch.setattr(krg, "LAUNCH_BUDGET_BYTES", 4096)
+    alive, launches = [], []
+    real = krg.gather_launch
+
+    def tracked(flat, launch):
+        launches.append(sum(ref() is not None for ref in alive))
+        batches = real(flat, launch)
+        alive.extend(weakref.ref(b) for b in batches)
+        return batches
+
+    monkeypatch.setattr(krg, "gather_launch", tracked)
+    df = tft.frame_from_rows(_many_length_rows("float32", n=400), num_blocks=1)
+    with tft.with_graph():
+        r = tft.placeholder("float32", (None,), name="r")
+        tft.map_rows(tft.reduce_max(r, name="m"), df, device="cpu").blocks()
+    assert len(launches) > 3
+    assert launches == [0] * len(launches)
 
 
 # ---------------------------------------------------------------------------
