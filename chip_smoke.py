@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Chip smoke for tensorframes_tpu_torch: build the CUDA kernels, hold each
 against its plain PyTorch version on the card, then drive the five verbs,
-the decode server, BERT-base embedding extraction, gpt_small training and
-Inception-v3 scoring through the package's entry points at full size on
-one GPU.
+the decode server, BERT-base embedding extraction, gpt_small training,
+Inception-v3 scoring (native, and from a frozen GraphDef this script
+writes) and VGG-16 scoring through the package's entry points at full
+size on one GPU.
 
     python3 chip_smoke.py
 
@@ -117,16 +118,39 @@ Phases:
    (TF32 off in cuDNN and cuBLAS), labels equal where the margin is
    clear, three broken forwards outside; a 64-image int8 leg
    (``quantize_params``) within the same tolerance of the f32 forward of
-   its dequantized weights.
+   its dequantized weights. Then the same network (f32 weights) as a
+   frozen NHWC GraphDef written here with no TensorFlow
+   (``inception_graphdef``: Conv2D → Mul → AddV2 → Relu per conv, the
+   pools, ConcatV2, Mean, MatMul + BiasAdd), read back by
+   ``load_graphdef`` (bf16 on the card) and scored over the same 1,024
+   images in two blocks of 512 (warm-up, then a timed call: rows/s, peak
+   memory); on 64 images its logits within ``INCEPTION_RTOL`` of the f32
+   forward of the weights it computes with, an f32 import within
+   ``IMPORT_F32_RTOL`` of the f32 forward, labels equal where the margin
+   is clear, a SAME AvgPool divided by the full window and a graph
+   without the stem's first folded-BN ``Mul`` outside; a 64-image
+   ``quantize_weights=True`` import launching ``int8_matmul`` once a call
+   (scalar build) within ``INCEPTION_RTOL`` of the f32 forward of its
+   dequantized weights. Then a graph of stride-2 SAME ops (Conv2D 3x3
+   and 2x2, depthwise, MaxPool, AvgPool at sizes 17 and 16) in f32 on
+   the card against the same import on the CPU within ``PAD_RTOL``, the
+   split on the wrong side outside. Then VGG-16 (224x224 bf16, biases
+   drawn at random): 512 images in two blocks of 256 through
+   ``map_blocks(scoring_program)`` (warm-up, timed call); block 0 equal
+   to a direct call, top-k equal to the sorted scores, bf16 logits within
+   ``VGG_RTOL`` of an f32 forward with a dropped last-conv bias outside,
+   a 64-image int8 leg launching ``int8_matmul`` 3 times a call (2 on the
+   tensor-core build); ``save_program``/``load_program`` of the scoring
+   program, the loaded one equal bit for bit at 4 and 16 images.
 3. where the time goes: ``torch.profiler`` device time by kernel for
    each segment kernel alone, for two verbs (aggregate, map_blocks) and
    for a 16-slot decode step and for one BERT-base ``map_rows`` call
    (flash against the dense products and copies), and for one gpt_small
    training step (forward, backward and optimizer by CUDA events; GEMMs,
    the three flash kernels, norms, the embedding's backward), and for one
-   Inception-v3 ``map_blocks`` call (convolutions, pools, elementwise,
-   host-to-device copies, the top operations), with the device's busy
-   share of each call's host wall time;
+   Inception-v3 ``map_blocks`` call, native and imported (convolutions,
+   pools, elementwise, host-to-device copies, the top operations), with
+   the device's busy share of each call's host wall time;
 4. one JSON line listing every kernel, the card's name and power limit,
    and as the last line ``{"ok": true, "device": {...}}``.
 """
@@ -144,6 +168,7 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12    # dense bf16 tensor-core peak, H100 SXM data sheet
+H100_F32_FLOPS = 67e12      # float32 outside the tensor cores, H100 SXM data sheet
 SPIN_CYCLES = 100_000_000   # ~50 ms at the H100's ~2 GHz: longer than queuing 10 calls
 SLICE1_KERNELS = ("segment_reduce", "segment_sum", "ragged_gather")
 SERVING_KERNELS = ("decode_attention", "int8_matmul")
@@ -671,6 +696,32 @@ def broken_int8_versions() -> dict:
             "scale dropped": no_scale, "last k-split dropped": last_split_dropped}
 
 
+def int8_case(x, w, want: str, what: str) -> tuple:
+    """One product through ``matmul_int8``, twice: the build ``want``
+    (counted), the same bits both times, within :func:`bf16_ratio`'s
+    tolerance of ``matmul_int8_plain`` (the f32 one for f32 x). Returns
+    the output, max |err|, the share of the tolerance and each broken
+    plain version's share."""
+    import torch
+    from tensorframes_tpu_torch import kernels
+    from tensorframes_tpu_torch.ops import quantize as tq
+
+    build = tq.int8_matmul_build(x, w)
+    kernels.LAUNCHES.reset()
+    got, again = tq.matmul_int8(x, w), tq.matmul_int8(x, w)
+    counts = (kernels.LAUNCHES.snapshot()["int8_matmul"],
+              kernels.LAUNCHES.builds()["int8_matmul_mma"])
+    ref = tq.matmul_int8_plain(x, w)
+    torch.cuda.synchronize()
+    if build != want or counts != (2, 2 * (want == "mma")):
+        fail(f"{what}: build {build}, launches (all, tensor cores) {counts}; want {want}")
+    if not torch.equal(got, again):
+        fail(f"{what}: two launches differ")
+    f32 = x.dtype == torch.float32
+    broken = {bw: bf16_ratio(fn(x, w), ref, f32) for bw, fn in broken_int8_versions().items()}
+    return got, bf16_close(got, ref, what, f32=f32), bf16_ratio(got, ref, f32), broken
+
+
 def check_int8_matmul(dev) -> dict:
     """Every (k, n) of a gpt_small layer at m = 1, 16 (slot counts), 128
     (the top prompt bucket) and a ragged 37 in bf16, plus an f32 case, each
@@ -678,12 +729,11 @@ def check_int8_matmul(dev) -> dict:
     cores for bf16, the scalar kernel for f32), twice with the same bits;
     the bf16 rows are the first m of one 128-row x, and each row must come
     out with the same bits at every m. Three broken plain versions must
-    land outside the tolerance at every bf16 case. The timed unit is one
+    land outside the tolerance at every case. The timed unit is one
     layer's four products at m = 16 (a 16-slot decode step's layer); the
     same at m = 1 and m = 128 is logged."""
     import numpy as np
     import torch
-    from tensorframes_tpu_torch import kernels
     from tensorframes_tpu_torch.ops import quantize as tq
 
     rng = np.random.default_rng(SEED)
@@ -703,27 +753,13 @@ def check_int8_matmul(dev) -> dict:
     for m, dtype in cases:
         xm = {kn: x[:m] for kn, x in x128.items()} if dtype == torch.bfloat16 else xs(m, dtype)
         for kn, x in xm.items():
-            w = weights[kn]
-            build = tq.int8_matmul_build(x, w)
             want = "mma" if dtype == torch.bfloat16 else "scalar"
-            kernels.LAUNCHES.reset()
-            got, again = tq.matmul_int8(x, w), tq.matmul_int8(x, w)
-            counts = (kernels.LAUNCHES.snapshot()["int8_matmul"],
-                      kernels.LAUNCHES.builds()["int8_matmul_mma"])
-            ref = tq.matmul_int8_plain(x, w)
-            torch.cuda.synchronize()
-            what = f"int8_matmul m={m} (k, n)={kn} {dtype}"
-            if build != want or counts != (2, 2 * (build == "mma")):
-                fail(f"{what}: build {build}, launches (all, tensor cores) {counts}; want {want}")
-            if not torch.equal(got, again):
-                fail(f"{what}: two launches differ")
-            f32 = dtype == torch.float32
-            err = max(err, bf16_close(got, ref, what, f32=f32))
-            worst = max(worst, bf16_ratio(got, ref, f32))
-            if not f32:
+            got, e, ratio, shares = int8_case(x, weights[kn], want,
+                                              f"int8_matmul m={m} (k, n)={kn} {dtype}")
+            err, worst = max(err, e), max(worst, ratio)
+            broken = {bw: min(r, shares[bw]) for bw, r in broken.items()}
+            if dtype == torch.bfloat16:
                 outs[kn, m] = got
-                for bw, fn in broken_int8_versions().items():
-                    broken[bw] = min(broken[bw], bf16_ratio(fn(x, w), ref))
     for kn in GEMM_SHAPES:  # a row's bits at every m
         full = outs[kn, 128]
         if not all(torch.equal(outs[kn, m], full[:m]) for m in (1, 16, 37)):
@@ -748,14 +784,71 @@ def check_int8_matmul(dev) -> dict:
             f"{time_ms(lambda: [xm[kn] @ wide[kn] for kn in GEMM_SHAPES], f'matmul m={m}'):.6f} "
             "ms")
     nbytes = sum(k * n + 4 * n + 2 * 16 * k + 2 * 16 * n for k, n in GEMM_SHAPES)
+    legs = check_int8_model_products(dev)
     return {
-        "max_abs_err": err,
+        "max_abs_err": max(err, *(leg["max_abs_err"] for leg in legs.values())),
+        "legs": legs,
         "ms": time_ms(layer(tq.matmul_int8, x16), "int8_matmul"),
         "plain_ms": time_ms(layer(tq.matmul_int8_plain, x16), "int8_matmul plain"),
         "library_ms": time_ms(lambda: [x16[kn] @ wide[kn] for kn in GEMM_SHAPES],
                               "int8_matmul library"),
         **roofline(nbytes, sum(2 * 16 * k * n for k, n in GEMM_SHAPES)),
     }
+
+
+def check_int8_model_products(dev) -> dict:
+    """The products that the VGG-16 and imported Inception-v3 int8 legs
+    give the kernel, at their shapes and dtypes: each through the build
+    that the leg takes (counted), twice with the same bits, against
+    ``matmul_int8_plain`` within :func:`bf16_ratio`'s tolerance (the f32
+    one for f32 x), with the three broken plain versions outside it at
+    every product. Per product: the kernel, plain and library times and
+    the bound (f32 operations at the CUDA cores' f32 peak)."""
+    import numpy as np
+    import torch
+    from tensorframes_tpu_torch.ops import quantize as tq
+
+    model_gemms = (  # (product, m, k, n, x dtype, build)
+        ("vgg-16 fc6", VGG_CHECK, 25_088, 4_096, "bfloat16", "mma"),
+        ("vgg-16 fc7", VGG_CHECK, 4_096, 4_096, "bfloat16", "mma"),
+        ("vgg-16 fc8", VGG_CHECK, 4_096, 1_000, "bfloat16", "scalar"),
+        # under bf16 the importer contracts the narrowed values in f32
+        ("imported inception-v3 classifier", INC_CHECK, 2_048, 1_000, "float32", "scalar"),
+    )
+    rng = np.random.default_rng(SEED + 1)
+    legs, broken = {}, {what: float("inf") for what in broken_int8_versions()}
+    for what, m, k, n, dtype_name, want in model_gemms:
+        dtype = getattr(torch, dtype_name)
+        w = tq.quantize(torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32)).to(
+            dev) * k ** -0.5)
+        x = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32)).to(dev, dtype)
+        label = f"int8_matmul {what} [{m}, {k}] @ [{k}, {n}] {dtype_name}"
+        _, err, ratio, shares = int8_case(x, w, want, label)
+        broken = {bw: min(r, shares[bw]) for bw, r in broken.items()}
+        f32 = dtype == torch.float32
+        wide = w.dequantize(dtype)
+        es = x.element_size()
+        flops = 2 * m * k * n
+        b = bound_ms(k * n + 4 * n + es * m * k + es * m * n)
+        f = flops / (H100_F32_FLOPS if f32 else H100_BF16_FLOPS) * 1e3
+        legs[what] = {
+            "m": m, "k": k, "n": n, "dtype": dtype_name, "build": want,
+            "max_abs_err": err, "share_of_tolerance": ratio,
+            "ms": time_ms(lambda: tq.matmul_int8(x, w), label),
+            "plain_ms": time_ms(lambda: tq.matmul_int8_plain(x, w), f"{label} plain"),
+            "library_ms": time_ms(lambda: x @ wide, f"{label} library"),
+            "bound_ms": max(b, f), "bound_by": "bytes" if b >= f else "operations",
+        }
+        del w, x, wide
+    log("# int8_matmul model products: "
+        + "; ".join(f"{w} {leg['build']} {leg['share_of_tolerance']:.4g} of the tolerance"
+                    for w, leg in legs.items())
+        + "; broken versions at least " + ", ".join(f"{w} {r:.4g}" for w, r in broken.items()))
+    for what, r in broken.items():
+        if r <= 1:
+            fail(f"the int8_matmul gate cannot see a broken version at the model products "
+                 f"({what}: {r} <= 1)")
+    return legs
 
 
 def paged_inputs(dev, S: int, pages: int = 193, layers: int = 12, nh: int = 12,
@@ -1791,8 +1884,607 @@ def inception_path(tft, dev) -> dict:
         "peak_bytes": peak, "held_bytes": held, "launches": launches,
         "ratio": ratio, "broken": broken, "int8_ratio": qratio,
         "int8_rows_per_s": INC_CHECK / qwall, "weight_bytes": q.tree_nbytes(params),
-        "frame": frame, "prog": prog,
+        "frame": frame, "prog": prog, "images": images,
     }
+
+
+# ---------------------------------------------------------------------------
+# frozen GraphDefs, written here: the card's machine has no TensorFlow
+# ---------------------------------------------------------------------------
+
+def varint(x: int) -> bytes:
+    x &= (1 << 64) - 1  # negative ints as two's-complement int64, as TF writes them
+    out = bytearray()
+    while True:
+        b = x & 0x7F
+        x >>= 7
+        out.append(b | (0x80 if x else 0))
+        if not x:
+            return bytes(out)
+
+
+def ld(field: int, payload: bytes) -> bytes:
+    """A length-delimited field: a message, string or packed list."""
+    return varint((field << 3) | 2) + varint(len(payload)) + payload
+
+
+def vf(field: int, value: int) -> bytes:
+    """A varint field."""
+    return varint(field << 3) + varint(value)
+
+
+def node_bytes(name: str, op: str, inputs=(), attrs=()) -> bytes:
+    """One ``NodeDef``: its name, op, inputs and ``(key, AttrValue
+    bytes)`` pairs."""
+    b = ld(1, name.encode()) + ld(2, op.encode())
+    for i in inputs:
+        b += ld(3, i.encode())
+    for k, v in attrs:
+        b += ld(5, ld(1, k.encode()) + ld(2, v))
+    return b
+
+
+_TF_ENUM = {"float32": 1, "int32": 3, "int64": 9}
+
+
+def _attr_ints(vals) -> bytes:
+    """AttrValue.list.i, packed (strides, ksize)."""
+    return ld(1, ld(3, b"".join(varint(v) for v in vals)))
+
+
+def _attr_str(s: bytes) -> bytes:
+    return ld(2, s)
+
+
+def _shape_bytes(dims) -> bytes:
+    return b"".join(ld(2, vf(1, d)) for d in dims)
+
+
+class GraphWriter:
+    """A frozen GraphDef's bytes, node by node, with the wire encoding of
+    ``graph.proto``/``node_def.proto``/``attr_value.proto``/
+    ``tensor.proto``: the subset the importer reads. Consts carry
+    ``tensor_content``."""
+
+    def __init__(self):
+        self.parts = []
+        self.count = 0
+
+    def node(self, op: str, inputs=(), name=None, **attrs) -> str:
+        name = name or f"{op.lower()}_{self.count}"
+        self.count += 1
+        self.parts.append(ld(1, node_bytes(name, op, inputs, attrs.items())))
+        return name
+
+    def const(self, arr, name=None) -> str:
+        import numpy as np
+
+        arr = np.ascontiguousarray(arr)
+        enum = _TF_ENUM[arr.dtype.name]
+        tensor = vf(1, enum) + ld(2, _shape_bytes(arr.shape)) + ld(4, arr.tobytes())
+        return self.node("Const", name=name, dtype=vf(6, enum), value=ld(8, tensor))
+
+    def placeholder(self, name: str, dims) -> str:
+        return self.node("Placeholder", name=name, dtype=vf(6, 1),
+                         shape=ld(7, _shape_bytes(dims)))
+
+    def bytes(self) -> bytes:
+        return b"".join(self.parts)
+
+
+def inception_graphdef(cfg, params, skip_scale=None) -> bytes:
+    """The port's Inception-v3 (``models/inception.py``: its config and
+    weights, any device) as a frozen NHWC GraphDef, each conv decomposed
+    as keras's freezer leaves it: ``Conv2D`` (HWIO ``Const``) → ``Mul``
+    (folded-BN scale) → ``AddV2`` (bias) → ``Relu``; the pools as
+    ``MaxPool``/``AvgPool`` (the 3x3 average pool SAME, stride 1), the
+    branches as ``ConcatV2``, the global pool as ``Mean``, the classifier
+    as ``MatMul`` + ``BiasAdd`` (``logits``), then ``Softmax``
+    (``scores``) and ``ArgMax`` (``label``, int32). The input is
+    ``images`` ``[-1, S, S, 3]`` float32. ``skip_scale`` names one conv
+    (``"stem/c1"``) whose ``Mul`` is left out: a broken graph."""
+    import numpy as np
+
+    g = GraphWriter()
+    one = _attr_ints([1, 1, 1, 1])
+
+    def f32(t):
+        return t.detach().float().cpu().numpy()
+
+    def conv(p, x, tag, stride=1, padding=b"SAME"):
+        w = f32(p["w"].permute(2, 3, 1, 0))  # [cout, cin, kh, kw] → HWIO
+        y = g.node("Conv2D", [x, g.const(w)], strides=_attr_ints([1, stride, stride, 1]),
+                   padding=_attr_str(padding), data_format=_attr_str(b"NHWC"), dilations=one)
+        if tag != skip_scale:
+            y = g.node("Mul", [y, g.const(f32(p["scale"]))])
+        return g.node("Relu", [g.node("AddV2", [y, g.const(f32(p["bias"]))])])
+
+    def pool(op, x, k, s, padding):
+        return g.node(op, [x], ksize=_attr_ints([1, k, k, 1]), strides=_attr_ints([1, s, s, 1]),
+                      padding=_attr_str(padding), data_format=_attr_str(b"NHWC"))
+
+    def cat(xs):
+        return g.node("ConcatV2", [*xs, g.const(np.asarray(3, np.int32))])
+
+    def chain(p, x, block, names, last_stride=1, last_padding=b"SAME"):
+        for i, nm in enumerate(names):
+            last = i == len(names) - 1
+            x = conv(p[nm], x, f"{block}/{nm}", last_stride if last else 1,
+                     last_padding if last else b"SAME")
+        return x
+
+    x = g.placeholder("images", [-1, cfg.image_size, cfg.image_size, 3])
+    s = params["stem"]
+    x = conv(s["c1"], x, "stem/c1", 2, b"VALID")
+    x = conv(s["c2"], x, "stem/c2", 1, b"VALID")
+    x = conv(s["c3"], x, "stem/c3")
+    x = pool("MaxPool", x, 3, 2, b"VALID")
+    x = conv(s["c4"], x, "stem/c4")
+    x = conv(s["c5"], x, "stem/c5", 1, b"VALID")
+    x = pool("MaxPool", x, 3, 2, b"VALID")
+    for i in range(3):
+        b, p = f"mixed_a{i}", params[f"mixed_a{i}"]
+        x = cat([chain(p, x, b, ["b1"]), chain(p, x, b, ["b5_1", "b5_2"]),
+                 chain(p, x, b, ["b3_1", "b3_2", "b3_3"]),
+                 chain(p, pool("AvgPool", x, 3, 1, b"SAME"), b, ["bp"])])
+    p = params["mixed_b"]
+    x = cat([chain(p, x, "mixed_b", ["b3"], 2, b"VALID"),
+             chain(p, x, "mixed_b", ["bd_1", "bd_2", "bd_3"], 2, b"VALID"),
+             pool("MaxPool", x, 3, 2, b"VALID")])
+    for i in range(4):
+        b, p = f"mixed_c{i}", params[f"mixed_c{i}"]
+        x = cat([chain(p, x, b, ["b1"]), chain(p, x, b, ["b7_1", "b7_2", "b7_3"]),
+                 chain(p, x, b, ["bd_1", "bd_2", "bd_3", "bd_4", "bd_5"]),
+                 chain(p, pool("AvgPool", x, 3, 1, b"SAME"), b, ["bp"])])
+    p = params["mixed_d"]
+    x = cat([chain(p, x, "mixed_d", ["b3_1", "b3_2"], 2, b"VALID"),
+             chain(p, x, "mixed_d", ["b7_1", "b7_2", "b7_3", "b7_4"], 2, b"VALID"),
+             pool("MaxPool", x, 3, 2, b"VALID")])
+    for i in range(2):
+        b, p = f"mixed_e{i}", params[f"mixed_e{i}"]
+        b3 = chain(p, x, b, ["b3_1"])
+        bd = chain(p, x, b, ["bd_1", "bd_2"])
+        x = cat([chain(p, x, b, ["b1"]),
+                 cat([chain(p, b3, b, ["b3_2a"]), chain(p, b3, b, ["b3_2b"])]),
+                 cat([chain(p, bd, b, ["bd_3a"]), chain(p, bd, b, ["bd_3b"])]),
+                 chain(p, pool("AvgPool", x, 3, 1, b"SAME"), b, ["bp"])])
+    x = g.node("Mean", [x, g.const(np.asarray([1, 2], np.int32))], keep_dims=vf(5, 0))
+    x = g.node("MatMul", [x, g.const(f32(params["fc"]["w"]))])
+    logits = g.node("BiasAdd", [x, g.const(f32(params["fc"]["b"]))], name="logits",
+                    data_format=_attr_str(b"NHWC"))
+    g.node("Softmax", [logits], name="scores")
+    g.node("ArgMax", [logits, g.const(np.asarray(1, np.int32))], name="label",
+           output_type=vf(6, 3))
+    return g.bytes()
+
+
+PAD_SIZES = (17, 16)  # odd and even: TF's SAME split differs between them
+PAD_CHANNELS = 8
+PAD_RTOL = 1e-5  # of max |CPU output|: f32 on the card (TF32 off) against the CPU
+
+
+def padding_graphdef(seed: int = SEED):
+    """Stride-2 SAME ops at an odd and an even size, each on its own
+    ``x{size}`` placeholder ``[-1, size, size, 8]``: ``Conv2D`` 3x3 and
+    2x2, ``DepthwiseConv2dNative`` 3x3 (multiplier 2), ``MaxPool`` and
+    ``AvgPool`` 3x3. Returns ``(bytes, fetches)``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    g = GraphWriter()
+    s2, same = _attr_ints([1, 2, 2, 1]), _attr_str(b"SAME")
+    c = PAD_CHANNELS
+    fetches = []
+    for size in PAD_SIZES:
+        x = g.placeholder(f"x{size}", [-1, size, size, c])
+        for name, shape in (("conv3", (3, 3, c, 16)), ("conv2", (2, 2, c, 16))):
+            w = g.const((rng.standard_normal(shape) / np.sqrt(np.prod(shape[:3]))).astype(np.float32))
+            fetches.append(g.node("Conv2D", [x, w], name=f"{name}_{size}", strides=s2,
+                                  padding=same))
+        w = g.const((rng.standard_normal((3, 3, c, 2)) / 3).astype(np.float32))
+        fetches.append(g.node("DepthwiseConv2dNative", [x, w], name=f"dw3_{size}", strides=s2,
+                              padding=same))
+        for op in ("MaxPool", "AvgPool"):
+            fetches.append(g.node(op, [x], name=f"{op.lower()}3_{size}",
+                                  ksize=_attr_ints([1, 3, 3, 1]), strides=s2, padding=same))
+    return g.bytes(), fetches
+
+
+def padding_feeds(n: int = 4, seed: int = SEED) -> dict:
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 1)
+    return {f"x{s}": rng.standard_normal((n, s, s, PAD_CHANNELS), dtype=np.float32)
+            for s in PAD_SIZES}
+
+
+def padding_ratio(tft, data: bytes, fetches, feeds: dict, dev, want: dict) -> float:
+    """max over fetches of max |card - CPU| over PAD_RTOL·max |CPU|, the
+    card's import f32 with TF32 off."""
+    import numpy as np
+    import torch
+
+    prog = tft.program_from_graphdef(tft.parse_graphdef(data), fetches=fetches,
+                                     compute_dtype=None, device=dev)
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            got = prog.fn({k: torch.from_numpy(v).to(dev) for k, v in feeds.items()})
+            got = {k: v.cpu().numpy() for k, v in got.items()}
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    return max(float(np.abs(got[f] - want[f]).max() / (PAD_RTOL * np.abs(want[f]).max()))
+               for f in fetches)
+
+
+def padding_path(tft, dev) -> dict:
+    """The padding graph on the card (f32, TF32 off) against the same
+    import on the CPU, within PAD_RTOL; the same with TF's SAME split put
+    on the wrong side (the odd row or column before) must fall outside."""
+    import torch
+    from tensorframes_tpu_torch import graphdef as gd
+
+    data, fetches = padding_graphdef()
+    feeds = padding_feeds()
+    cpu = tft.program_from_graphdef(tft.parse_graphdef(data), fetches=fetches,
+                                    compute_dtype=None, device="cpu")
+    with torch.inference_mode():
+        want = {k: v.numpy() for k, v in cpu.fn(
+            {k: torch.from_numpy(v) for k, v in feeds.items()}).items()}
+    ratio = padding_ratio(tft, data, fetches, feeds, dev, want)
+    if ratio > 1:
+        fail(f"padding graph: the card off the CPU by {ratio:.3f} of the tolerance")
+    real = gd._same_pads
+    gd._same_pads = lambda *a: real(*a)[::-1]
+    try:
+        broken = padding_ratio(tft, data, fetches, feeds, dev, want)
+    finally:
+        gd._same_pads = real
+    if broken <= 1:
+        fail(f"padding graph: a split on the wrong side lies within the tolerance ({broken:.3f})")
+    log(f"# padding graph (stride-2 SAME Conv2D 3x3/2x2, depthwise, MaxPool, AvgPool at "
+        f"{PAD_SIZES}): card vs CPU {ratio:.4f} of the tolerance; split on the wrong side "
+        f"{broken:.1f}")
+    return {"ratio": ratio, "broken": broken}
+
+
+# f32 import (TF32 off) against the native f32 forward of the same weights, of
+# max |logit|: both compute in f32 and differ in the order of each conv's sums
+# (cuDNN's algorithms) and in the folded-BN affine (Mul then AddV2 against one
+# addcmul)
+IMPORT_F32_RTOL = 1e-4
+
+
+def graph_logits(tft, prog, images, dev, column: str = "logits"):
+    frame = tft.frame_from_arrays({"images": images}, num_blocks=1)
+    return tft.map_blocks(prog, frame, device=dev).column_values(column)
+
+
+def dequantized_inception(params: dict, dev) -> dict:
+    """``params`` (f32) with every conv filter and the classifier's weight
+    replaced by what the importer's ``quantize_weights=True`` computes
+    with: HWIO filters and the ``[features, classes]`` weight quantized
+    per output channel on the CPU, dequantized to f32."""
+    import torch
+    from tensorframes_tpu_torch.ops.quantize import quantize
+
+    def dq(w_io):  # output channel last
+        return quantize(w_io.detach().float().cpu().contiguous(), channel_axis=-1).dequantize()
+
+    out = {}
+    for block, convs in params.items():
+        if block == "fc":
+            out[block] = {"w": dq(convs["w"]).to(dev), "b": convs["b"]}
+            continue
+        out[block] = {}
+        for name, p in convs.items():
+            hwio = dq(p["w"].permute(2, 3, 1, 0))
+            w = hwio.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last).to(dev)
+            out[block][name] = {**p, "w": w}
+    return out
+
+
+def imported_inception_path(tft, dev, incep) -> dict:
+    """BASELINE config 4 as its users run it: the native leg's
+    Inception-v3 (seed 0, full width, the same random folded-BN scale and
+    bias, in f32) written as a frozen GraphDef by :func:`inception_graphdef`,
+    read back by ``load_graphdef`` (``relax_lead_dim=True``,
+    ``compute_dtype="auto"``: bf16 on the card) and scored over the native
+    leg's 1,024 images in its two blocks of 512 through ``map_blocks``: a
+    warm-up call, then a timed one (rows/s, peak memory). Gates on 64
+    images: the bf16 logits within INCEPTION_RTOL of the native f32
+    forward (TF32 off) of the weights they compute with (filters and the
+    classifier's weight rounded to bf16), the f32 import
+    (``compute_dtype=None``) within IMPORT_F32_RTOL of the f32 forward of
+    the unrounded weights, labels equal
+    where its margin is clear; a SAME AvgPool divided by the full window
+    and a graph without the stem's first folded-BN ``Mul`` both outside
+    INCEPTION_RTOL; a ``quantize_weights=True`` import within
+    INCEPTION_RTOL of the f32 forward of its dequantized weights,
+    launching ``int8_matmul`` once a call (the classifier, 1,000 columns:
+    the scalar build)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from tensorframes_tpu_torch import graphdef as gd
+    from tensorframes_tpu_torch.models import inception as inc
+
+    cfg32 = inc.inception_v3(compute_dtype="float32")
+    params32 = random_affine(inc.init_params(cfg32, seed=SEED, device=dev), SEED)
+    t0 = time.perf_counter()
+    data = inception_graphdef(cfg32, params32)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_graphs_"))
+    path = tmp / "inception_v3_frozen.pb"
+    path.write_bytes(data)
+    write_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    prog = tft.load_graphdef(str(path), fetches=["logits", "scores", "label"],
+                             relax_lead_dim=True, device=dev)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t1
+    frame = incep["frame"]
+
+    def score():
+        out = tft.map_blocks(prog, frame, device=dev)
+        return out.column_values("logits"), out.column_values("label")
+
+    t2 = time.perf_counter()
+    score()  # warm-up
+    warm_s = time.perf_counter() - t2
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tft.kernels.LAUNCHES.reset()
+    t3 = time.perf_counter()
+    logits, labels = score()
+    wall = time.perf_counter() - t3
+    peak = torch.cuda.max_memory_allocated()
+    launches = launch_counts(tft)
+    if logits.shape != (INC_ROWS, cfg32.num_classes) or not np.isfinite(logits).all():
+        fail(f"imported inception logits of shape {logits.shape}, or not finite")
+    if labels.dtype != np.int32 or not np.array_equal(labels, logits.argmax(1)):
+        fail("imported inception labels are not the argmax of its logits")
+
+    sub = incep["images"][:INC_CHECK]
+    # the weights the bf16 import computes with: conv filters and the
+    # classifier's weight rounded to bf16 (the matmul-class ops' cast), the
+    # folded-BN scale and bias exact f32
+    rounded = {block: {k: v.to(torch.bfloat16).float() if k == "w" else v
+                       for k, v in convs.items()} if block == "fc" else
+               {name: {**p, "w": p["w"].to(torch.bfloat16).float()} for name, p in convs.items()}
+               for block, convs in params32.items()}
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ref = inception_logits(inc, cfg32, rounded, sub, dev)
+        ref32 = inception_logits(inc, cfg32, params32, sub, dev)
+        qref = inception_logits(inc, cfg32, dequantized_inception(params32, dev), sub, dev)
+        prog32 = tft.load_graphdef(str(path), fetches=["logits"], relax_lead_dim=True,
+                                   compute_dtype=None, device=dev)
+        got32 = graph_logits(tft, prog32, sub, dev)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    del prog32
+    ratio = inception_ratio(logits[:INC_CHECK], ref)
+    if ratio > 1:
+        fail(f"imported inception bf16 logits off the f32 forward by {ratio:.3f} of the tolerance")
+    ratio32 = float(np.abs(got32 - ref32).max() / (IMPORT_F32_RTOL * np.abs(ref32).max()))
+    if ratio32 > 1:
+        fail(f"imported inception f32 logits off the f32 forward by {ratio32:.3f} of the tolerance")
+    top2 = np.sort(ref, axis=1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > 2 * INCEPTION_RTOL * np.abs(ref).max()
+    if not np.array_equal(labels[:INC_CHECK][clear], ref.argmax(1)[clear]):
+        fail("imported inception labels differ from the f32 forward's where its margin is clear")
+
+    broken = {}
+    real_counts = gd._Ctx.pool_counts
+    gd._Ctx.pool_counts = lambda self, h, w, kh, kw, sh, sw: torch.full(
+        (1, 1, -(-h // sh), -(-w // sw)), float(kh * kw), device=self.device)
+    try:
+        bad = tft.load_graphdef(str(path), fetches=["logits"], relax_lead_dim=True, device=dev)
+        broken["SAME AvgPool over the full window"] = inception_ratio(
+            graph_logits(tft, bad, sub, dev), ref)
+    finally:
+        gd._Ctx.pool_counts = real_counts
+    bad = tft.program_from_graphdef(
+        tft.parse_graphdef(inception_graphdef(cfg32, params32, skip_scale="stem/c1")),
+        fetches=["logits"], relax_lead_dim=True, device=dev)
+    broken["stem folded-BN Mul skipped"] = inception_ratio(graph_logits(tft, bad, sub, dev), ref)
+    del bad
+    for what, r in broken.items():
+        if r <= 1:
+            fail(f"imported inception: a broken import ({what}) lies within the tolerance "
+                 f"({r:.3f})")
+
+    qprog = tft.load_graphdef(str(path), fetches=["logits"], relax_lead_dim=True,
+                              quantize_weights=True, device=dev)
+    graph_logits(tft, qprog, sub, dev)  # warm-up
+    tft.kernels.LAUNCHES.reset()
+    t4 = time.perf_counter()
+    qlogits = graph_logits(tft, qprog, sub, dev)
+    qwall = time.perf_counter() - t4
+    qlaunches = launch_counts(tft)
+    if qlaunches["int8_matmul"] != 1 or qlaunches.get("int8_matmul_mma", 0) != 0:
+        fail(f"imported inception int8: int8_matmul launched {qlaunches['int8_matmul']} times, "
+             f"{qlaunches.get('int8_matmul_mma', 0)} on the mma build (want 1, 0: the scalar "
+             "build for 1,000 classes)")
+    qratio = inception_ratio(qlogits, qref)
+    if qratio > 1:
+        fail(f"imported inception int8 logits off the f32 forward of their weights by "
+             f"{qratio:.3f}")
+    path.unlink()
+    log(f"# imported inception gates: bf16 vs f32 forward {ratio:.4f} of INCEPTION_RTOL "
+        f"({int(clear.sum())} of {INC_CHECK} labels clear and equal); f32 import vs f32 "
+        f"forward {ratio32:.4f} of IMPORT_F32_RTOL; broken "
+        + ", ".join(f"{k} {v:.3f}" for k, v in broken.items())
+        + f"; int8 import vs f32 of its weights {qratio:.4f}, int8_matmul {qlaunches['int8_matmul']}"
+        f" launch a call (scalar build)")
+    return {
+        "rows_per_s": INC_ROWS / wall, "wall_s": wall, "warm_s": warm_s,
+        "peak_bytes": peak, "held_bytes": held, "launches": launches,
+        "graph_bytes": len(data), "graph_nodes": len(tft.parse_graphdef(data)),
+        "write_s": write_s, "import_s": import_s,
+        "ratio": ratio, "ratio_f32": ratio32, "broken": broken, "int8_ratio": qratio,
+        "int8_rows_per_s": INC_CHECK / qwall, "int8": {"launches": qlaunches},
+        "prog": prog, "frame": frame,
+    }
+
+
+VGG_ROWS, VGG_BLOCK, VGG_CHECK = 512, 256, 64
+VGG_BIAS_STD = 0.2  # init_params' biases are zero; drawn ones make a dropped bias show
+VGG_TOP_K = 5
+# bf16 against the f32 forward of the same weights (TF32 off), of max |logit|
+VGG_RTOL = 2e-2
+
+
+def vgg_logits(vgg, cfg, params, images, dev):
+    import torch
+
+    with torch.inference_mode():
+        return vgg.forward(cfg, params, torch.from_numpy(images).to(dev)).float().cpu().numpy()
+
+
+def vgg_path(tft, dev) -> dict:
+    """VGG-16 at full width (224x224, bf16, ``init_params`` seed 0, every
+    bias then drawn from N(0, VGG_BIAS_STD)): 512 synthetic images in two
+    host blocks of 256 through ``map_blocks(scoring_program)``, a warm-up
+    call, then a timed one (rows/s, peak memory). Gates: block 0 equal
+    bit for bit to a direct ``forward`` + softmax + top-k; the top-k
+    values equal to the sorted scores and to the scores at the top-k
+    indices; on 64 images the bf16 logits within VGG_RTOL of the f32
+    forward of the same weights (TF32 off), while a forward without the
+    last conv's bias lies outside; a 64-image ``quantize_params`` leg
+    within VGG_RTOL of the f32 forward of its dequantized weights,
+    launching ``int8_matmul`` 3 times a call (fc6 and fc7 on the mma
+    build, fc8 on the scalar one). Then ``save_program`` /
+    ``load_program`` round-trip the scoring program: at 4 and 16 images
+    the loaded program returns the saved one's bits."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from tensorframes_tpu_torch.models import vgg
+    from tensorframes_tpu_torch.ops import quantize as q
+
+    cfg = vgg.vgg_16()
+    params = vgg.init_params(cfg, seed=SEED, device=dev)
+    g = torch.Generator().manual_seed(SEED)
+    params = {k: {**p, "b": (VGG_BIAS_STD * torch.randn(p["b"].shape, generator=g)).to(
+        dev, p["b"].dtype)} for k, p in params.items()}
+    images = vgg.synthetic_images(cfg, VGG_ROWS, seed=SEED)
+    frame = tft.frame_from_arrays({"images": images}, num_blocks=VGG_ROWS // VGG_BLOCK)
+    fn = vgg.scoring_program(cfg, params, top_k=VGG_TOP_K)
+    prog = tft.compile_program(fn, frame, device=dev)
+    cols = ("scores", "top_idx", "top_val")
+
+    def score(frame):
+        out = tft.map_blocks(prog, frame, device=dev)
+        return {c: out.column_values(c) for c in cols}
+
+    t0 = time.perf_counter()
+    score(frame)
+    warm_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tft.kernels.LAUNCHES.reset()
+    t1 = time.perf_counter()
+    out = score(frame)
+    wall = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated()
+    launches = launch_counts(tft)
+    scores = out["scores"]
+    if scores.shape != (VGG_ROWS, cfg.num_classes) or not np.isfinite(scores).all() or np.abs(
+            scores.sum(1) - 1).max() > 1e-3:
+        fail("vgg scores not finite, of the wrong shape or not summing to 1")
+    with torch.inference_mode():
+        direct = fn(torch.from_numpy(images[:VGG_BLOCK]).to(dev))
+    for c in cols:
+        if not np.array_equal(direct[c].cpu().numpy(), out[c][:VGG_BLOCK]):
+            fail(f"vgg: map_blocks block 0 {c} differs from a direct forward")
+    desc = -np.sort(-scores, axis=1)[:, :VGG_TOP_K]
+    if not (np.array_equal(out["top_val"], desc) and np.array_equal(
+            np.take_along_axis(scores, out["top_idx"].astype(np.int64), 1), out["top_val"])):
+        fail("vgg: top-k differs from the sorted scores")
+
+    sub = images[:VGG_CHECK]
+    cfg32 = vgg.vgg_16(compute_dtype="float32")
+    to32 = lambda tree: q._tree_map(  # noqa: E731
+        lambda path, leaf: q.asarray(leaf, torch.float32 if path[0].startswith("fc")
+                                     else cfg.dtype).float(), tree)
+    qparams = vgg.quantize_params(params)
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ref = vgg_logits(vgg, cfg32, to32(params), sub, dev)
+        qref = vgg_logits(vgg, cfg32, to32(qparams), sub, dev)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    def vratio(got, want):
+        return float(np.abs(got - want).max() / (VGG_RTOL * np.abs(want).max()))
+
+    got = vgg_logits(vgg, cfg, params, sub, dev)
+    ratio = vratio(got, ref)
+    if not np.isfinite(got).all() or ratio > 1:
+        fail(f"vgg bf16 logits off the f32 forward by {ratio:.3f} of the tolerance")
+    nobias = {**params, "conv5_3": {**params["conv5_3"],
+                                    "b": torch.zeros_like(params["conv5_3"]["b"])}}
+    broken = vratio(vgg_logits(vgg, cfg, nobias, sub, dev), ref)
+    if broken <= 1:
+        fail(f"vgg: a forward without the last conv's bias lies within the tolerance "
+             f"({broken:.3f})")
+
+    qframe = tft.frame_from_arrays({"images": sub}, num_blocks=1)
+    qprog = tft.compile_program(vgg.scoring_program(cfg, qparams, top_k=VGG_TOP_K), qframe,
+                                device=dev)
+    tft.map_blocks(qprog, qframe, device=dev).column_values("top_idx")  # warm-up
+    tft.kernels.LAUNCHES.reset()
+    t2 = time.perf_counter()
+    tft.map_blocks(qprog, qframe, device=dev).column_values("top_idx")
+    qwall = time.perf_counter() - t2
+    qlaunches = launch_counts(tft)
+    if qlaunches["int8_matmul"] != 3 or qlaunches.get("int8_matmul_mma", 0) != 2:
+        fail(f"vgg int8: int8_matmul launched {qlaunches['int8_matmul']} times, "
+             f"{qlaunches.get('int8_matmul_mma', 0)} on the mma build (want 3, 2)")
+    qratio = vratio(vgg_logits(vgg, cfg, qparams, sub, dev), qref)
+    if qratio > 1:
+        fail(f"vgg int8 logits off the f32 forward of their weights by {qratio:.3f}")
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_programs_"))
+    saved_path = tmp / "vgg16_scoring.pt2"
+    t3 = time.perf_counter()
+    tft.save_program(prog, str(saved_path), device=dev)
+    save_s = time.perf_counter() - t3
+    saved_bytes = saved_path.stat().st_size
+    t4 = time.perf_counter()
+    loaded = tft.load_program(str(saved_path))
+    load_s = time.perf_counter() - t4
+    for n in (4, 16):
+        x = torch.from_numpy(images[:n]).to(dev)
+        with torch.inference_mode():
+            a, b = prog.fn({"images": x}), loaded.fn({"images": x})
+        for c in cols:
+            if a[c].shape != (n, *a[c].shape[1:]) or not torch.equal(a[c], b[c]):
+                fail(f"save_program/load_program: {c} at {n} images differs from the saved "
+                     "program's")
+    saved_path.unlink()
+    log(f"# vgg gates: block 0 = direct forward; top-k = sorted scores; bf16 vs f32 "
+        f"{ratio:.4f} of VGG_RTOL, conv5_3 bias dropped {broken:.3f}; int8 vs f32 of its "
+        f"weights {qratio:.4f}, int8_matmul {qlaunches['int8_matmul']} launches a call "
+        f"({qlaunches.get('int8_matmul_mma', 0)} mma); save_program {save_s:.2f} s "
+        f"({saved_bytes} bytes), load_program {load_s:.2f} s, loaded = saved bit for bit at "
+        "4 and 16 images")
+    return {
+        "rows_per_s": VGG_ROWS / wall, "wall_s": wall, "warm_s": warm_s,
+        "peak_bytes": peak, "held_bytes": held, "launches": launches, "ratio": ratio,
+        "broken": broken, "int8_ratio": qratio, "int8_rows_per_s": VGG_CHECK / qwall,
+        "int8": {"launches": qlaunches}, "weight_bytes": q.tree_nbytes(params),
+        "save_s": save_s, "load_s": load_s, "saved_bytes": saved_bytes,
+    }
+
 
 
 # The first loss: random tied embeddings of scale 0.02 against unit-variance
@@ -2285,11 +2977,12 @@ def training_profile(train) -> dict:
     return {"step_ms": plain_wall, "split_ms": split, "busy_ms": busy, "groups_ms": groups}
 
 
-def inception_profile(tft, incep, dev) -> None:
+def inception_profile(tft, incep, dev, what: str = "inception-v3") -> dict:
     """One Inception-v3 ``map_blocks`` call (1,024 images, two blocks of
-    512): host wall, the device's busy share, device time by group
+    512) of ``incep["prog"]`` (the native program, or the imported
+    GraphDef's): host wall, the device's busy share, device time by group
     (convolutions, pools, elementwise, host-to-device copies) and the top
-    device operations."""
+    device operations. Returns the groups."""
     def call():
         tft.map_blocks(incep["prog"], incep["frame"], device=dev).column_values("label")
 
@@ -2310,13 +3003,14 @@ def inception_profile(tft, incep, dev) -> None:
             groups["other copies"] += ms
         else:
             groups["elementwise and other"] += ms
-    log(f"# profile map_blocks inception-v3, {INC_ROWS} images: {wall:.3f} ms per call on the "
+    log(f"# profile map_blocks {what}, {INC_ROWS} images: {wall:.3f} ms per call on the "
         f"host clock under the profiler, device busy {busy:.3f} ms ({100 * busy / wall:.1f}%); "
         f"Memcpy HtoD {groups['memcpy HtoD']:.3f} ms ({100 * groups['memcpy HtoD'] / wall:.1f}% "
         "of the call)")
-    log("# profile inception by group: " + ", ".join(f"{k} {v:.3f} ms" for k, v in groups.items()))
+    log(f"# profile {what} by group: " + ", ".join(f"{k} {v:.3f} ms" for k, v in groups.items()))
     for name, ms in sorted(device.items(), key=lambda kv: -kv[1])[:12]:
         log(f"#   {ms:9.3f} ms  {name[:80]}")
+    return {"wall_ms": wall, "busy_ms": busy, **groups}
 
 
 def kernel_name(mangled: str) -> str:
@@ -2474,11 +3168,39 @@ def main() -> int:
         f"{incep['weight_bytes']} bytes); int8 weights, {INC_CHECK} images: "
         f"{incep['int8_rows_per_s']:.1f} rows/s; launches {incep['launches']}")
 
+    t6 = time.perf_counter()
+    imported = imported_inception_path(tft, dev, incep)
+    log(f"# imported inception path: {time.perf_counter() - t6:.1f} s")
+    log(f"# imported inception-v3 GraphDef 299x299 bf16 map_blocks: {imported['rows_per_s']:.1f} "
+        f"rows/s ({INC_ROWS} images in {INC_ROWS // INC_BLOCK} blocks of {INC_BLOCK} in "
+        f"{imported['wall_s']:.4f} s; warm-up call {imported['warm_s']:.3f} s) against the "
+        f"native {incep['rows_per_s']:.1f}; peak memory {imported['peak_bytes']} bytes "
+        f"({imported['peak_bytes'] - imported['held_bytes']} above what was held) against the "
+        f"native {incep['peak_bytes']} ({incep['peak_bytes'] - incep['held_bytes']}); GraphDef "
+        f"{imported['graph_bytes']} bytes, {imported['graph_nodes']} nodes, written in "
+        f"{imported['write_s']:.2f} s, imported in "
+        f"{imported['import_s']:.2f} s; int8 weights, {INC_CHECK} images: "
+        f"{imported['int8_rows_per_s']:.1f} rows/s")
+    t7 = time.perf_counter()
+    padding = padding_path(tft, dev)
+    vggr = vgg_path(tft, dev)
+    log(f"# padding and vgg paths: {time.perf_counter() - t7:.1f} s")
+    log(f"# vgg-16 224x224 bf16 map_blocks: {vggr['rows_per_s']:.1f} rows/s ({VGG_ROWS} images "
+        f"in {VGG_ROWS // VGG_BLOCK} blocks of {VGG_BLOCK} in {vggr['wall_s']:.4f} s; warm-up "
+        f"call {vggr['warm_s']:.3f} s); peak memory {vggr['peak_bytes']} bytes "
+        f"({vggr['peak_bytes'] - vggr['held_bytes']} above what was held, weights "
+        f"{vggr['weight_bytes']} bytes); int8 weights, {VGG_CHECK} images: "
+        f"{vggr['int8_rows_per_s']:.1f} rows/s")
+
     where_the_time_goes(tft, dev)
     step_ms = decode_step_profile(serving, state)
     encoder_profile(tft, encoder, dev)
     training_profile(train)
-    inception_profile(tft, incep, dev)
+    native_prof = inception_profile(tft, incep, dev)
+    import_prof = inception_profile(tft, imported, dev, "imported inception-v3 GraphDef")
+    log(f"# inception Memcpy HtoD per call: imported {import_prof['memcpy HtoD']:.3f} ms, native "
+        f"{native_prof['memcpy HtoD']:.3f} ms (the images only: "
+        f"{INC_ROWS * 299 * 299 * 3 * 4} bytes)")
     log(f"# serving gpt_small: {serving['tokens_per_s']:.1f} generated tokens/s (32 requests "
         f"x 64 tokens in {serving['wall_s']:.3f} s); TTFT p50 {serving['ttft_s']['p50']:.4f} s, "
         f"p99 {serving['ttft_s']['p99']:.4f} s (each request's own); request latency "
@@ -2487,7 +3209,8 @@ def main() -> int:
 
     kernels = []
     paths = ((path, SLICE1_KERNELS), (serving, SERVING_KERNELS), (encoder, ENCODER_KERNELS),
-             (train, TRAINING_KERNELS))
+             (train, TRAINING_KERNELS), (imported["int8"], ("int8_matmul",)),
+             (vggr["int8"], ("int8_matmul",)))
     for name, info in tft.kernels.KERNELS.items():
         # a kernel on several paths (the flash forward) counts its launches on each
         launches = sum(p["launches"][name] for p, names in paths if name in names)

@@ -10,7 +10,10 @@ causal transformer through a decode server (:class:`Server`,
 :class:`DecodeEngine`: continuous batching over a paged int8 KV pool),
 and train it straight off a frame (:func:`training.train_on_frame` over
 :func:`models.transformer.make_train_step`, batches staged by
-:mod:`.io`).
+:mod:`.io`). Frozen TF graphs and SavedModels import as programs
+(:func:`load_graphdef`, :func:`load_saved_model`, :mod:`.graphdef`,
+with no TensorFlow), and programs serialize through ``torch.export``
+(:func:`save_program`, :func:`load_program`).
 
 Frames are host-resident; verbs run each block on one device, the GPU
 unless the caller asks for the CPU (``device="cpu"`` on a verb, or
@@ -60,7 +63,13 @@ from .dsl import (  # noqa: F401
     with_graph,
     zeros,
 )
-from .program import Program, TensorSpec, program_from_function  # noqa: F401
+from .program import (  # noqa: F401
+    Program,
+    TensorSpec,
+    load_program,
+    program_from_function,
+    save_program,
+)
 from .validation import ValidationError  # noqa: F401
 from . import kernels  # noqa: F401  (registers tftpu_kernels_* metrics)
 from .ops.verbs import (  # noqa: F401
@@ -75,6 +84,15 @@ from .utils import profiling  # noqa: F401
 from . import observability  # noqa: F401
 from .serving import DecodeConfig, DecodeEngine, Server, ServingConfig  # noqa: F401
 from . import io, training  # noqa: F401
+from .graphdef import (  # noqa: F401
+    load_graphdef,
+    load_saved_model,
+    parse_graphdef,
+    parse_saved_model,
+    parse_saved_model_meta_graphs,
+    program_from_graphdef,
+)
+from .bundle import restore_variables  # noqa: F401
 
 __version__ = "0.1.0"
 
@@ -145,5 +163,15 @@ __all__ = [
     "Program",
     "TensorSpec",
     "program_from_function",
+    "save_program",
+    "load_program",
+    # foreign graphs
+    "load_graphdef",
+    "load_saved_model",
+    "parse_graphdef",
+    "parse_saved_model",
+    "parse_saved_model_meta_graphs",
+    "program_from_graphdef",
+    "restore_variables",
     "ValidationError",
 ]

@@ -643,7 +643,7 @@ def _segment_reduce_best(ops_key, num_groups, val_cols, seg_ids, device):
     others. Returns numpy columns."""
     from ..kernels import segment_reduce as _ksr
 
-    _reject_bool_mean(ops_key, val_cols)
+    _reject_bool_sum_mean(ops_key, val_cols)
     vals = {x: dt.to_torch(val_cols[x], device) for x, _ in ops_key}
     sids = dt.to_torch(np.asarray(seg_ids).astype(np.int32), device)
     if _ksr.eligible(ops_key, vals, num_groups):
@@ -653,12 +653,14 @@ def _segment_reduce_best(ops_key, num_groups, val_cols, seg_ids, device):
     return {x: dt.to_numpy(res[x]) for x, _ in ops_key}
 
 
-def _reject_bool_mean(ops_key, vals) -> None:
-    """A keyed mean of a bool column raises the reference's ``TypeError``
-    (its segment sum of bool ones does not exist), before any route is
-    chosen: the fused kernel would return a mean cast back to bool."""
+def _reject_bool_sum_mean(ops_key, vals) -> None:
+    """A keyed sum or mean of a bool column raises the reference's
+    ``TypeError`` (its segment sum of bool does not exist), before any
+    route is chosen: the fused kernel and the per-op route would return a
+    sum or a mean cast back to bool."""
     for out_name, op in ops_key:
-        if op == "reduce_mean" and str(vals[out_name].dtype).removeprefix("torch.") == "bool":
+        if op in ("reduce_sum", "reduce_mean") and (
+                str(vals[out_name].dtype).removeprefix("torch.") == "bool"):
             raise TypeError("add does not accept dtype bool")
 
 
@@ -673,7 +675,7 @@ def run_segment_fast(ops_key, num_groups, vals, sids) -> Dict[str, torch.Tensor]
     reference's inexact type. ``sids`` may arrive in any order."""
     from .segment import segment_minmax, segment_sum, segment_total
 
-    _reject_bool_mean(ops_key, vals)
+    _reject_bool_sum_mean(ops_key, vals)
     outs = {}
     with torch.inference_mode():
         for out_name, op in ops_key:

@@ -254,3 +254,118 @@ def program_from_function(
         return {name: res}
 
     return Program(wrapped, inputs, fetch_order=list(output_names or []))
+
+
+# ---------------------------------------------------------------------------
+# Serialized programs (torch.export artifacts)
+# ---------------------------------------------------------------------------
+
+class _Positional(torch.nn.Module):
+    """A Program's function as a module over its feed dict (what
+    ``torch.export`` traces)."""
+
+    def __init__(self, fn, names: Sequence[str]):
+        super().__init__()
+        self._fn = fn
+        self._names = list(names)
+
+    def forward(self, feeds: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return self._fn({n: feeds[n] for n in self._names})
+
+
+def save_program(program: Program, path: str, batch: int = 8, device=None) -> None:
+    """Serialize a Program to a ``torch.export`` artifact on disk
+    (≙ writing ``proto.pb``, core.py:58-69).
+
+    Every Unknown input dim is a ``torch.export.Dim`` — the dims at one
+    position share one symbol, ``b{i}``, as the reference's symbolic
+    shapes do — so the artifact stays batch-polymorphic. The program is
+    traced on ``device`` (default ``config.device``; the tensors it
+    captured must live there) with ``batch`` rows for each Unknown dim.
+    The file is an 8-byte little-endian header length, a JSON header of
+    the input specs and ``fetch_order``, then ``torch.export.save``'s
+    bytes.
+
+    A program whose host shape arithmetic pins an Unknown dim (reads a
+    batch size into a Python int) cannot stay polymorphic: this raises
+    ``ValueError`` naming the dim instead of saving a program fixed at
+    ``batch`` rows."""
+    import io
+    import json
+    import re
+
+    from .config import resolve_device
+
+    device = resolve_device(device)
+    names = [s.name for s in program.inputs]
+    symbols: Dict[int, object] = {}
+    shapes: Dict[str, Dict[int, object]] = {}
+    example: Dict[str, torch.Tensor] = {}
+    for s in program.inputs:
+        dims = []
+        shapes[s.name] = {}
+        for i, d in enumerate(s.shape.dims):
+            if d == Unknown:
+                if i not in symbols:
+                    symbols[i] = torch.export.Dim(f"b{i}")
+                shapes[s.name][i] = symbols[i]
+                dims.append(batch)
+            else:
+                dims.append(d)
+        example[s.name] = torch.zeros(dims, dtype=s.dtype.torch_dtype, device=device)
+    try:
+        with torch.no_grad():
+            exported = torch.export.export(
+                _Positional(program.fn, names), (example,),
+                dynamic_shapes={"feeds": {n: shapes[n] or None for n in names}},
+                strict=False,
+            )
+    except torch._dynamo.exc.UserError as e:
+        # "Constraints violated (b0)! ... specialized it to be a constant"
+        pinned = [f"b{i}" for i in sorted(symbols) if re.search(rf"\bb{i}\b", str(e))]
+        if not str(e).startswith("Constraints violated") or not pinned:
+            raise
+        raise ValueError(
+            f"save_program: the program pins the batch dim(s) {pinned} (its shape "
+            f"arithmetic reads them as Python ints), so it cannot stay "
+            f"batch-polymorphic; refusing to save a program fixed at {batch} rows"
+        ) from e
+    buf = io.BytesIO()
+    torch.export.save(exported, buf)
+    meta = {
+        "inputs": [(s.name, s.dtype.name, list(s.shape.dims)) for s in program.inputs],
+        "fetch_order": program.fetch_order,
+    }
+    header = json.dumps(meta).encode("utf-8")
+    with open(path, "wb") as f:
+        f.write(len(header).to_bytes(8, "little"))
+        f.write(header)
+        f.write(buf.getvalue())
+
+
+def load_program(path: str) -> Program:
+    """Load a serialized Program (≙ ``graphFromFile``,
+    PythonInterface.scala:115-118). Importing the port's kernels first
+    registers the custom ops (``tftpu::int8_matmul``,
+    ``tftpu::flash_attention``) an artifact may call."""
+    import io
+    import json
+
+    from . import kernels  # noqa: F401
+    from .kernels import flash_attention  # noqa: F401
+    from .ops import quantize  # noqa: F401
+
+    with open(path, "rb") as f:
+        hlen = int.from_bytes(f.read(8), "little")
+        meta = json.loads(f.read(hlen).decode("utf-8"))
+        blob = f.read()
+    module = torch.export.load(io.BytesIO(blob)).module()
+    names = [n for (n, _, _) in meta["inputs"]]
+    inputs = [
+        TensorSpec(n, dt.by_name(t), Shape(dims)) for (n, t, dims) in meta["inputs"]
+    ]
+
+    def fn(feeds: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return module({n: feeds[n] for n in names})
+
+    return Program(fn, inputs, fetch_order=meta.get("fetch_order"))

@@ -13,7 +13,8 @@ accumulator can count, so a sum or count kept in the value dtype lands
 far outside it. Each test first holds the reference's own result against
 numpy's float64 sums, so a failing reference leg shows as such.
 
-A keyed mean of a bool column raises ``TypeError`` in both packages.
+A keyed sum or mean of a bool column raises ``TypeError`` in both
+packages.
 """
 
 import numpy as np
@@ -108,7 +109,8 @@ def test_bool_mean_raises_like_reference():
 def test_bool_mean_raises_before_dispatch(groups):
     """Both routes of the port: the fused segment kernel (at most 4,096
     groups) and the per-op route (more), and ``run_segment_fast`` called
-    alone; bool min/max/sum still reduce."""
+    alone; bool min/max still reduce (a bool sum raises, see
+    ``test_bool_sum_raises_like_reference``)."""
     import torch
 
     from tensorframes_tpu_torch.ops import verbs as tverbs
@@ -127,6 +129,32 @@ def test_bool_mean_raises_before_dispatch(groups):
         jk, jv = _aggregate(tfs, data, op)
         np.testing.assert_array_equal(tk, jk)
         np.testing.assert_array_equal(tv, jv)
+
+
+@pytest.mark.parametrize("groups", [3, 5_000])
+def test_bool_sum_raises_like_reference(groups):
+    """A keyed sum of a bool column raises the reference's ``TypeError`` on
+    both routes of the port (the fused kernel at 3 groups, the per-op route
+    at 5,000) and in ``run_segment_fast`` called alone, before dispatch;
+    the reference's own leg raises first, in the same run."""
+    import torch
+
+    from tensorframes_tpu_torch.ops import verbs as tverbs
+
+    rng = np.random.default_rng(groups + 1)
+    keys = np.concatenate([[0, 0, 1, 1, 2, 2], np.arange(groups),
+                           rng.integers(0, groups, 2_000)])
+    vals = np.concatenate([[False, False, True, False, True, True],
+                           rng.integers(0, 2, len(keys) - 6).astype(bool)])
+    data = {"k": keys, "v": vals}
+    with pytest.raises(TypeError, match="add does not accept dtype bool"):
+        _aggregate(tfs, data, "reduce_sum")
+    with pytest.raises(TypeError, match="add does not accept dtype bool"):
+        _aggregate(tft, data, "reduce_sum")
+    sids = torch.from_numpy(keys.astype(np.int32))
+    with pytest.raises(TypeError, match="add does not accept dtype bool"):
+        tverbs.run_segment_fast((("v", "reduce_sum"),), groups,
+                                {"v": torch.from_numpy(vals)}, sids)
 
 
 @pytest.mark.parametrize("groups", [3, 5_000])

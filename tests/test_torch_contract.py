@@ -72,6 +72,33 @@ def test_port_and_chip_smoke_import_no_jax():
     assert out.stdout.strip() == "[]", out.stdout
 
 
+def test_importer_modules_import_neither_tensorflow_nor_jax():
+    """The GraphDef/SavedModel importer, its bundle reader and VGG-16 are
+    among the modules checked above, and importing them (with the
+    package's entry points ``load_graphdef`` … ``load_program``) loads no
+    TensorFlow: it is imported only by ``load_saved_model``'s fallback."""
+    mods = ["tensorframes_tpu_torch.graphdef", "tensorframes_tpu_torch.bundle",
+            "tensorframes_tpu_torch.models.vgg"]
+    assert set(mods) <= set(_port_modules())
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import tensorframes_tpu_torch as t\n"
+        "for name in ('load_graphdef', 'program_from_graphdef', 'parse_graphdef',\n"
+        "             'load_saved_model', 'save_program', 'load_program'):\n"
+        "    assert callable(getattr(t, name)), name\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'tensorflow', 'keras', 'tensorframes_tpu'))\n"
+        "print(bad)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
     + ["chip_smoke.py", "flash_forward_ab.py", "serving_kernels_ab.py",

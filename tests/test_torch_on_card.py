@@ -794,3 +794,72 @@ def test_prefetch_delivers_batches_bit_for_bit_on_card(cuda_device):
     for g, w in zip(got, want):
         for c in w:
             np.testing.assert_array_equal(g[c].numpy(), w[c])
+
+
+def test_padding_graph_on_card_matches_cpu(cuda_device):
+    """The padding graph of ``chip_smoke.py`` (stride-2 SAME Conv2D 3x3
+    and 2x2, depthwise, MaxPool and AvgPool at sizes 17 and 16) imported
+    f32 on the card, TF32 off, within ``PAD_RTOL`` of the same import on
+    the CPU; TF's split placed on the wrong side falls outside."""
+    import chip_smoke as cs
+    from tensorframes_tpu_torch import graphdef as tgd
+
+    data, fetches = cs.padding_graphdef()
+    feeds = cs.padding_feeds()
+    cpu = tft.program_from_graphdef(tft.parse_graphdef(data), fetches=fetches,
+                                    compute_dtype=None, device="cpu")
+    with torch.inference_mode():
+        want = {k: v.numpy() for k, v in cpu.fn(
+            {k: torch.from_numpy(v) for k, v in feeds.items()}).items()}
+    assert cs.padding_ratio(tft, data, fetches, feeds, cuda_device, want) <= 1
+    real = tgd._same_pads
+    tgd._same_pads = lambda *a: real(*a)[::-1]
+    try:
+        assert cs.padding_ratio(tft, data, fetches, feeds, cuda_device, want) > 1
+    finally:
+        tgd._same_pads = real
+
+
+def test_vgg_int8_fc_layers_launch_their_builds_on_card(cuda_device):
+    """VGG's int8 fc layers in bf16 on the card: fc6 and fc7 (n a
+    multiple of 16) launch ``int8_matmul``'s tensor-core build, fc8 (10
+    classes) its scalar build, one launch each; the logits within 2e-2 of
+    max |logit| of the same forward with the kernel's plain version (a
+    bf16 activation may round to its neighbour between the two)."""
+    from tensorframes_tpu_torch.models import vgg as tvgg
+
+    cfg = tvgg.tiny(compute_dtype="bfloat16")
+    params = tvgg.quantize_params(tvgg.init_params(cfg, seed=0, device=cuda_device))
+    images = torch.from_numpy(tvgg.synthetic_images(cfg, 4, seed=1)).to(cuda_device)
+    tft.kernels.LAUNCHES.reset()
+    with torch.inference_mode():
+        logits = tvgg.forward(cfg, params, images)
+    torch.cuda.synchronize()
+    launches = {**tft.kernels.LAUNCHES.snapshot(), **tft.kernels.LAUNCHES.builds()}
+    assert (launches["int8_matmul"], launches["int8_matmul_mma"]) == (3, 2)
+    assert logits.shape == (4, cfg.num_classes) and bool(torch.isfinite(logits).all())
+    kernel_matmul, tvgg.matmul = tvgg.matmul, tq.matmul_plain
+    try:
+        with torch.inference_mode():
+            plain = tvgg.forward(cfg, params, images)
+    finally:
+        tvgg.matmul = kernel_matmul
+    assert float((logits - plain).abs().max()) <= 2e-2 * float(plain.abs().max())
+
+
+def test_vgg_bf16_fc_layers_keep_f32_sums_on_card(cuda_device):
+    """VGG's plain bf16 fc layer on the card returns the f32 sum of the
+    bf16 products, as the reference's ``preferred_element_type=f32``:
+    within 1e-4 of max |sum| of the f64 product, where a bf16 output
+    would be off by ~2^-9 of each sum."""
+    from tensorframes_tpu_torch.models import vgg as tvgg
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn((64, 4096), generator=g, device=cuda_device).bfloat16()
+    w = (torch.randn((4096, 1000), generator=g, device=cuda_device) / 64).bfloat16()
+    b = torch.zeros(1000, dtype=torch.bfloat16, device=cuda_device)
+    y = tvgg._dense({"w": w, "b": b}, x)
+    ref = x.double() @ w.double()
+    assert y.dtype == torch.float32
+    assert float((y - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    assert float(((x @ w).double() - ref).abs().max()) > 1e-4 * float(ref.abs().max())
