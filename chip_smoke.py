@@ -80,8 +80,20 @@ Phases:
    aggregate mixing float32 and int64 sums (the per-op route). Each output
    is checked; every kernel of the path must have launched. Rows/s per
    verb follow. Then the ragged ``map_rows`` verb again on the main and
-   wide-lengths feeds: host wall, gather launches and busy share of one
-   call. Then the decode server's path, counts reset again: a
+   wide-lengths feeds, serial (``map_pipeline_depth`` 0) and pipelined
+   (the defaults): host wall, gather launches (one a call) and busy share
+   of one call, the two modes' outputs equal. Then the generic (UDAF)
+   ``aggregate``: 1,000,000 rows over 512 groups, a ``torch.logsumexp``
+   of an f32 [n, 8] column and an int32 sum as plain-function fetches
+   (buffer 10): int sums exact against ``np.add.at``, log-sum-exps within
+   ``LSE_RTOL`` of a float64 host computation, wall, dispatches, rows/s.
+   Then the relational frame ops over 10,000,000 rows (counts reset before
+   each op): ``filter(x > 0.5)``, the filtered rows' keyed sum and max
+   (``segment_reduce``) and sum beside an int64 sum (``segment_sum``);
+   on a 1,000,000-row slice ``sort_values`` and an inner and a left
+   ``join`` against 100,000 rows; ``drop_duplicates`` and
+   ``group_by().count()``: every result against numpy, each op's host
+   wall. Then the decode server's path, counts reset again: a
    ``Server`` with a gpt_small decode endpoint (int8 weights from seed 0,
    16 slots, 16-position pages, prompts <= 128, 64 new tokens) answers 32
    requests; the first 8 re-run solo must match exactly; an engine with a
@@ -118,7 +130,12 @@ Phases:
    (TF32 off in cuDNN and cuBLAS), labels equal where the margin is
    clear, three broken forwards outside; a 64-image int8 leg
    (``quantize_params``) within the same tolerance of the f32 forward of
-   its dequantized weights. Then the same network (f32 weights) as a
+   its dequantized weights. Then the block pipeline on the same images in
+   8 blocks of 128, serial (``map_pipeline_depth`` and
+   ``map_prefetch_depth`` 0) and pipelined (2 and 2): rows/s, peak device
+   memory, peak pinned host bytes, a profiled call's ``Memcpy HtoD`` and
+   the part of it under kernels, busy share; the two outputs equal bit
+   for bit. Then the same network (f32 weights) as a
    frozen NHWC GraphDef written here with no TensorFlow
    (``inception_graphdef``: Conv2D → Mul → AddV2 → Relu per conv, the
    pools, ConcatV2, Mean, MatMul + BiasAdd), read back by
@@ -149,18 +166,21 @@ Phases:
    training step (forward, backward and optimizer by CUDA events; GEMMs,
    the three flash kernels, norms, the embedding's backward), and for one
    Inception-v3 ``map_blocks`` call, native and imported (convolutions,
-   pools, elementwise, host-to-device copies, the top operations), with
-   the device's busy share of each call's host wall time;
+   pools, elementwise, host-to-device copies and the part of them under
+   kernels, the top operations), with the device's busy share of each
+   call's host wall time (the union of its busy intervals);
 4. one JSON line listing every kernel, the card's name and power limit,
    and as the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -1484,12 +1504,31 @@ def main_path(tft, dev) -> dict:
     return {"launches": launches, "verbs": rates}
 
 
+@contextlib.contextmanager
+def knobs(tft, **values):
+    """``tft.configure(**values)`` for the block, the old values after."""
+    cfg = tft.get_config()
+    was = {k: getattr(cfg, k) for k in values}
+    tft.configure(**values)
+    try:
+        yield
+    finally:
+        tft.configure(**was)
+
+
+RAGGED_REPS = 5
+PIPELINE_MODES = (("serial", {"map_pipeline_depth": 0, "map_prefetch_depth": 0}),
+                  ("pipelined", {"map_pipeline_depth": 2, "map_prefetch_depth": 2}))
+
+
 def ragged_verb_legs(tft, dev) -> dict:
     """The ragged ``map_rows`` verb (``reduce_max`` of each row) on the main
-    and wide-lengths f32 feeds: a warm-up call checked against the host's
-    row maxima, then one call's host wall (to its result on the host), the
-    gather's launches in it, and the device's busy share of a profiled
-    call."""
+    and wide-lengths f32 feeds, serial (``map_pipeline_depth`` 0: each
+    group read back before the next dispatch) and pipelined (the
+    defaults): a warm-up call checked against the host's row maxima, then
+    RAGGED_REPS calls of each mode in turn (the median host wall, to the
+    result on the host; one gather launch each), and the device's busy
+    share of a profiled call. The two modes' outputs must be equal."""
     import numpy as np
 
     out = {}
@@ -1504,26 +1543,218 @@ def ragged_verb_legs(tft, dev) -> dict:
                     tft.placeholder(np.float32, (None,), name="r"), name="m"),
                     rf, device=dev).column_values("m")
 
-        if not np.array_equal(call(), np.array([c.max() for c in cells])):
-            fail(f"map_rows ragged cells ({name} feed)")
+        got, walls = {}, {mode: [] for mode, _ in PIPELINE_MODES}
+        for mode, values in PIPELINE_MODES:
+            with knobs(tft, **values):
+                got[mode] = call()
+                if not np.array_equal(got[mode], np.array([c.max() for c in cells])):
+                    fail(f"map_rows ragged cells ({name} feed, {mode})")
+        for _ in range(RAGGED_REPS):  # the modes in turn: host walls drift
+            for mode, values in PIPELINE_MODES:
+                with knobs(tft, **values):
+                    tft.kernels.LAUNCHES.reset()
+                    t0 = time.perf_counter()
+                    call()
+                    walls[mode].append(time.perf_counter() - t0)
+                    if tft.kernels.LAUNCHES.snapshot()["ragged_gather"] != 1:
+                        fail(f"the ragged map_rows call ({name}, {mode}) launched "
+                             "ragged_gather other than once (want 1: every group in one launch)")
+        for mode, values in PIPELINE_MODES:
+            with knobs(tft, **values):
+                tft.kernels.LAUNCHES.reset()
+                prof = timeline_profile(call)
+                launches = tft.kernels.LAUNCHES.snapshot()["ragged_gather"] // 2
+            wall = float(np.median(walls[mode]))
+            r = out[f"{name}_{mode}"] = {
+                "wall_ms": wall * 1e3, "walls_ms": [w * 1e3 for w in walls[mode]],
+                "launches_per_call": launches,
+                "groups": len(np.unique(lens)), "profiled_wall_ms": prof["wall_ms"],
+                "busy_ms": prof["busy_ms"], "busy_share": prof["busy_share"],
+                "top": sorted(prof["device"].items(), key=lambda kv: -kv[1])[:5]}
+            log(f"# verb map_rows ragged {name} {mode} ({RAGGED_ROWS} rows, {r['groups']} "
+                f"length groups): {wall * 1e3:.3f} ms host wall (median of {RAGGED_REPS}: "
+                + ", ".join(f"{w * 1e3:.1f}" for w in walls[mode])
+                + f"), {launches} ragged_gather launch(es) a call; profiled "
+                f"{prof['wall_ms']:.3f} ms, device busy {prof['busy_ms']:.3f} ms "
+                f"({100 * prof['busy_share']:.1f}%)")
+            for k, ms in r["top"]:
+                log(f"#   {ms:9.3f} ms  {k[:80]}")
+        if got["serial"].tobytes() != got["pipelined"].tobytes():
+            fail(f"map_rows ragged cells ({name} feed): pipelined differs from serial")
+    return out
+
+
+GENERIC_ROWS, GENERIC_GROUPS, GENERIC_BUFFER = 1_000_000, 512, 10
+LSE_RTOL = 1e-5  # of max |logsumexp|: f32 against a float64 host computation per group
+
+
+def generic_aggregate_leg(tft, dev, n: int = GENERIC_ROWS, groups: int = GENERIC_GROUPS) -> dict:
+    """The generic (UDAF) ``aggregate`` at the reference docstring's scale:
+    ``n`` rows over ``groups`` uniform groups, an f32 ``[n, 8]`` and an
+    int32 column, plain-function fetches (``torch.logsumexp`` over rows,
+    an int32 sum) with ``aggregate_buffer_size`` 10. A warm-up call, then
+    a timed one (wall, vmapped dispatches, rows/s). The int sums exact
+    against ``np.add.at``; the log-sum-exps within LSE_RTOL·max of a
+    float64 host computation of each group."""
+    import numpy as np
+    import torch
+    from tensorframes_tpu_torch.ops import executor
+
+    rng = np.random.default_rng(SEED)
+    k = rng.integers(0, groups, n)
+    v = rng.standard_normal((n, 8), dtype=np.float32)
+    i = rng.integers(-1000, 1000, n).astype(np.int32)
+    frame = tft.frame_from_arrays({"k": k, "v": v, "i": i})
+
+    def fetches(v_input, i_input):
+        return {"v": torch.logsumexp(v_input, 0), "i": i_input.sum(0, dtype=torch.int32)}
+
+    def dispatches():
+        return executor._JIT_HITS.value + executor._JIT_MISSES.value
+
+    with knobs(tft, aggregate_buffer_size=GENERIC_BUFFER):
+        tft.aggregate(fetches, frame.group_by("k"), device=dev)  # warm-up
+        d0 = dispatches()
+        t0 = time.perf_counter()
+        res = tft.aggregate(fetches, frame.group_by("k"), device=dev)
+        keys, got_v, got_i = (res.column_values(c) for c in ("k", "v", "i"))
+        wall = time.perf_counter() - t0
+        calls = int(dispatches() - d0)
+    want_i = np.zeros(groups, np.int64)
+    np.add.at(want_i, k, i)
+    if got_i.dtype != np.int32 or not np.array_equal(got_i.astype(np.int64), want_i[keys]):
+        fail("generic aggregate: int32 sums differ from np.add.at")
+    order = np.argsort(k, kind="stable")
+    starts = np.searchsorted(k[order], np.arange(groups))
+    want_v = np.logaddexp.reduceat(v[order].astype(np.float64), starts, axis=0)[keys]
+    err = float(np.abs(got_v.astype(np.float64) - want_v).max())
+    tol = LSE_RTOL * float(np.abs(want_v).max())
+    if got_v.shape != (groups, 8) or not np.isfinite(got_v).all() or err > tol:
+        fail(f"generic aggregate: logsumexp off by {err} where the tolerance is {tol}")
+    log(f"# generic aggregate ({n} rows, {groups} groups, f32 [n, 8] logsumexp + int32 sum, "
+        f"buffer {GENERIC_BUFFER}): {wall * 1e3:.3f} ms host wall, {calls} vmapped "
+        f"dispatches, {n / wall:.0f} rows/s; logsumexp off by {err:.3g} "
+        f"({err / tol:.4f} of the tolerance), int sums exact")
+    return {"wall_ms": wall * 1e3, "dispatches": calls, "rows_per_s": n / wall,
+            "lse_ratio": err / tol}
+
+
+REL_ROWS, REL_KEYS, REL_SLICE, REL_RIGHT = 10_000_000, 100_000, 1_000_000, 100_000
+REL_GROUP_DIV = 25  # g = k // 25: 4,000 groups, within the segment kernels' 4,096
+
+
+def relational_leg(tft, dev, n: int = REL_ROWS, keys: int = REL_KEYS,
+                   n_slice: int = REL_SLICE, n_right: int = REL_RIGHT) -> dict:
+    """The relational frame ops over ``n`` rows (f32 ``x`` in [0, 1) and
+    its copy ``xm``, int64 ``k`` over ``keys`` values, ``g = k // 25``,
+    int32 ``id``), every expected result built with numpy:
+    ``filter(x > 0.5)`` exact; the filtered rows' keyed f32 sum of ``x``
+    and max of ``xm`` by ``g`` (the fused ``segment_reduce``; 100,000
+    keys exceed the kernels' 4,096 segments) and the f32 sum beside an
+    int64 sum of ``k`` (the per-op route, ``segment_sum`` for the f32
+    column), sums within ``float_close``'s tolerance, max and int sums
+    exact, each through its kernel by the launch counts; on an ``n_slice``-row slice ``sort_values(["k", "x"],
+    ascending=[True, False])`` and an inner and a left ``join`` against
+    an ``n_right``-row frame of unique keys (``fill_value``), exact;
+    ``drop_duplicates(["k"])`` and ``group_by("k").count()``, exact. Each
+    op's host wall is logged."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED)
+    x = rng.random(n, dtype=np.float32)
+    k = rng.integers(0, keys, n)
+    ids = np.arange(n, dtype=np.int32)
+    frame = tft.frame_from_arrays({"x": x, "xm": x, "k": k, "g": k // REL_GROUP_DIV,
+                                   "id": ids})
+    walls, launches = {}, {}
+
+    def timed(name, fn):
         tft.kernels.LAUNCHES.reset()
         t0 = time.perf_counter()
-        call()
-        wall = time.perf_counter() - t0
-        launches = tft.kernels.LAUNCHES.snapshot()["ragged_gather"]
-        prof_wall, device = device_profile(call, reps=1)
-        busy = sum(device.values())
-        out[name] = {"wall_ms": wall * 1e3, "launches_per_call": launches,
-                     "groups": len(np.unique(lens)), "profiled_wall_ms": prof_wall,
-                     "busy_ms": busy, "busy_share": busy / prof_wall,
-                     "top": sorted(device.items(), key=lambda kv: -kv[1])[:5]}
-        log(f"# verb map_rows ragged {name} ({RAGGED_ROWS} rows, {out[name]['groups']} length "
-            f"groups): {wall * 1e3:.3f} ms host wall, {launches} ragged_gather launch(es); "
-            f"profiled {prof_wall:.3f} ms, device busy {busy:.3f} ms "
-            f"({100 * busy / prof_wall:.1f}%)")
-        for k, ms in out[name]["top"]:
-            log(f"#   {ms:9.3f} ms  {k[:80]}")
-    return out
+        out = fn()
+        walls[name] = (time.perf_counter() - t0) * 1e3
+        launches[name] = tft.kernels.LAUNCHES.snapshot()
+        return out
+
+    def cols(f, names):
+        return tuple(f.column_values(c) for c in names)
+
+    keep = x > 0.5
+    filtered = timed("filter", lambda: frame.filter(
+        lambda x: {"keep": x > 0.5}, device=dev).cache())
+    fx, fk, fg, fid = cols(filtered, ("x", "k", "g", "id"))
+    if not (np.array_equal(fid, ids[keep]) and np.array_equal(fx, x[keep])
+            and np.array_equal(fk, k[keep])):
+        fail("relational: filter(x > 0.5) differs from the numpy mask")
+
+    groups = int(fg.max()) + 1
+    counts = np.bincount(fg, minlength=groups)
+    want_sum = np.bincount(fg, weights=fx.astype(np.float64), minlength=groups)
+    order = np.argsort(fg, kind="stable")
+    want_max = np.maximum.reduceat(fx[order], np.searchsorted(fg[order], np.arange(groups)))
+
+    def agg(fetch):
+        with tft.with_graph():
+            b = lambda col: tft.block(filtered, col, tf_name=f"{col}_input")  # noqa: E731
+            return tft.aggregate(fetch(b), filtered.group_by("g"), device=dev)
+
+    fused = timed("aggregate sum+max", lambda: agg(lambda b: [
+        tft.reduce_sum(b("x"), name="x"), tft.reduce_max(b("xm"), name="xm")]))
+    per_op = timed("aggregate sum + int64 sum", lambda: agg(lambda b: [
+        tft.reduce_sum(b("x"), name="x"), tft.reduce_sum(b("k"), name="k")]))
+    g_out = fused.column_values("g")
+    vmax = float(np.abs(fx).max())
+    for res in (fused, per_op):
+        float_close(torch.from_numpy(res.column_values("x")),
+                    torch.from_numpy(want_sum[g_out]), counts[g_out], vmax)
+    want_k = np.bincount(fg, weights=fk, minlength=groups).astype(np.int64)  # < 2^53: exact
+    if not (np.array_equal(fused.column_values("xm"), want_max[g_out])
+            and np.array_equal(per_op.column_values("k"), want_k[g_out])):
+        fail("relational: a filtered keyed max or int64 sum differs from numpy")
+    if launches["aggregate sum+max"]["segment_reduce"] < 1:
+        fail("relational: the filtered sum+max aggregate did not launch segment_reduce")
+    if launches["aggregate sum + int64 sum"]["segment_sum"] < 1:
+        fail("relational: the filtered f32 sum beside an int64 sum did not launch segment_sum")
+
+    part = frame.limit(n_slice).cache()
+    px, pk, pid = x[:n_slice], k[:n_slice], ids[:n_slice]
+    srt = timed("sort_values", lambda: part.sort_values(["k", "x"], ascending=[True, False])
+                .column_values("id"))
+    if not np.array_equal(srt, pid[np.lexsort((-px, pk))]):
+        fail("relational: sort_values(['k', 'x'], ascending=[True, False]) differs from numpy")
+    right_k = rng.permutation(2 * keys)[:n_right]
+    right_w = rng.standard_normal(n_right, dtype=np.float32)
+    right = tft.frame_from_arrays({"k": right_k, "w": right_w})
+    pos = np.full(2 * keys, -1, np.int64)
+    pos[right_k] = np.arange(n_right)
+    m = pos[pk]
+    inner = timed("join inner", lambda: part.join(right, on="k").cache())
+    left = timed("join left", lambda: part.join(right, on="k", how="left",
+                                                fill_value={"w": -1.0}).cache())
+    hit = m >= 0
+    if not (np.array_equal(inner.column_values("id"), pid[hit])
+            and np.array_equal(inner.column_values("w"), right_w[m[hit]])
+            and np.array_equal(left.column_values("id"), pid)
+            and np.array_equal(left.column_values("w"),
+                               np.where(hit, right_w[np.maximum(m, 0)], np.float32(-1.0)))):
+        fail("relational: an inner or left join differs from numpy")
+
+    dd = timed("drop_duplicates", lambda: frame.drop_duplicates(["k"]).column_values("id"))
+    if not np.array_equal(dd, ids[np.sort(np.unique(k, return_index=True)[1])]):
+        fail("relational: drop_duplicates(['k']) differs from numpy")
+    cnt = timed("count", lambda: frame.group_by("k").count(device=dev))
+    if not np.array_equal(cnt.column_values("count"), np.bincount(k)[cnt.column_values("k")]):
+        fail("relational: group_by('k').count() differs from np.bincount")
+    log(f"# relational ({n} rows, {keys} keys; slice {n_slice}, right {n_right}): "
+        + ", ".join(f"{name} {ms:.3f} ms" for name, ms in walls.items())
+        + f"; kept {int(keep.sum())} rows; launches sum+max {launches['aggregate sum+max']}, "
+        f"sum + int64 sum {launches['aggregate sum + int64 sum']}")
+    merged = {}
+    for counts_ in launches.values():
+        for kname, c in counts_.items():
+            merged[kname] = merged.get(kname, 0) + c
+    return {"walls_ms": walls, "launches": merged}
 
 
 def serving_path(tft, dev) -> dict:
@@ -1886,6 +2117,138 @@ def inception_path(tft, dev) -> dict:
         "int8_rows_per_s": INC_CHECK / qwall, "weight_bytes": q.tree_nbytes(params),
         "frame": frame, "prog": prog, "images": images,
     }
+
+
+PIPE_BLOCK = 128
+
+
+def pinned_stats() -> dict:
+    """PyTorch's pinned host allocator: the bytes of the pinned blocks it
+    holds (cached ones too) and the blocks it has created, or {} where
+    this torch lacks the statistics. (Its ``active_bytes`` only grow on
+    the card's torch, so they are not read.)"""
+    import torch
+
+    stats = getattr(torch.cuda, "host_memory_stats", lambda: {})()
+    return {k: stats[k] for k in ("allocated_bytes.current", "num_host_alloc") if k in stats}
+
+
+@contextlib.contextmanager
+def pinned_tracker():
+    """Counts the bytes of the pinned tensors ``Tensor.pin_memory`` makes
+    (the prefetcher's staging copies) while Python holds them; yields a
+    dict whose ``peak`` is the most held at once. The allocator keeps a
+    freed block until its copy has ended, so this is a lower bound of the
+    pinned memory in use."""
+    import weakref
+
+    import torch
+
+    live = {"now": 0, "peak": 0}
+    lock = threading.Lock()  # the prefetch worker pins, any thread frees
+    real = torch.Tensor.pin_memory
+
+    def release(n):
+        with lock:
+            live["now"] -= n
+
+    def tracked(self, *a, **k):
+        t = real(self, *a, **k)
+        n = t.numel() * t.element_size()
+        with lock:
+            live["now"] += n
+            live["peak"] = max(live["peak"], live["now"])
+        weakref.finalize(t, release, n)
+        return t
+
+    torch.Tensor.pin_memory = tracked
+    try:
+        yield live
+    finally:
+        torch.Tensor.pin_memory = real
+
+
+def copy_rates(dev, nbytes: int) -> dict:
+    """GB/s of one host-to-device copy of ``nbytes`` from pageable and from
+    pinned host memory, by CUDA events around 5 copies after a warm-up."""
+    import torch
+
+    host = torch.empty(nbytes, dtype=torch.uint8)
+    pinned = host.pin_memory()
+    out = {}
+    for name, src in (("pageable", host), ("pinned", pinned)):
+        src.to(dev, non_blocking=True)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            src.to(dev, non_blocking=True)
+        end.record()
+        end.synchronize()
+        out[name] = nbytes * 5 / (start.elapsed_time(end) / 1e3) / 1e9
+    return out
+
+
+def pipeline_leg(tft, dev, incep) -> dict:
+    """The block pipeline on Inception-v3: the Inception leg's 1,024 images
+    (299x299, scored in bf16) in 8 host blocks of 128 through
+    ``map_blocks`` of the same compiled program, serial
+    (``map_pipeline_depth`` 0, ``map_prefetch_depth`` 0) and pipelined
+    (2, 2): each a warm-up call, a timed one (rows/s, peak device memory,
+    the peak bytes of pinned staging copies alive at once, and the pinned
+    allocator's pool around the call) and a profiled one (``Memcpy HtoD`` ms, the
+    part of it under kernels, the device's busy share). The two modes'
+    scores and labels must be equal bit for bit."""
+    import torch
+
+    frame = tft.frame_from_arrays({"images": incep["images"]},
+                                  num_blocks=INC_ROWS // PIPE_BLOCK)
+
+    def call():
+        out = tft.map_blocks(incep["prog"], frame, device=dev)
+        return out.column_values("scores"), out.column_values("label")
+
+    out, results = {}, {}
+    for mode, values in PIPELINE_MODES:
+        with knobs(tft, **values):
+            call()  # warm-up
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            pinned_before = pinned_stats()
+            with pinned_tracker() as staged:
+                t0 = time.perf_counter()
+                results[mode] = call()
+                wall = time.perf_counter() - t0
+            peak, pinned = torch.cuda.max_memory_allocated(), pinned_stats()
+            prof = timeline_profile(call)
+        out[mode] = {"rows_per_s": INC_ROWS / wall, "wall_s": wall, "peak_bytes": peak,
+                     "held_bytes": held, "pinned_staged_peak_bytes": staged["peak"],
+                     "pinned_before": pinned_before, "pinned_after": pinned,
+                     **{k: prof[k] for k in ("wall_ms", "busy_ms", "busy_share", "kernel_busy_ms",
+                                             "kernel_busy_share", "htod_ms", "htod_events",
+                                             "htod_overlap_ms")}}
+        log(f"# pipeline inception-v3 {mode} ({INC_ROWS} images in {INC_ROWS // PIPE_BLOCK} "
+            f"blocks of {PIPE_BLOCK}, depth {values['map_pipeline_depth']}, prefetch "
+            f"{values['map_prefetch_depth']}): {INC_ROWS / wall:.1f} rows/s; peak device "
+            f"memory {peak} bytes ({peak - held} above what was held); profiled "
+            f"{prof['wall_ms']:.3f} ms, device busy {prof['busy_ms']:.3f} ms "
+            f"({100 * prof['busy_share']:.1f}%), kernels alone {prof['kernel_busy_ms']:.3f} ms "
+            f"({100 * prof['kernel_busy_share']:.1f}%), Memcpy HtoD {prof['htod_ms']:.3f} ms "
+            f"in {prof['htod_events']} copies, {prof['htod_overlap_ms']:.3f} ms of it under "
+            "kernels")
+        log(f"# pipeline pinned host memory {mode}: peak {staged['peak']} bytes of staged "
+            f"blocks alive at once; the allocator's pool before the timed call "
+            f"{json.dumps(pinned_before)}, after it {json.dumps(pinned)}")
+    block_bytes = INC_ROWS // (INC_ROWS // PIPE_BLOCK) * 299 * 299 * 3 * 4
+    rates = copy_rates(dev, block_bytes)
+    out["copy_gb_per_s"] = rates
+    log(f"# pipeline host-to-device copy of one {block_bytes}-byte block: pageable "
+        f"{rates['pageable']:.2f} GB/s, pinned {rates['pinned']:.2f} GB/s")
+    for a, b in zip(results["serial"], results["pipelined"]):
+        if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+            fail("pipeline: the pipelined Inception-v3 outputs differ from the serial ones")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2804,6 +3167,71 @@ def device_profile(fn, reps: int = 3):
     return wall / reps * 1e3, device
 
 
+def merged(intervals) -> list:
+    """The union of ``[start, end)`` intervals, as sorted disjoint ones."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def timeline_profile(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``, after two warm-up calls:
+    host wall (ms), device time by kernel or copy name, the device's busy
+    time as the union of its intervals (copies on a side stream overlap
+    kernels, so the sum would count time twice) and its share of the
+    wall, the same for kernels alone, the ``Memcpy HtoD`` time (and its
+    count of copies) and the part of it that ran while a kernel ran."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    # the warm-up step is traced and dropped: a trace's first device
+    # activities went missing without it (7 of 8 copies in one trace);
+    # the active step's events are read when its trace is ready
+    events = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: events.extend(p.events())) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        prof.step()
+    if not events:
+        fail("timeline_profile: the profiler returned no events")
+    device, spans, kernels, htod = {}, [], [], []
+    for ev in events:
+        if ev.device_type != torch.autograd.DeviceType.CUDA or getattr(
+                ev, "is_user_annotation", False):
+            continue
+        span = (ev.time_range.start / 1e3, ev.time_range.end / 1e3)  # ms
+        if span[1] <= span[0]:
+            continue
+        device[ev.name] = device.get(ev.name, 0.0) + span[1] - span[0]
+        spans.append(span)
+        low = ev.name.lower()
+        if "memcpy htod" in low:
+            htod.append(span)
+        elif "memcpy" not in low and "memset" not in low:
+            kernels.append(span)
+    busy = sum(b - a for a, b in merged(spans))
+    running = merged(kernels)
+    overlap = sum(max(0.0, min(b, kb) - max(a, ka)) for a, b in htod for ka, kb in running)
+    kernel_busy = sum(b - a for a, b in running)
+    return {"wall_ms": wall, "device": device, "busy_ms": busy, "busy_share": busy / wall,
+            "kernel_busy_ms": kernel_busy, "kernel_busy_share": kernel_busy / wall,
+            "htod_ms": sum(b - a for a, b in htod), "htod_events": len(htod),
+            "htod_overlap_ms": overlap}
+
+
 def where_the_time_goes(tft, dev) -> None:
     """Profile each segment kernel alone (its passes) and two verbs of
     the main path (the device's busy share of the verb's wall time)."""
@@ -2979,18 +3407,20 @@ def training_profile(train) -> dict:
 
 def inception_profile(tft, incep, dev, what: str = "inception-v3") -> dict:
     """One Inception-v3 ``map_blocks`` call (1,024 images, two blocks of
-    512) of ``incep["prog"]`` (the native program, or the imported
-    GraphDef's): host wall, the device's busy share, device time by group
-    (convolutions, pools, elementwise, host-to-device copies) and the top
-    device operations. Returns the groups."""
+    512, the pipeline's default depths) of ``incep["prog"]`` (the native
+    program, or the imported GraphDef's): host wall, the device's busy
+    share (the union of its intervals), device time by group
+    (convolutions, pools, elementwise, host-to-device copies), the part of
+    the copies that ran under kernels, and the top device operations.
+    Returns the groups."""
     def call():
         tft.map_blocks(incep["prog"], incep["frame"], device=dev).column_values("label")
 
-    wall, device = device_profile(call, reps=1)
-    busy = sum(device.values())
+    prof = timeline_profile(call)
+    wall, busy = prof["wall_ms"], prof["busy_ms"]
     groups = {"convolutions": 0.0, "memcpy HtoD": 0.0, "pools": 0.0, "other copies": 0.0,
               "elementwise and other": 0.0}
-    for name, ms in device.items():
+    for name, ms in prof["device"].items():
         low = name.lower()
         if "memcpy htod" in low:
             groups["memcpy HtoD"] += ms
@@ -3006,9 +3436,9 @@ def inception_profile(tft, incep, dev, what: str = "inception-v3") -> dict:
     log(f"# profile map_blocks {what}, {INC_ROWS} images: {wall:.3f} ms per call on the "
         f"host clock under the profiler, device busy {busy:.3f} ms ({100 * busy / wall:.1f}%); "
         f"Memcpy HtoD {groups['memcpy HtoD']:.3f} ms ({100 * groups['memcpy HtoD'] / wall:.1f}% "
-        "of the call)")
+        f"of the call), {prof['htod_overlap_ms']:.3f} ms of it under kernels")
     log(f"# profile {what} by group: " + ", ".join(f"{k} {v:.3f} ms" for k, v in groups.items()))
-    for name, ms in sorted(device.items(), key=lambda kv: -kv[1])[:12]:
+    for name, ms in sorted(prof["device"].items(), key=lambda kv: -kv[1])[:12]:
         log(f"#   {ms:9.3f} ms  {name[:80]}")
     return {"wall_ms": wall, "busy_ms": busy, **groups}
 
@@ -3124,7 +3554,12 @@ def main() -> int:
     if path["launches"]["ragged_gather"] != 1:
         fail(f"the ragged map_rows call launched ragged_gather "
              f"{path['launches']['ragged_gather']} times (want 1: every group in one launch)")
+    t_new = time.perf_counter()
     ragged_verbs = ragged_verb_legs(tft, dev)
+    generic = generic_aggregate_leg(tft, dev)
+    relational = relational_leg(tft, dev)
+    new_legs_s = time.perf_counter() - t_new
+    log(f"# ragged, generic aggregate and relational legs: {new_legs_s:.1f} s")
 
     t2 = time.perf_counter()
     serving = serving_path(tft, dev)
@@ -3168,6 +3603,12 @@ def main() -> int:
         f"{incep['weight_bytes']} bytes); int8 weights, {INC_CHECK} images: "
         f"{incep['int8_rows_per_s']:.1f} rows/s; launches {incep['launches']}")
 
+    t_pipe = time.perf_counter()
+    pipeline = pipeline_leg(tft, dev, incep)
+    new_legs_s += time.perf_counter() - t_pipe
+    log(f"# pipeline leg: {time.perf_counter() - t_pipe:.1f} s; the legs new to this "
+        f"slice: {new_legs_s:.1f} s")
+
     t6 = time.perf_counter()
     imported = imported_inception_path(tft, dev, incep)
     log(f"# imported inception path: {time.perf_counter() - t6:.1f} s")
@@ -3208,7 +3649,8 @@ def main() -> int:
         f"decode step {step_ms:.3f} ms at 16 slots; steps {serving['steps']}")
 
     kernels = []
-    paths = ((path, SLICE1_KERNELS), (serving, SERVING_KERNELS), (encoder, ENCODER_KERNELS),
+    paths = ((path, SLICE1_KERNELS), (relational, ("segment_reduce", "segment_sum")),
+             (serving, SERVING_KERNELS), (encoder, ENCODER_KERNELS),
              (train, TRAINING_KERNELS), (imported["int8"], ("int8_matmul",)),
              (vggr["int8"], ("int8_matmul",)))
     for name, info in tft.kernels.KERNELS.items():
@@ -3222,6 +3664,9 @@ def main() -> int:
             **{f"{b}_launches": n for b, n in builds.items()}, **results[name],
         })
     log(f"# ragged verb legs: {json.dumps({k: {m: v[m] for m in ('wall_ms', 'launches_per_call', 'busy_share')} for k, v in ragged_verbs.items()})}")
+    log(f"# pipeline legs: {json.dumps(pipeline)}")
+    log(f"# generic aggregate: {json.dumps(generic)}; relational walls: "
+        f"{json.dumps(relational['walls_ms'])}")
     log(f"# total: {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(gpu_line())

@@ -30,7 +30,13 @@ from .config import configure, get_config  # noqa: F401
 from . import dtypes  # noqa: F401
 from .shape import Shape, Unknown  # noqa: F401
 from .schema import ColumnInfo, Schema  # noqa: F401
-from .frame import TensorFrame, frame_from_arrays, frame_from_rows  # noqa: F401
+from .frame import (  # noqa: F401
+    TensorFrame,
+    describe,
+    frame_from_arrays,
+    frame_from_pandas,
+    frame_from_rows,
+)
 from .frame import analyze, append_shape, print_schema, explain  # noqa: F401
 from .dsl import (  # noqa: F401
     Node,
@@ -100,6 +106,8 @@ __all__ = [
     "TensorFrame",
     "frame_from_arrays",
     "frame_from_rows",
+    "frame_from_pandas",
+    "describe",
     "Shape",
     "Unknown",
     "ColumnInfo",

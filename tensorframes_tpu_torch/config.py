@@ -1,8 +1,10 @@
 """Runtime configuration for tensorframes_tpu_torch.
 
-The knobs the ported verbs read — row-bucketing ladder and the default
-partition count — plus the execution ``device``. The bucketing and
-partition knobs can be overridden via environment variables (``TFTPU_*``);
+The knobs the ported verbs read — row-bucketing ladder, the default
+partition count, the verbs' block pipeline and the generic aggregate's
+buffer — plus the execution ``device``. Every knob but the device can
+be overridden via environment variables (``TFTPU_*``, the reference's
+names and defaults);
 every field can be set programmatically via :func:`configure`. The device
 is chosen only in code: ``configure(device=...)``, or the ``device=``
 argument every verb takes, which overrides the configured one for that
@@ -34,6 +36,17 @@ class Config:
     max_bucket_doublings: int = _env_int("TFTPU_MAX_BUCKET_DOUBLINGS", 30)
     # Default number of blocks when partitioning un-blocked input.
     default_num_blocks: int = _env_int("TFTPU_DEFAULT_NUM_BLOCKS", 4)
+    # aggregate(): rows buffered before compaction in the generic keyed
+    # aggregator (≙ TensorFlowUDAF bufferSize=10, DebugRowOps.scala:580).
+    aggregate_buffer_size: int = _env_int("TFTPU_AGG_BUFFER", 10)
+    # map_blocks keeps this many extra blocks in flight before reading
+    # the oldest one's outputs back (0 = one block at a time), and the
+    # ragged map_rows this many groups' outputs.
+    map_pipeline_depth: int = _env_int("TFTPU_MAP_PIPELINE_DEPTH", 2)
+    # map_blocks on a host frame of more than one block: a worker thread
+    # stages up to this many blocks' feeds on the device ahead of the
+    # block being computed (io.prefetch_to_device; 0 = off).
+    map_prefetch_depth: int = _env_int("TFTPU_MAP_PREFETCH_DEPTH", 2)
     # Where verbs execute: "cuda" (the default) or "cpu". With no GPU
     # present, "cuda" raises at the verb call instead of running on the
     # CPU; the CPU is used only when asked for.

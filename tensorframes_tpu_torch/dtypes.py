@@ -180,13 +180,20 @@ def from_python_value(v) -> ScalarType:
     raise UnsupportedTypeError(f"Unsupported cell value of type {type(v).__name__}")
 
 
-def to_torch(a, device) -> torch.Tensor:
-    """Move a host numpy array to ``device`` as a torch tensor of the same
-    dtype (bfloat16 crosses as its 16-bit pattern)."""
+def host_tensor(a) -> torch.Tensor:
+    """A host numpy array as a CPU torch tensor of the same dtype, sharing
+    its memory where it is contiguous (bfloat16 crosses as its 16-bit
+    pattern)."""
     a = np.ascontiguousarray(a)
     if _BFLOAT16 is not None and a.dtype == _BFLOAT16:
-        return torch.from_numpy(a.view(np.int16)).to(device).view(torch.bfloat16)
-    return torch.from_numpy(a).to(device)
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def to_torch(a, device) -> torch.Tensor:
+    """Move a host numpy array to ``device`` as a torch tensor of the same
+    dtype."""
+    return host_tensor(a).to(device)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

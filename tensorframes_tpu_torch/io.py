@@ -23,6 +23,7 @@ from typing import Dict, Iterable, Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
+from . import dtypes as dt
 from .config import resolve_device
 from .utils import get_logger
 
@@ -67,7 +68,7 @@ _SENTINEL = object()
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     """One batch as tensors on ``device``, copied synchronously (the
     unprefetched path)."""
-    return {k: torch.as_tensor(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
+    return {k: dt.host_tensor(v).to(device) for k, v in batch.items()}
 
 
 def prefetch_to_device(
@@ -109,8 +110,7 @@ def _staged(batches, size: int, device: torch.device, join_timeout: float):
     def stage(batch):
         if side is None:
             return to_device(batch, device), None
-        pinned = {k: torch.as_tensor(np.ascontiguousarray(v)).pin_memory()
-                  for k, v in batch.items()}
+        pinned = {k: dt.host_tensor(v).pin_memory() for k, v in batch.items()}
         with torch.cuda.stream(side):
             staged = {k: t.to(device, non_blocking=True) for k, t in pinned.items()}
             ready = torch.cuda.Event()

@@ -127,22 +127,34 @@ class CompiledProgram:
             self._dispatched.add(key)
             _JIT_MISSES.inc()
 
-    def _run(self, kind: str, fn: Callable, feeds, device) -> Dict[str, np.ndarray]:
+    def _run(self, kind: str, fn: Callable, feeds, device, to_numpy: bool):
         device = torch.device(device)
+        # host arrays are copied to the device; tensors already there (a
+        # prefetched block, a device-side gather) are used as they are
         tensors = {
-            k: v.to(device) if torch.is_tensor(v) else dt.to_torch(v, device)
+            k: (v if v.device == device else v.to(device)) if torch.is_tensor(v)
+            else dt.to_torch(v, device)
             for k, v in feeds.items()
         }
         self._note_dispatch(self._feeds_key(kind, tensors))
         with torch.inference_mode():
             out = fn(tensors)
+        if not to_numpy:
+            return out
         return {k: dt.to_numpy(v) for k, v in out.items()}
 
-    def run_block(self, feeds: Dict[str, np.ndarray], device) -> Dict[str, np.ndarray]:
-        return self._run("block", self.program.fn, feeds, device)
+    def run_block(self, feeds: Dict[str, np.ndarray], device,
+                  to_numpy: bool = True) -> Dict[str, np.ndarray]:
+        """One block through the program. ``to_numpy=False`` returns the
+        outputs as tensors on ``device`` without waiting for the device
+        (hand them to :class:`Readback`)."""
+        return self._run("block", self.program.fn, feeds, device, to_numpy)
 
-    def run_rows(self, feeds: Dict[str, np.ndarray], device) -> Dict[str, np.ndarray]:
-        return self._run("vmap", self._vmapped, feeds, device)
+    def run_rows(self, feeds: Dict[str, np.ndarray], device,
+                 to_numpy: bool = True) -> Dict[str, np.ndarray]:
+        """The program vmapped over the feeds' lead dim; ``to_numpy`` as
+        in :meth:`run_block`."""
+        return self._run("vmap", self._vmapped, feeds, device, to_numpy)
 
     def cache_sizes(self) -> Dict[str, int]:
         """How many distinct feed shapes each entrypoint has dispatched
@@ -153,6 +165,40 @@ class CompiledProgram:
             kind: sum(1 for k in self._dispatched if k[0] == kind)
             for kind in ("block", "vmap")
         }
+
+
+class Readback:
+    """``to_numpy=False`` outputs on their way to the host. A CUDA tensor
+    is copied on a side stream of its device (one of PyTorch's pool) into
+    pinned host memory (``non_blocking``) once the compute stream has
+    produced it, and an event marks the copies' end, so :meth:`wait`
+    waits on that event alone, not on the whole device, and returns
+    numpy arrays. Host tensors are kept as they are."""
+
+    def __init__(self, outs: Dict[str, torch.Tensor]):
+        self._events = []
+        self._order = list(outs)
+        self._host = {k: v for k, v in outs.items() if v.device.type != "cuda"}
+        for device in {v.device for v in outs.values() if v.device.type == "cuda"}:
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                for k, v in outs.items():
+                    if v.device != device:
+                        continue
+                    # the allocator must not hand v's memory to the compute
+                    # stream before the side stream has read it
+                    v.record_stream(side)
+                    self._host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                    self._host[k].copy_(v, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(side)
+            self._events.append(event)
+
+    def wait(self) -> Dict[str, np.ndarray]:
+        for event in self._events:
+            event.synchronize()
+        return {k: dt.to_numpy(self._host[k]) for k in self._order}
 
 
 def gather_feeds(

@@ -15,8 +15,9 @@ the caller passes ``device="cpu"`` (or configures it):
 * ``reduce_blocks`` — per-block program run, partials stacked and reduced
   once more (≙ performReduceBlock + Spark's pairwise RDD.reduce,
   DebugRowOps.scala:510-533).
-* ``aggregate`` — keyed aggregation of algebraic reducer fetches through
-  the segment-reduce kernels (the segment fast path).
+* ``aggregate`` — keyed aggregation: algebraic reducer fetches through
+  the segment-reduce kernels (the segment fast path), any other program
+  through level-batched compaction (the generic UDAF route).
 
 Programs may be DSL nodes or plain Python functions over torch tensors
 (see program.py). This is the reference's eager path
@@ -25,14 +26,16 @@ Programs may be DSL nodes or plain Python functions over torch tensors
 
 from __future__ import annotations
 
+import sys
 import time
+from collections import deque
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from .. import dtypes as dt
-from ..config import resolve_device
+from ..config import get_config, resolve_device
 from ..dsl.node import Node, compile_fetches, segment_reduce_info
 from ..frame import Block, GroupedData, TensorFrame, _block_num_rows
 from ..program import Program, TensorSpec, analyze_program, program_from_function
@@ -51,12 +54,36 @@ from .executor import (
     bucket_rows,
     gather_feeds,
     make_pair_fold,
+    Readback,
     pad_lead_dim,
 )
 
 logger = get_logger(__name__)
 
 Fetches = Union[Node, Sequence[Node], Program, Callable]
+
+
+def _is_pandas(obj) -> bool:
+    """True for a pandas DataFrame; pandas is imported only when the
+    caller has loaded it, so the package runs where it is not installed."""
+    pd = sys.modules.get("pandas")
+    return pd is not None and isinstance(obj, pd.DataFrame)
+
+
+def _map_pandas(fetches, pdf, feed_dict, device):
+    """Local pandas path (≙ ``_map_pd``, core.py:171-183): run the program
+    on the pandas columns (block semantics, whole columns, as the
+    reference's ``_map_pd`` feeds them) and append the outputs to a copy
+    of the frame."""
+    from ..frame import frame_from_pandas
+
+    result = map_blocks(fetches, frame_from_pandas(pdf, num_blocks=1),
+                        feed_dict=feed_dict, device=device)
+    out = pdf.copy()
+    for name in result.schema.names:
+        if name not in pdf.columns:
+            out[name] = list(result.column_values(name))
+    return out
 
 
 def _input_specs_from_schema(schema: Schema, block: bool) -> Dict[str, TensorSpec]:
@@ -203,7 +230,16 @@ def map_blocks(
     ≙ ``tfs.map_blocks`` (core.py:267-313) → DebugRowOps.mapBlocks
     (DebugRowOps.scala:305-400); trimmed variant ≙ mapBlocksTrimmed.
     Lazy: returns a frame with a pending computation (core.py:278-279).
+    A pandas DataFrame in ``frame`` is mapped eagerly and returned as a
+    pandas DataFrame with the outputs appended.
+
+    Blocks pipeline: a worker thread stages up to ``map_prefetch_depth``
+    blocks' feeds on the device ahead of the one computing, and up to
+    ``map_pipeline_depth`` blocks stay in flight before the oldest one's
+    outputs are read back (config.py).
     """
+    if _is_pandas(frame):
+        return _map_pandas(fetches, frame, feed_dict, device)
     dev = resolve_device(device)
     program, _ = _normalize_program(
         fetches, frame.schema, block=True, device=dev, feed_dict=feed_dict
@@ -220,13 +256,18 @@ def map_blocks(
         out_blocks: List[Block] = []
         t0 = time.perf_counter()
         n_total = 0
-        for b in parent.blocks():
-            n = _block_num_rows(b)
-            n_total += n
-            outs = compiled.run_block(gather_feeds(b, input_names, program), dev)
+        # pipelined execution: up to `depth` blocks stay in flight, so
+        # block k+1's copy in and compute overlap block k's copy out; the
+        # host waits on a block's own readback event, never on the device
+        cfg = get_config()
+        depth = max(0, cfg.map_pipeline_depth)
+        in_flight: deque = deque()
+
+        def finish(b: Block, n: int, pending) -> None:
+            outs = pending.wait()
             if trim:
                 out_blocks.append({i.name: outs[i.name] for i in out_infos})
-                continue
+                return
             for o in program.outputs:
                 got = outs[o.name].shape[0] if outs[o.name].ndim > 0 else None
                 if got != n:
@@ -239,6 +280,31 @@ def map_blocks(
             nb: Block = {i.name: outs[i.name] for i in out_infos}
             nb.update(b)
             out_blocks.append(nb)
+
+        blocks = parent.blocks()
+        # a worker thread stages upcoming blocks' feeds on the device
+        # (pinned memory, a side stream) while this one computes
+        feeds_seq = (gather_feeds(b, input_names, program) for b in blocks)
+        prefetch = max(0, cfg.map_prefetch_depth)
+        if prefetch > 0 and len(blocks) > 1:
+            from .. import io as _io
+
+            feeds_seq = _io.prefetch_to_device(feeds_seq, size=prefetch, device=dev)
+        try:
+            for b, feeds in zip(blocks, feeds_seq):
+                n = _block_num_rows(b)
+                n_total += n
+                outs = compiled.run_block(feeds, dev, to_numpy=False)
+                del feeds
+                in_flight.append((b, n, Readback(outs)))
+                if len(in_flight) > depth:
+                    finish(*in_flight.popleft())
+            while in_flight:
+                finish(*in_flight.popleft())
+        finally:
+            close = getattr(feeds_seq, "close", None)
+            if close is not None:
+                close()  # stops the prefetch worker on an early exit
         profiling.record("map_blocks", time.perf_counter() - t0, n_total)
         return out_blocks
 
@@ -277,15 +343,22 @@ def _group_rows_by_shape(
     return [np.asarray(v) for v in groups.values()]
 
 
+# ragged staging byte cap (≙ the reference's): consecutive shape groups
+# whose bucket-padded feeds fit it make one wave, staged at once and
+# dispatched before the next wave stages, so peak device memory is one
+# wave's inputs plus the window of outputs in flight
+_RAGGED_STAGE_BYTES = 1 << 28  # 256 MB
+
+
 def _ragged_gather_plan(cols, input_names, n, device):
     """Device-side ragged staging: a single 1-D ragged column's cells move
     ONCE as a flat buffer, and the shape groups' bucket-padded batches are
     gathered on the device by the ragged-gather kernel
-    (``kernels/ragged_gather.py``), every group in one launch (one per
-    ``LAUNCH_BUDGET_BYTES`` of padded output). Returns a ``gather(groups)
-    -> iterator of feeds`` closure, one feeds dict per group in order, or
-    None when the column is not that shape (then groups stage on the
-    host)."""
+    (``kernels/ragged_gather.py``), every group of a wave in one launch
+    (one per ``LAUNCH_BUDGET_BYTES`` of padded output). Returns a
+    ``gather(groups) -> iterator of feeds`` closure, one feeds dict per
+    group in order, or None when the column is not that shape (then
+    groups stage on the host)."""
     if len(input_names) != 1:
         return None
     name = input_names[0]
@@ -325,6 +398,24 @@ def _ragged_gather_plan(cols, input_names, n, device):
     return gather
 
 
+def _ragged_waves(cols, input_names, group_list) -> List[List[np.ndarray]]:
+    """Consecutive groups whose staged bytes (bucket-padded rows × cell
+    bytes, computed without staging) fit ``_RAGGED_STAGE_BYTES``; a group
+    past the cap makes a wave of its own."""
+    waves: List[List[np.ndarray]] = [[]]
+    wave_bytes = 0
+    for idx in group_list:
+        rows = bucket_rows(len(idx))
+        bts = sum(rows * np.asarray(cols[name][int(idx[0])]).nbytes
+                  for name in input_names)
+        if waves[-1] and wave_bytes + bts > _RAGGED_STAGE_BYTES:
+            waves.append([])
+            wave_bytes = 0
+        waves[-1].append(idx)
+        wave_bytes += bts
+    return waves
+
+
 def _ragged_rows_outs(
     cols: Dict[str, list],
     input_names: Sequence[str],
@@ -334,12 +425,13 @@ def _ragged_rows_outs(
     device,
 ) -> Dict[str, object]:
     """Run a row-wise program over ``n`` ragged rows (``cols`` maps each
-    input to its per-row cells): group rows by input cell shape, stage each
-    group's bucket-padded feeds (on the device through the gather kernel
-    where it applies, else stacked on the host), dispatch, and scatter the
-    results back to row order. Returns one value per output: a dense
-    ``[n, *cell]`` array (uniform cell shapes) or a per-row cell list
-    (ragged outputs)."""
+    input to its per-row cells): group rows by input cell shape, stage the
+    groups' bucket-padded feeds wave by wave (on the device through the
+    gather kernel where it applies, else stacked on the host), dispatch
+    every group of a wave with up to ``map_pipeline_depth`` groups'
+    outputs on their way back, and scatter the results to row order.
+    Returns one value per output: a dense ``[n, *cell]`` array (uniform
+    cell shapes) or a per-row cell list (ragged outputs)."""
     if n == 0:
         out0: Dict[str, object] = {}
         for o in program.outputs:
@@ -349,6 +441,7 @@ def _ragged_rows_outs(
     group_list = [g for g in _group_rows_by_shape(cols, input_names, n)
                   if len(g)]
     gather = _ragged_gather_plan(cols, input_names, n, device)
+    window = max(0, get_config().map_pipeline_depth)
 
     def group_feeds(idx):
         g = len(idx)
@@ -358,12 +451,24 @@ def _ragged_rows_outs(
         }
         return pad_lead_dim(feeds, g, bucket_rows(g))
 
-    staged = (gather(group_list) if gather is not None
-              else (group_feeds(idx) for idx in group_list))
+    def host_wave(wave):
+        # the wave's feeds all go up before its first dispatch
+        staged = [{k: dt.to_torch(v, device) for k, v in group_feeds(idx).items()}
+                  for idx in wave]
+        while staged:
+            yield staged.pop(0)
+
     outs_list: List[Dict[str, np.ndarray]] = []
-    for feeds in staged:
-        outs_list.append(compiled.run_rows(feeds, device))
-        del feeds  # its batch views a gather launch's buffer: free it first
+    in_flight: deque = deque()
+    for wave in _ragged_waves(cols, input_names, group_list):
+        for feeds in (gather(wave) if gather is not None else host_wave(wave)):
+            in_flight.append(Readback(
+                compiled.run_rows(feeds, device, to_numpy=False)))
+            del feeds  # its batch views a gather launch's buffer: free it first
+            if len(in_flight) > window:
+                outs_list.append(in_flight.popleft().wait())
+    while in_flight:
+        outs_list.append(in_flight.popleft().wait())
     # scatter: a uniform output column writes whole groups via index
     # assignment; ragged outputs (cell shapes differ across groups) keep
     # the per-row list form.
@@ -396,8 +501,11 @@ def map_rows(
 
     ≙ ``tfs.map_rows`` (core.py:224-265) → DebugRowOps.mapRows
     (DebugRowOps.scala:403-484). Uniform blocks run as one vmapped
-    program; ragged blocks group rows by cell shape.
+    program; ragged blocks group rows by cell shape. A pandas DataFrame
+    takes the reference's pandas path (whole columns, as ``map_blocks``).
     """
+    if _is_pandas(frame):
+        return _map_pandas(fetches, frame, feed_dict, device)
     dev = resolve_device(device)
     program, _ = _normalize_program(
         fetches, frame.schema, block=False, device=dev, feed_dict=feed_dict
@@ -700,6 +808,21 @@ def run_segment_fast(ops_key, num_groups, vals, sids) -> Dict[str, torch.Tensor]
     return outs
 
 
+def _value_columns(frame, out_names) -> Dict[str, np.ndarray]:
+    """The aggregated value columns, gathered across blocks; a ragged
+    one raises."""
+    val_cols = {}
+    for x in out_names:
+        vals = frame.column_values(x)
+        if vals.dtype == object:
+            raise ValueError(
+                f"Column {x!r} is ragged; aggregate requires uniform cells "
+                "(run analyze() first)."
+            )
+        val_cols[x] = vals
+    return val_cols
+
+
 def _host_fast_aggregate(frame, keys, seg_info, out_names, device):
     """The segment fast path over a (forced) frame: gather value columns,
     encode group keys on the host (:func:`~tensorframes_tpu_torch.ops.keys.frame_group_ids`
@@ -708,18 +831,113 @@ def _host_fast_aggregate(frame, keys, seg_info, out_names, device):
     ``(out_key_cols, out_cols, n_rows)``."""
     from .keys import frame_group_ids
 
-    val_cols = {}
-    for x in out_names:
-        vals = frame.column_values(x)
-        if vals.dtype == object:
-            raise ValueError(
-                f"Column {x!r} is ragged; aggregate requires uniform "
-                "cells (run analyze() first)."
-            )
-        val_cols[x] = vals
+    val_cols = _value_columns(frame, out_names)
     seg_ids, group_key_cols, num_groups = frame_group_ids(frame, keys)
     ops_key = tuple((out_name, op) for out_name, op, _ in seg_info)
     out_cols = _segment_reduce_best(ops_key, num_groups, val_cols, seg_ids, device)
+    return dict(zip(keys, group_key_cols)), out_cols, len(seg_ids)
+
+
+def _batched_compaction(program, val_cols, seg_ids, num_groups, out_names, device):
+    """Arbitrary-combiner aggregation as level-batched compaction on the
+    device (≙ the reference's ``_batched_compaction``, its stand-in for
+    ``TensorFlowUDAF``'s compact-every-bufferSize fold,
+    DebugRowOps.scala:608-702): the program is applied to chunks of at
+    most ``aggregate_buffer_size`` rows of one group, and the partials
+    stack and compact again — the UDAF's algebraic contract. Each level
+    runs every full chunk of every group as ONE vmapped dispatch and the
+    remainder chunks as one dispatch per size, so a level takes at most
+    ``buf`` dispatches. Rows are grouped by a stable host argsort of the
+    ids; the level state stays on the device, chunks are gathered there
+    by ``index_select`` over host-built index matrices (the chunk count
+    padded to a power-of-two bucket by repeating the last row; padded
+    chunks are never scattered back), and results go into the next level
+    by ``index_copy_``."""
+    if num_groups == 0:
+        out = {}
+        for o in program.outputs:
+            dims = tuple(0 if d == Unknown else d for d in o.shape.dims)
+            out[o.name] = np.empty((0,) + dims, o.dtype.np_dtype)
+        return out
+    buf = max(2, get_config().aggregate_buffer_size)
+    compiled = program.compiled()
+    order = np.argsort(seg_ids, kind="stable")
+    counts = np.bincount(seg_ids, minlength=num_groups).astype(np.int64)
+
+    def run_chunks(cur, mat):
+        """One vmapped dispatch over a [n_chunks, size] row-index matrix."""
+        n_chunks = mat.shape[0]
+        target = bucket_rows(n_chunks)
+        if target > n_chunks:
+            mat = np.concatenate(
+                [mat, np.repeat(mat[-1:], target - n_chunks, axis=0)])
+        idx = dt.to_torch(mat.reshape(-1).astype(np.int32), device)
+        feeds = {
+            f"{x}_input": cur[x].index_select(0, idx).reshape(
+                mat.shape + tuple(cur[x].shape[1:]))
+            for x in out_names
+        }
+        res = compiled.run_rows(feeds, device, to_numpy=False)
+        return {x: res[x][:n_chunks] for x in out_names}
+
+    def scatter(parts, rows):
+        nxt = {}
+        for x in out_names:
+            first = parts[0][1][x]
+            acc = torch.zeros((rows,) + tuple(first.shape[1:]), dtype=first.dtype,
+                              device=first.device)
+            for pos, res in parts:
+                acc.index_copy_(0, dt.to_torch(pos, device), res[x])
+            nxt[x] = acc
+        return nxt
+
+    with torch.inference_mode():
+        cur = {x: dt.to_torch(np.asarray(val_cols[x])[order], device)
+               for x in out_names}
+        while int(counts.max(initial=0)) > buf:
+            starts = np.concatenate(([0], np.cumsum(counts)[:-1]))
+            k, r = counts // buf, counts % buf
+            new_counts = k + (r > 0)
+            new_starts = np.concatenate(([0], np.cumsum(new_counts)[:-1]))
+            parts = []  # (positions in the next level's state, results)
+            if int(k.sum()):
+                # every full chunk of every group: one dispatch
+                g_of = np.repeat(np.arange(num_groups), k)
+                rank = np.arange(len(g_of)) - np.repeat(np.cumsum(k) - k, k)
+                base = starts[g_of] + rank * buf
+                mat = base[:, None] + np.arange(buf)[None, :]
+                parts.append((new_starts[g_of] + rank, run_chunks(cur, mat)))
+            for rv in np.unique(r[r > 0]):
+                # remainder chunks, one dispatch per size
+                sel = np.flatnonzero(r == rv)
+                base = starts[sel] + k[sel] * buf
+                mat = base[:, None] + np.arange(int(rv))[None, :]
+                parts.append((new_starts[sel] + k[sel], run_chunks(cur, mat)))
+            cur, counts = scatter(parts, int(new_counts.sum())), new_counts
+        # final application: the program runs at least once per group,
+        # single-row groups too (the UDAF's final evaluate)
+        starts = np.concatenate(([0], np.cumsum(counts)[:-1]))
+        parts = []
+        for cv in np.unique(counts):
+            sel = np.flatnonzero(counts == cv)
+            mat = starts[sel][:, None] + np.arange(int(cv))[None, :]
+            parts.append((sel, run_chunks(cur, mat)))
+        finals = scatter(parts, num_groups)
+    return Readback(finals).wait()
+
+
+def _generic_aggregate(program, frame, keys, out_names, device):
+    """The generic (UDAF) route over a non-empty frame: value columns
+    gathered, keys encoded on the host as the fast path encodes them, and
+    :func:`_batched_compaction` on the device. Returns
+    ``(out_key_cols, out_cols, n_rows)``."""
+    from .keys import frame_group_ids
+
+    val_cols = _value_columns(frame, out_names)
+    seg_ids, group_key_cols, num_groups = frame_group_ids(frame, keys)
+    out_cols = _batched_compaction(
+        program, val_cols, seg_ids, num_groups, out_names, device
+    )
     return dict(zip(keys, group_key_cols)), out_cols, len(seg_ids)
 
 
@@ -733,10 +951,11 @@ def aggregate(
     the ``x`` / ``x_input`` naming contract, like reduce_blocks.
 
     Keys encode to dense group ids on the host (value columns are never
-    reordered), and the fetches — DSL ``reduce_sum/min/max/mean`` reducers
-    over placeholders — lower to one segment reduction on the device fed
-    UNSORTED ids. Other (non-algebraic) fetches need the generic UDAF path,
-    which this port does not have yet.
+    reordered). Fetches that are DSL ``reduce_sum/min/max/mean`` reducers
+    over placeholders lower to one segment reduction on the device fed
+    UNSORTED ids; any other program takes the generic UDAF route
+    (:func:`_batched_compaction`), which must be algebraic: re-applying it
+    to stacked partials must be valid.
     """
     frame = grouped.frame
     keys = grouped.keys
@@ -750,19 +969,18 @@ def aggregate(
     algebraic = seg_info is not None and all(
         op in _SEGMENT_OPS or op == "reduce_mean" for _, op, _ in seg_info
     )
-    if not algebraic:
-        raise NotImplementedError(
-            "aggregate with non-algebraic fetches (the generic UDAF "
-            "compaction path) is not ported yet; see ROADMAP.md, queue 1, "
-            "'Generic aggregate'. Use reduce_sum/min/max/mean DSL fetches."
-        )
     schema = Schema(_agg_schema_infos(frame.schema, keys, program))
     if frame.num_rows == 0:
         profiling.record("aggregate", time.perf_counter() - t0, 0)
         return TensorFrame(_empty_agg_blocks(schema), schema)
-    out_key_cols, out_cols, n = _host_fast_aggregate(
-        frame, keys, seg_info, out_names, dev
-    )
+    if algebraic:
+        out_key_cols, out_cols, n = _host_fast_aggregate(
+            frame, keys, seg_info, out_names, dev
+        )
+    else:
+        out_key_cols, out_cols, n = _generic_aggregate(
+            program, frame, keys, out_names, dev
+        )
     block: Block = dict(out_key_cols)
     for o in program.outputs:
         block[o.name] = out_cols[o.name]

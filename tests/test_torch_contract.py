@@ -72,6 +72,30 @@ def test_port_and_chip_smoke_import_no_jax():
     assert out.stdout.strip() == "[]", out.stdout
 
 
+def test_port_imports_and_runs_without_pandas():
+    """The card's machine has no pandas: with ``import pandas`` made to
+    fail, every module of the port imports, and the verbs and the
+    relational frame ops run (the pandas forms import it only when
+    called)."""
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['pandas'] = None\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import numpy as np\n"
+        "import tensorframes_tpu_torch as t\n"
+        "f = t.frame_from_arrays({'k': np.arange(6) % 2, 'x': np.arange(6.0)}, num_blocks=2)\n"
+        "f = f.filter(lambda x: {'m': x > 0.5}, device='cpu').sort_values('x', ascending=False)\n"
+        "c = t.map_blocks(lambda x: {'z': x + 1}, f, device='cpu')\n"
+        "print(c.column_values('z').tolist(), f.group_by('k').count(device='cpu').column_values('count').tolist())\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[6.0, 5.0, 4.0, 3.0, 2.0] [2, 3]", out.stdout
+
+
 def test_importer_modules_import_neither_tensorflow_nor_jax():
     """The GraphDef/SavedModel importer, its bundle reader and VGG-16 are
     among the modules checked above, and importing them (with the

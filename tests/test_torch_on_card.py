@@ -863,3 +863,63 @@ def test_vgg_bf16_fc_layers_keep_f32_sums_on_card(cuda_device):
     assert y.dtype == torch.float32
     assert float((y - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
     assert float(((x @ w).double() - ref).abs().max()) > 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("depth,prefetch", [(0, 0), (1, 0), (2, 2), (3, 2)])
+def test_map_blocks_pipeline_bit_for_bit_on_card(cuda_device, depth, prefetch):
+    """``map_blocks`` with blocks staged ahead on a side stream and
+    outputs read back on another gives the serial run's bits, while the
+    compute stream is kept busy (a spin before each block's program)."""
+    rng = np.random.default_rng(12)
+    frame = tft.frame_from_arrays({"x": rng.standard_normal((4096, 256)).astype(np.float32)},
+                                  num_blocks=7)
+
+    def prog(x):
+        torch.cuda._sleep(1_000_000)
+        return {"y": torch.tanh(x @ x.T[:, :64]) * 2.0}
+
+    cfg = tft.get_config()
+    was = (cfg.map_pipeline_depth, cfg.map_prefetch_depth)
+    try:
+        tft.configure(map_pipeline_depth=0, map_prefetch_depth=0)
+        want = tft.map_blocks(prog, frame, device=cuda_device).column_values("y")
+        tft.configure(map_pipeline_depth=depth, map_prefetch_depth=prefetch)
+        got = tft.map_blocks(prog, frame, device=cuda_device).column_values("y")
+    finally:
+        tft.configure(map_pipeline_depth=was[0], map_prefetch_depth=was[1])
+    assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
+
+
+def test_readback_waits_on_its_own_event_on_card(cuda_device):
+    """A readback started behind queued work returns that work's values;
+    bf16 crosses as bf16."""
+    from tensorframes_tpu_torch.ops import executor as texec
+
+    x = torch.arange(1 << 20, device=cuda_device, dtype=torch.float32)
+    torch.cuda._sleep(20_000_000)
+    pending = texec.Readback({"a": x * 2, "b": (x[:8] + 0.5).bfloat16()})
+    out = pending.wait()
+    np.testing.assert_array_equal(out["a"], np.arange(1 << 20, dtype=np.float32) * 2)
+    assert str(out["b"].dtype) == "bfloat16"
+    np.testing.assert_array_equal(out["b"].astype(np.float32), np.arange(8) + 0.5)
+
+
+def test_generic_aggregate_on_card_matches_cpu(cuda_device):
+    """The generic (UDAF) aggregate on the card equals the CPU run: int
+    sums exactly, f32 sums within rtol 1e-5 / atol 1e-5·max|v|·√n."""
+    rng = np.random.default_rng(13)
+    n = 50_000
+    frame = tft.frame_from_arrays({"k": rng.integers(0, 97, n),
+                                   "v": rng.standard_normal((n, 4)).astype(np.float32),
+                                   "i": rng.integers(-9, 9, n).astype(np.int32)})
+
+    def fetches(v_input, i_input):
+        return {"v": v_input.sum(0), "i": i_input.sum(0, dtype=torch.int32)}
+
+    got = tft.aggregate(fetches, frame.group_by("k"), device=cuda_device)
+    want = tft.aggregate(fetches, frame.group_by("k"), device="cpu")
+    np.testing.assert_array_equal(got.column_values("k"), want.column_values("k"))
+    np.testing.assert_array_equal(got.column_values("i"), want.column_values("i"))
+    counts = np.bincount(frame.column_values("k"))[want.column_values("k")]
+    np.testing.assert_allclose(got.column_values("v"), want.column_values("v"), rtol=1e-5,
+                               atol=1e-5 * 5 * np.sqrt(counts.max()))

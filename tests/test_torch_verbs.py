@@ -393,12 +393,6 @@ def test_aggregate_routes_to_the_segment_kernels(monkeypatch):
     assert seen == ["segment_sum"]
 
 
-def test_aggregate_non_algebraic_is_not_ported():
-    df = tft.frame_from_arrays({"k": np.arange(4) % 2, "v": np.arange(4.0)})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tft.aggregate(lambda v_input: {"v": v_input.sum(0) * 2}, df.group_by("k"), device="cpu")
-
-
 # ---------------------------------------------------------------------------
 # logreg scoring with the reference's weights
 # ---------------------------------------------------------------------------
