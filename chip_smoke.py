@@ -93,7 +93,19 @@ Phases:
    on a 1,000,000-row slice ``sort_values`` and an inner and a left
    ``join`` against 100,000 rows; ``drop_duplicates`` and
    ``group_by().count()``: every result against numpy, each op's host
-   wall. Then the decode server's path, counts reset again: a
+   wall. Then the plan layer (``plan_leg``): bench.py's chain3 (three
+   f32 maps, ``select``), chain3_join (two maps, a join with 512 rows,
+   f32 sums by key) and multijoin (int32 star schema, two joins, an
+   aggregate pushed below them) over 10,000,000 rows in 8 blocks, fused
+   (the default), with ``plan_fusion=False`` and, for multijoin,
+   ``plan_reopt=False``: every mode's outputs equal the fused ones bit
+   for bit and numpy's; per mode the median wall of 3 calls, decisions,
+   launches per call (an aggregate must launch ``segment_reduce`` in
+   every mode),
+   bytes avoided, a profiled call's copies and busy share. The main
+   path's logreg aggregate by label also runs off the lazy scoring
+   chain, fused and unfused, bit-equal to the materialized frame's.
+   Then the decode server's path, counts reset again: a
    ``Server`` with a gpt_small decode endpoint (int8 weights from seed 0,
    16 slots, 16-position pages, prompts <= 128, 64 new tokens) answers 32
    requests; the first 8 re-run solo must match exactly; an engine with a
@@ -1446,6 +1458,24 @@ def main_path(tft, dev) -> dict:
     present = np.unique(labels)
     float_close(torch.from_numpy(got), torch.from_numpy(want[present]),
                 np.bincount(labels, minlength=10)[present], 1.0)
+    # the same aggregate straight off the lazy scoring chain: the plan
+    # route (the label is a key the chain computes, so the chain runs and
+    # the keyed reduction follows), fused and with plan_fusion off, equal
+    # bit for bit to each other and to the aggregate above
+    def label_agg():
+        chain = tft.map_blocks(logreg.scoring_program(params), ff, device=dev)
+        with tft.with_graph():
+            out = tft.aggregate(tft.reduce_sum(tft.block(chain, "scores", tf_name="scores_input"),
+                                               name="scores"), chain.group_by("label"), device=dev)
+        return out.column_values("label"), out.column_values("scores")
+
+    fused_cfg3 = label_agg()
+    with knobs(tft, plan_fusion=False):
+        unfused_cfg3 = label_agg()
+    for a, b in zip(fused_cfg3 + fused_cfg3, unfused_cfg3 + (agg.column_values("label"), got)):
+        if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+            fail("logreg aggregate by label: the plan route, plan_fusion=False and the "
+                 "materialized frame's aggregate differ")
     del ff, scored, sf, feats
 
     # the 10M-row aggregate (segment_reduce), and an aggregate of f32 +
@@ -1517,6 +1547,7 @@ def knobs(tft, **values):
 
 
 RAGGED_REPS = 5
+FILTER_REPS = 3
 PIPELINE_MODES = (("serial", {"map_pipeline_depth": 0, "map_prefetch_depth": 0}),
                   ("pipelined", {"map_pipeline_depth": 2, "map_prefetch_depth": 2}))
 
@@ -1653,7 +1684,10 @@ def relational_leg(tft, dev, n: int = REL_ROWS, keys: int = REL_KEYS,
     keys exceed the kernels' 4,096 segments) and the f32 sum beside an
     int64 sum of ``k`` (the per-op route, ``segment_sum`` for the f32
     column), sums within ``float_close``'s tolerance, max and int sums
-    exact, each through its kernel by the launch counts; on an ``n_slice``-row slice ``sort_values(["k", "x"],
+    exact, each through its kernel by the launch counts; the filter
+    again, FILTER_REPS times each way, alternating ``plan_fusion=False``
+    and fused, every result equal to the first, so the plan's host cost
+    on a one-stage filter reads off one run (medians); on an ``n_slice``-row slice ``sort_values(["k", "x"],
     ascending=[True, False])`` and an inner and a left ``join`` against
     an ``n_right``-row frame of unique keys (``fill_value``), exact;
     ``drop_duplicates(["k"])`` and ``group_by("k").count()``, exact. Each
@@ -1687,6 +1721,23 @@ def relational_leg(tft, dev, n: int = REL_ROWS, keys: int = REL_KEYS,
     if not (np.array_equal(fid, ids[keep]) and np.array_equal(fx, x[keep])
             and np.array_equal(fk, k[keep])):
         fail("relational: filter(x > 0.5) differs from the numpy mask")
+    # the plan's mask route against the eager one, warm and alternated in
+    # one run: the host time the plan machinery adds to a one-stage filter
+    warm = {"filter unfused": [], "filter fused again": []}
+    for _ in range(FILTER_REPS):
+        for label, fusion in (("filter unfused", False), ("filter fused again", True)):
+            with knobs(tft, plan_fusion=fusion):
+                t0 = time.perf_counter()
+                other = frame.filter(lambda x: {"keep": x > 0.5}, device=dev).cache()
+                warm[label].append((time.perf_counter() - t0) * 1e3)
+            if not np.array_equal(other.column_values("id"), fid):
+                fail(f"relational: {label} differs from the first filter")
+            del other
+    for label, ws in warm.items():
+        walls[label] = float(np.median(ws))
+    log("# relational filter, warm, alternated (ms): " + "; ".join(
+        f"{label} median {walls[label]:.3f} of {', '.join(f'{w:.3f}' for w in ws)}"
+        for label, ws in warm.items()))
 
     groups = int(fg.max()) + 1
     counts = np.bincount(fg, minlength=groups)
@@ -1755,6 +1806,242 @@ def relational_leg(tft, dev, n: int = REL_ROWS, keys: int = REL_KEYS,
         for kname, c in counts_.items():
             merged[kname] = merged.get(kname, 0) + c
     return {"walls_ms": walls, "launches": merged}
+
+
+# the plan leg's pipelines (bench.py's chain3, chain3_join and multijoin)
+# at the relational leg's scale: 10M rows in 8 blocks, seed 0. multijoin
+# groups by (k1, k2) over 512 x PLAN_G2 keys: 4,096 groups, the segment
+# kernel's MAX_SEGMENTS, where bench.py's 64 k2 keys (32,768 groups) would
+# leave the pushed-down partial aggregate to the torch route
+PLAN_ROWS, PLAN_BLOCKS, PLAN_G1, PLAN_G2, PLAN_REPS = 10_000_000, 8, 512, 8, 3
+PLAN_TRACE = ROOT / "build" / "plan_leg_trace.json"
+
+
+def copy_profile(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` after a traced warm-up
+    (see :func:`timeline_profile`), read from its exported Chrome trace:
+    the count and bytes of ``Memcpy HtoD`` and ``Memcpy DtoH`` copies,
+    the device's busy time (the union of its kernel, copy and memset
+    intervals) and its share of the call's host wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    PLAN_TRACE.parent.mkdir(parents=True, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: p.export_chrome_trace(str(PLAN_TRACE))) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        prof.step()
+    trace = json.loads(PLAN_TRACE.read_text())
+    PLAN_TRACE.unlink()
+    out = {"htod_count": 0, "htod_bytes": 0, "dtoh_count": 0, "dtoh_bytes": 0}
+    spans = []
+    for ev in trace.get("traceEvents", []):
+        if ev.get("ph") != "X" or ev.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        spans.append((float(ev["ts"]) / 1e3, (float(ev["ts"]) + float(ev["dur"])) / 1e3))
+        name = ev.get("name", "")
+        for tag, key in (("Memcpy HtoD", "htod"), ("Memcpy DtoH", "dtoh")):
+            if name.startswith(tag):
+                out[f"{key}_count"] += 1
+                out[f"{key}_bytes"] += int((ev.get("args") or {}).get("bytes", 0))
+    busy = sum(b - a for a, b in merged(spans))
+    return {**out, "wall_ms": wall, "busy_ms": busy, "busy_share": busy / wall}
+
+
+def plan_pipelines(tft, dev) -> dict:
+    """bench.py's three plan pipelines (``_bench_chain3``,
+    ``_bench_chain3_join``, ``_bench_multijoin``) at PLAN_ROWS rows in
+    PLAN_BLOCKS blocks: each a function from nothing to its outputs (a
+    dict of numpy columns), rebuilding its chain from pre-compiled
+    stage Programs as a per-batch pipeline would."""
+    import numpy as np
+
+    n = PLAN_ROWS
+    rng = np.random.default_rng(SEED)
+    frame = tft.frame_from_arrays({"x": np.arange(n, dtype=np.float32)}, num_blocks=PLAN_BLOCKS)
+    c1 = tft.compile_program(lambda x: {"y": x * 2.0 + 1.0}, frame, device=dev)
+    cf1 = tft.map_blocks(c1, frame, device=dev)
+    c2 = tft.compile_program(lambda y: {"z": y * 0.5 - 3.0}, cf1, device=dev)
+    cf2 = tft.map_blocks(c2, cf1, device=dev)
+    c3 = tft.compile_program(lambda z: {"w": z * z + 1.0}, cf2, device=dev)
+
+    def chain3():
+        out = tft.map_blocks(c3, tft.map_blocks(c2, tft.map_blocks(c1, frame, device=dev),
+                                                device=dev), device=dev).select(["w"])
+        return {"w": out.column_values("w")}
+
+    # chain3_join: dead probe columns a, b and an [n, 8] e, a dead build
+    # column; small integers, so every f32 group sum is exact
+    probe = tft.frame_from_arrays({
+        "k": rng.integers(0, PLAN_G1, n).astype(np.int32),
+        "x": (np.arange(n) % 16).astype(np.float32),
+        "a": np.arange(n, dtype=np.float32), "b": np.ones(n, np.float32),
+        "e": np.ones((n, 8), np.float32)}, num_blocks=PLAN_BLOCKS)
+    dim = tft.frame_from_arrays({"k": np.arange(PLAN_G1, dtype=np.int32),
+                                 "w": np.arange(PLAN_G1, dtype=np.float32),
+                                 "tag": np.ones(PLAN_G1, np.float32)}, num_blocks=1)
+    j1 = tft.compile_program(lambda x: {"y": x * 2.0 + 1.0}, probe, device=dev)
+    jf1 = tft.map_blocks(j1, probe, device=dev)
+    j2 = tft.compile_program(lambda y: {"z": y * y}, jf1, device=dev)
+    j0 = tft.map_blocks(j2, jf1, device=dev).join(dim, on="k")
+    with tft.with_graph():
+        jagg = tft.compile_program([
+            tft.reduce_sum(tft.block(j0, "z", tf_name="z_input"), axis=0, name="z"),
+            tft.reduce_sum(tft.block(j0, "w", tf_name="w_input"), axis=0, name="w"),
+        ], j0, reduce_mode="blocks", device=dev)
+
+    def chain3_join():
+        f2 = tft.map_blocks(j2, tft.map_blocks(j1, probe, device=dev), device=dev)
+        out = tft.aggregate(jagg, f2.join(dim, on="k").group_by("k"), device=dev)
+        return {c: out.column_values(c) for c in ("k", "z", "w")}
+
+    # multijoin: int32 star schema, unique dim keys (m = 1), dim2 holding
+    # half of k2's keys so the inner join drops groups
+    fact = tft.frame_from_arrays({
+        "k1": rng.integers(0, PLAN_G1, n).astype(np.int32),
+        "k2": rng.integers(0, PLAN_G2, n).astype(np.int32),
+        "x": (np.arange(n) % 16).astype(np.int32),
+        "a": np.arange(n, dtype=np.float32), "e": np.ones((n, 8), np.float32)},
+        num_blocks=PLAN_BLOCKS)
+    dim1 = tft.frame_from_arrays({"k1": np.arange(PLAN_G1, dtype=np.int32),
+                                  "w1": np.arange(PLAN_G1, dtype=np.int32),
+                                  "tag1": np.ones(PLAN_G1, np.float32)}, num_blocks=1)
+    dim2 = tft.frame_from_arrays({"k2": np.arange(0, PLAN_G2, 2, dtype=np.int32),
+                                  "w2": np.arange(PLAN_G2 // 2, dtype=np.int32),
+                                  "tag2": np.ones(PLAN_G2 // 2, np.float32)}, num_blocks=1)
+    m1 = tft.compile_program(lambda x: {"y": x * 2 + 1}, fact, device=dev)
+    mf1 = tft.map_blocks(m1, fact, device=dev)
+    m2 = tft.compile_program(lambda y: {"z": y * y}, mf1, device=dev)
+    m0 = tft.map_blocks(m2, mf1, device=dev).join(dim1, on="k1").join(dim2, on="k2")
+    with tft.with_graph():
+        magg = tft.compile_program(
+            [tft.reduce_sum(tft.block(m0, "z", tf_name="z_input"), axis=0, name="z")],
+            m0, reduce_mode="blocks", device=dev)
+
+    def multijoin():
+        f2 = tft.map_blocks(m2, tft.map_blocks(m1, fact, device=dev), device=dev)
+        j = f2.join(dim1, on="k1").join(dim2, on="k2")
+        out = tft.aggregate(magg, j.group_by("k1", "k2"), device=dev)
+        return {c: out.column_values(c) for c in ("k1", "k2", "z")}
+
+    def expected():
+        """Each pipeline's outputs computed with numpy (every sum exact)."""
+        x = np.arange(n, dtype=np.float32)
+        w = (((x * np.float32(2) + np.float32(1)) * np.float32(0.5) - np.float32(3)) ** 2
+             + np.float32(1))
+        k = probe.column_values("k")
+        zf = (2 * (np.arange(n) % 16) + 1) ** 2
+        cnt = np.bincount(k, minlength=PLAN_G1)
+        ks = np.flatnonzero(cnt)
+        cj = {"k": ks.astype(np.int32),
+              "z": np.bincount(k, weights=zf, minlength=PLAN_G1)[ks].astype(np.float32),
+              "w": (cnt * np.arange(PLAN_G1))[ks].astype(np.float32)}
+        k1, k2 = fact.column_values("k1"), fact.column_values("k2")
+        keep = k2 % 2 == 0
+        code = k1[keep].astype(np.int64) * PLAN_G2 + k2[keep]
+        sums = np.bincount(code, weights=zf[keep], minlength=PLAN_G1 * PLAN_G2)
+        present = np.flatnonzero(np.bincount(code, minlength=PLAN_G1 * PLAN_G2))
+        mj = {"k1": (present // PLAN_G2).astype(np.int32),
+              "k2": (present % PLAN_G2).astype(np.int32),
+              "z": sums[present].astype(np.int32)}
+        return {"chain3": {"w": w}, "chain3_join": cj, "multijoin": mj}
+
+    return {"chain3": chain3, "chain3_join": chain3_join, "multijoin": multijoin,
+            "expected": expected}
+
+
+def plan_leg(tft, dev) -> dict:
+    """The plan layer on the card: bench.py's chain3, chain3_join and
+    multijoin (:func:`plan_pipelines`), each in every mode — fused (the
+    default), ``plan_fusion=False`` (stage by stage), and for multijoin
+    ``plan_reopt=False`` (the static cost model) — with outputs equal to
+    the fused ones bit for bit. Per mode: the median host wall of
+    PLAN_REPS calls (after a warm-up call), the cost model's decisions
+    counted in one call by kind, the kernels' launches per call, the
+    ``tftpu_plan_intermediate_bytes_avoided_total`` delta of one call,
+    and one profiled call's ``Memcpy HtoD``/``DtoH`` count and bytes and
+    the device's busy share. An aggregate that launched no
+    ``segment_reduce``, in any mode, fails: its epilogue (or the eager
+    route) did not reach the kernel."""
+    import numpy as np
+
+    reg = tft.observability.REGISTRY
+
+    def series(name):
+        return {tuple(sorted(d["labels"].items())): float(d["value"])
+                for d in reg.snapshot() if d["name"] == name}
+
+    def delta(name, fn):
+        before = series(name)
+        out = fn()
+        after = series(name)
+        return out, {k: after[k] - before.get(k, 0.0) for k in after
+                     if after[k] != before.get(k, 0.0)}
+
+    pipes = plan_pipelines(tft, dev)
+    expected = pipes["expected"]()
+    modes = {"chain3": ("fused", "unfused"), "chain3_join": ("fused", "unfused"),
+             "multijoin": ("fused", "static", "unfused")}
+    knob_of = {"fused": {}, "unfused": {"plan_fusion": False}, "static": {"plan_reopt": False}}
+    result = {}
+    for name, mode_names in modes.items():
+        fn = pipes[name]
+        outs, per_mode = {}, {}
+        for mode in mode_names:
+            with knobs(tft, **knob_of[mode]):
+                outs[mode] = fn()  # warm-up, and the outputs compared below
+                walls, launches = [], []
+                for _ in range(PLAN_REPS):
+                    tft.kernels.LAUNCHES.reset()
+                    t0 = time.perf_counter()
+                    fn()
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                    launches.append(tft.kernels.LAUNCHES.snapshot())
+                _, decisions = delta("tftpu_plan_cost_decisions_total", fn)
+                _, avoided = delta("tftpu_plan_intermediate_bytes_avoided_total", fn)
+                prof = copy_profile(fn)
+            per_call = {k: v for k, v in launches[-1].items() if v}
+            per_mode[mode] = {
+                "wall_ms": float(np.median(walls)), "walls_ms": walls,
+                "decisions": {dict(k)["decision"]: v for k, v in decisions.items()},
+                "launches_per_call": per_call,
+                "bytes_avoided": sum(avoided.values()),
+                **{("profiled_wall_ms" if k == "wall_ms" else k): v for k, v in prof.items()}}
+            if name != "chain3" and per_call.get("segment_reduce", 0) < 1:
+                fail(f"plan_leg {name} ({mode}): the aggregate launched segment_reduce "
+                     f"{per_call.get('segment_reduce', 0)} times a call — its epilogue did not "
+                     "reach the kernel")
+            r = per_mode[mode]
+            log(f"# plan {name} {mode}: median {r['wall_ms']:.3f} ms of {PLAN_REPS} calls "
+                f"({', '.join(f'{w:.3f}' for w in walls)}); decisions {json.dumps(r['decisions'])}; "
+                f"launches per call {json.dumps(per_call)}; bytes avoided "
+                f"{r['bytes_avoided']:.0f}; profiled {r['profiled_wall_ms']:.3f} ms: Memcpy HtoD "
+                f"{r['htod_count']} copies {r['htod_bytes']} bytes, DtoH {r['dtoh_count']} copies "
+                f"{r['dtoh_bytes']} bytes, device busy {r['busy_ms']:.3f} ms "
+                f"({100 * r['busy_share']:.1f}%)")
+        for mode in mode_names[1:]:
+            for col, v in outs["fused"].items():
+                u = outs[mode][col]
+                if v.dtype != u.dtype or v.shape != u.shape or v.tobytes() != u.tobytes():
+                    fail(f"plan_leg {name}: column {col!r} of the {mode} run differs from the "
+                         "fused run's bits")
+        for col, want in expected[name].items():
+            if not np.array_equal(outs["fused"][col], want):
+                fail(f"plan_leg {name}: column {col!r} differs from numpy's")
+        result[name] = per_mode
+    fused_md = result["multijoin"]["fused"]["decisions"]
+    if fused_md.get("pushdown_aggregate", 0) < 1:
+        fail("plan_leg multijoin: the fused run recorded no pushdown_aggregate decision")
+    if fused_md.get("reoptimized", 0) < 1:
+        fail("plan_leg multijoin: a repeated fused run recorded no reoptimized decision")
+    return result
 
 
 def serving_path(tft, dev) -> dict:
@@ -3560,6 +3847,10 @@ def main() -> int:
     relational = relational_leg(tft, dev)
     new_legs_s = time.perf_counter() - t_new
     log(f"# ragged, generic aggregate and relational legs: {new_legs_s:.1f} s")
+    t_plan = time.perf_counter()
+    plan = plan_leg(tft, dev)
+    plan_s = time.perf_counter() - t_plan
+    log(f"# plan leg: {plan_s:.1f} s")
 
     t2 = time.perf_counter()
     serving = serving_path(tft, dev)

@@ -88,6 +88,7 @@ from .ops.verbs import (  # noqa: F401
 )
 from .utils import profiling  # noqa: F401
 from . import observability  # noqa: F401
+from .plan import explain_plan  # noqa: F401  (registers tftpu_plan_* metrics)
 from .serving import DecodeConfig, DecodeEngine, Server, ServingConfig  # noqa: F401
 from . import io, training  # noqa: F401
 from .graphdef import (  # noqa: F401
@@ -126,6 +127,7 @@ __all__ = [
     "append_shape",
     "print_schema",
     "explain",
+    "explain_plan",
     "kernels",
     "profiling",
     "observability",

@@ -1,8 +1,9 @@
 """Runtime configuration for tensorframes_tpu_torch.
 
 The knobs the ported verbs read — row-bucketing ladder, the default
-partition count, the verbs' block pipeline and the generic aggregate's
-buffer — plus the execution ``device``. Every knob but the device can
+partition count, the verbs' block pipeline, the generic aggregate's
+buffer, the plan layer's fusion and re-optimization switches and the
+stats sidecar's directory — plus the execution ``device``. Every knob but the device can
 be overridden via environment variables (``TFTPU_*``, the reference's
 names and defaults);
 every field can be set programmatically via :func:`configure`. The device
@@ -23,6 +24,13 @@ import torch
 def _env_int(name: str, default: int) -> int:
     v = os.environ.get(name)
     return default if v is None else int(v)
+
+
+def _env_bool(name: str, default: bool) -> bool:
+    v = os.environ.get(name)
+    if v is None:
+        return default
+    return v.lower() in ("1", "true", "yes", "on")
 
 
 @dataclasses.dataclass
@@ -47,6 +55,20 @@ class Config:
     # stages up to this many blocks' feeds on the device ahead of the
     # block being computed (io.prefetch_to_device; 0 = off).
     map_prefetch_depth: int = _env_int("TFTPU_MAP_PREFETCH_DEPTH", 2)
+    # Lazy verb-chain fusion (tensorframes_tpu_torch/plan): chained
+    # map_blocks/map_rows/select/filter/join/aggregate record a logical
+    # plan that lowers to one composed program per block at force time.
+    # TFTPU_FUSION=0 is the escape hatch: every verb runs eagerly,
+    # stage by stage, with bit-identical results.
+    plan_fusion: bool = _env_bool("TFTPU_FUSION", True)
+    # Adaptive query optimizer: aggregate pushdown below joins,
+    # multi-join reordering, and re-optimization from the per-plan stats
+    # sidecar under TFTPU_COMPILE_CACHE. TFTPU_REOPT=0 keeps the static
+    # cost model: no rewrite, no reordering, no stats recorded or read.
+    plan_reopt: bool = _env_bool("TFTPU_REOPT", True)
+    # Root directory of persistent caches; the plan-stats sidecar lives
+    # in <dir>/planstats. Empty: stats stay in memory.
+    compilation_cache_dir: str = os.environ.get("TFTPU_COMPILE_CACHE", "")
     # Where verbs execute: "cuda" (the default) or "cpu". With no GPU
     # present, "cuda" raises at the verb call instead of running on the
     # CPU; the CPU is used only when asked for.

@@ -13,7 +13,10 @@ Frames are host-resident: blocks move to the device when a verb dispatches
 them, and results come back to the host. Verbs are **lazy**, like the
 reference's map verbs under Spark (core.py:232-233): ``map_*`` returns a
 frame carrying a pending computation; ``collect()`` / ``blocks()`` forces
-it once and caches.
+it once and caches. With ``plan_fusion`` on (the default), chained verbs
+and ``select``/``filter``/``join`` record a logical plan (``_plan``,
+:mod:`.plan`) that lowers at force time, so a chain runs as one composed
+program per block.
 
 Shape discovery parity:
 
@@ -336,6 +339,12 @@ class TensorFrame:
                 if self._blocks is None:
                     self._blocks = self._pending()
                     self._pending = None
+                    # a recorded plan is spent once the blocks exist:
+                    # drop it so the node chain (and through it the
+                    # source frame's buffers) is not pinned. Downstream
+                    # lazy chains hold their own node references and
+                    # re-root here via is_materialized.
+                    self._plan = None
         return self._blocks
 
     @property
@@ -350,6 +359,38 @@ class TensorFrame:
     @property
     def num_rows(self) -> int:
         return sum(_block_num_rows(b) for b in self.blocks())
+
+    @property
+    def estimated_rows(self) -> Optional[int]:
+        """Row-count estimate that NEVER forces a lazy frame: exact for
+        materialized frames; a lazy chain rooted on a materialized source
+        estimates the source's rows when no recorded node can change the
+        row count (maps and selects preserve it; filters, joins and
+        aggregates are data-dependent). None when unknowable before the
+        force. The join-order decision records it."""
+        if self.is_materialized:
+            return self.num_rows
+        node = getattr(self, "_plan", None)
+        if node is None:
+            return None
+        from .plan.ir import resolve_chain
+
+        source, nodes = resolve_chain(node)
+        if any(n.kind not in ("map", "select") for n in nodes):
+            return None
+        if getattr(source, "is_materialized", False):
+            return source.num_rows
+        return None
+
+    @property
+    def estimated_bytes(self) -> Optional[int]:
+        """Host-byte estimate of materializing this frame (never forces a
+        lazy chain): ``estimated_rows`` × the schema's per-row dense width
+        (Unknown cell dims count as 1 — a lower bound). None when the row
+        count is unknowable before the force."""
+        from .plan.lower import estimate_materialized_bytes
+
+        return estimate_materialized_bytes(self)
 
     @property
     def columns(self) -> List[str]:
@@ -440,6 +481,28 @@ class TensorFrame:
         schema = self.schema.select(names)
         if self.is_materialized:
             return TensorFrame([{n: b[n] for n in names} for b in self._blocks], schema)
+        from .plan import ir as _plan_ir
+
+        if _plan_ir.fusion_enabled():
+            # a pending frame: record the projection on the logical plan
+            # — pushdown then prunes dead upstream outputs (and whole
+            # stages), so dropped columns are never computed or moved
+            node = _plan_ir.PlanNode(
+                "select",
+                parent=_plan_ir.node_for_parent(self),
+                names=list(names),
+                schema=schema,
+            )
+
+            def pending():
+                from .plan.lower import execute_plan
+
+                return execute_plan(node)
+
+            out = TensorFrame(None, schema, pending=pending)
+            node.bind(out)
+            out._plan = node
+            return out
         parent = self
         return TensorFrame(
             None, schema, pending=lambda: [{n: b[n] for n in names} for b in parent.blocks()]
@@ -467,6 +530,29 @@ class TensorFrame:
         mname = out_names[0]
         names = list(self.schema.names)
         parent = self
+        if getattr(masked, "_plan", None) is not None:
+            from .plan import ir as _plan_ir
+
+            # the mask program fuses into the upstream run (one dispatch
+            # computes upstream outputs AND the mask); the row subsetting
+            # itself splits the plan — its output row count is
+            # data-dependent
+            node = _plan_ir.PlanNode(
+                "filter",
+                parent=masked._plan,
+                mask_name=mname,
+                schema=self.schema,
+            )
+
+            def plan_pending():
+                from .plan.lower import execute_plan
+
+                return execute_plan(node)
+
+            out = TensorFrame(None, self.schema, pending=plan_pending)
+            node.bind(out)
+            out._plan = node
+            return out
 
         def compute() -> List[Block]:
             return [_apply_mask(b, names, mname) for b in masked.blocks()]
@@ -651,6 +737,31 @@ class TensorFrame:
             if info.is_device and info.dtype.np_dtype is not None:
                 spec.checked_fill(c, np.dtype(info.dtype.np_dtype))
         left, right = self, other
+        from .plan import ir as _plan_ir
+
+        if _plan_ir.fusion_enabled():
+            # the hash join ENTERS the plan: upstream probe-side maps
+            # fuse into the probe dispatch, and the needed-columns pass
+            # prunes through the join on both sides (a column no
+            # downstream select/aggregate reads is never computed,
+            # gathered or match-expanded)
+            node = _plan_ir.PlanNode(
+                "join",
+                parent=_plan_ir.node_for_parent(self),
+                right=other,
+                spec=spec,
+                schema=schema,
+            )
+
+            def plan_pending():
+                from .plan.lower import execute_plan
+
+                return execute_plan(node)
+
+            out = TensorFrame(None, schema, pending=plan_pending)
+            node.bind(out)
+            out._plan = node
+            return out
 
         def compute() -> List[Block]:
             return [_hash_join_cols(
@@ -728,11 +839,15 @@ class TensorFrame:
         """Re-chunk rows into ``num_blocks`` roughly equal blocks."""
         merged = _merged_global_columns(self, self.schema.names)
         total = len(next(iter(merged.values()))) if merged else 0
-        return TensorFrame(
+        out = TensorFrame(
             [{k: v[lo:hi] for k, v in merged.items()}
              for lo, hi in _partition_bounds(total, num_blocks)],
             self.schema,
         )
+        from .plan import ir as _plan_ir
+
+        _plan_ir.mark_barrier(out, "repartition materialization", self)
+        return out
 
     def cache(self) -> "TensorFrame":
         self.blocks()
@@ -769,10 +884,13 @@ class TensorFrame:
         """≙ ``explainTensors`` (dsl/Implicits.scala:77-79)."""
         return explain(self)
 
-    def explain(self, detailed: bool = False) -> str:
+    def explain(self, detailed: bool = False, analyze: bool = False) -> str:
         """Schema + tensor metadata rendering; ``detailed=True`` adds
-        the physical layout."""
-        return explain(self, detailed=detailed)
+        the physical layout. ``analyze=True`` is EXPLAIN ANALYZE: it
+        appends the plan tree annotated with the per-stage profile the
+        frame's last adaptive execution recorded (see
+        :func:`tensorframes_tpu_torch.explain_plan`)."""
+        return explain(self, detailed=detailed, analyze=analyze)
 
     def group_by(self, *keys: str) -> "GroupedData":
         """Group rows by key column(s) for keyed ``aggregate``
@@ -1064,13 +1182,20 @@ def append_shape(frame: TensorFrame, col: str, shape) -> TensorFrame:
     return TensorFrame(None, frame.schema.replace(new_info), pending=compute)
 
 
-def explain(frame: TensorFrame, detailed: bool = False) -> str:
+def explain(frame: TensorFrame, detailed: bool = False,
+            analyze: bool = False) -> str:
     """Schema rendering with tensor metadata (≙ ``OperationsInterface.explain``,
     DebugRowOps.scala:535-552). With ``detailed=True`` adds the physical
     layout — block row counts and storage kinds (≙ ``explainDetailed``,
     ExperimentalOperations.scala:26-37) — materializing the frame if
-    needed."""
+    needed. With ``analyze=True`` appends the EXPLAIN ANALYZE view: the
+    plan tree annotated with the per-stage profile, decisions and
+    barrier evidence recorded by the frame's last adaptive execution."""
     base = frame.schema.explain()
+    if analyze:
+        from .plan import explain_plan as _explain_plan
+
+        base = base + "\n\n" + _explain_plan(frame, analyze=True)
     if not detailed:
         return base
     lines = [base, ""]

@@ -18,6 +18,7 @@ rows match the reference row for row.
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -25,6 +26,7 @@ import torch
 
 from .. import dtypes as dt
 from ..config import get_config
+from ..observability import events as _events
 from ..observability.metrics import counter as _counter
 from ..program import Program
 
@@ -136,9 +138,18 @@ class CompiledProgram:
             else dt.to_torch(v, device)
             for k, v in feeds.items()
         }
-        self._note_dispatch(self._feeds_key(kind, tensors))
+        key = self._feeds_key(kind, tensors)
+        fresh = key not in self._dispatched
+        self._note_dispatch(key)
+        t0 = time.perf_counter()
         with torch.inference_mode():
             out = fn(tensors)
+        if _events.TRACER.enabled:
+            # host time of the dispatch (the device runs on asynchronously)
+            _events.TRACER.emit_complete(
+                f"executor.run_{'block' if kind == 'block' else 'rows'}",
+                t0, time.perf_counter() - t0, args={"compiled": fresh}, cat="executor",
+            )
         if not to_numpy:
             return out
         return {k: dt.to_numpy(v) for k, v in out.items()}

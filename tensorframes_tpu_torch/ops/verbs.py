@@ -20,8 +20,12 @@ the caller passes ``device="cpu"`` (or configures it):
   through level-batched compaction (the generic UDAF route).
 
 Programs may be DSL nodes or plain Python functions over torch tensors
-(see program.py). This is the reference's eager path
-(``TFTPU_FUSION=0``): no plan layer, no sharded frames.
+(see program.py). With ``plan_fusion`` on (the default, ``TFTPU_FUSION``),
+``map_blocks``/``map_rows`` on a host frame and ``aggregate`` on a
+plan-carrying frame record plan nodes instead of running
+(:mod:`..plan`), and ``reduce_blocks``/``reduce_rows`` fuse a recorded
+chain into their epilogue; ``TFTPU_FUSION=0`` runs every verb eagerly,
+stage by stage, with the same bits. No sharded frames.
 """
 
 from __future__ import annotations
@@ -61,6 +65,40 @@ from .executor import (
 logger = get_logger(__name__)
 
 Fetches = Union[Node, Sequence[Node], Program, Callable]
+
+
+def _plan_map_result(
+    frame, program: Program, schema: Schema, rows: bool, device
+) -> Optional["TensorFrame"]:
+    """Record this map stage on the frame's logical plan instead of
+    nesting another compute thunk (:mod:`..plan`): at force time the
+    whole chain lowers to one composed program per block. Returns None
+    when planning is off (``TFTPU_FUSION=0``) or re-entrant (the lowering
+    pass executes through these same verbs)."""
+    from ..plan import ir as plan_ir
+
+    if not plan_ir.fusion_enabled():
+        return None
+    node = plan_ir.PlanNode(
+        "map",
+        parent=plan_ir.node_for_parent(frame, device),
+        program=program,
+        rows=rows,
+        out_names=[o.name for o in program.outputs],
+        schema=schema,
+        device=device,
+    )
+
+    def pending():
+        from ..plan.lower import execute_plan
+
+        return execute_plan(node)
+
+    result = TensorFrame(None, schema, pending=pending)
+    node.bind(result)
+    result._plan = node
+    result._produced_by_map = True
+    return result
 
 
 def _is_pandas(obj) -> bool:
@@ -248,6 +286,10 @@ def map_blocks(
     validate_map(program, frame.schema, block=True, trim=trim)
     out_infos = _sorted_output_infos(program, block_mode=True)
     schema = Schema(out_infos if trim else out_infos + frame.schema.columns)
+    if not trim:
+        planned = _plan_map_result(frame, program, schema, False, dev)
+        if planned is not None:
+            return planned
     compiled = program.compiled()
     parent = frame
     input_names = program.input_names
@@ -308,7 +350,17 @@ def map_blocks(
         profiling.record("map_blocks", time.perf_counter() - t0, n_total)
         return out_blocks
 
-    return TensorFrame(None, schema, pending=compute)
+    result = TensorFrame(None, schema, pending=compute)
+    result._produced_by_map = True
+    if trim:
+        # a row-count-changing map is a fusion barrier: downstream
+        # chains re-root here
+        from ..plan import ir as plan_ir
+
+        plan_ir.mark_barrier(
+            result, "trim map_blocks (row-count-changing output)", frame
+        )
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -350,7 +402,7 @@ def _group_rows_by_shape(
 _RAGGED_STAGE_BYTES = 1 << 28  # 256 MB
 
 
-def _ragged_gather_plan(cols, input_names, n, device):
+def _ragged_gather_plan(cols, input_names, n, device, n_groups):
     """Device-side ragged staging: a single 1-D ragged column's cells move
     ONCE as a flat buffer, and the shape groups' bucket-padded batches are
     gathered on the device by the ragged-gather kernel
@@ -358,7 +410,9 @@ def _ragged_gather_plan(cols, input_names, n, device):
     (one per ``LAUNCH_BUDGET_BYTES`` of padded output). Returns a
     ``gather(groups) -> iterator of feeds`` closure, one feeds dict per
     group in order, or None when the column is not that shape (then
-    groups stage on the host)."""
+    groups stage on the host). On a CUDA device the choice is the cost
+    model's counted decision (``plan/rules.decide_ragged_gather``); on
+    the CPU the gather computes its plain version."""
     if len(input_names) != 1:
         return None
     name = input_names[0]
@@ -370,6 +424,13 @@ def _ragged_gather_plan(cols, input_names, n, device):
         return None
     if len({c.dtype for c in cells}) != 1:
         return None
+    decision = None
+    if device.type == "cuda":
+        from ..plan import rules as _prules
+
+        decision = _prules.decide_ragged_gather(n, n_groups, cells[0].dtype, device=device)
+        if decision is None:
+            return None
     from ..kernels import ragged_gather as _krg
 
     lens = np.fromiter((c.shape[0] for c in cells), np.int64, count=n)
@@ -377,6 +438,10 @@ def _ragged_gather_plan(cols, input_names, n, device):
         # start offsets are int32; a flat buffer past 2^31 elements would
         # wrap them — host staging handles it
         return None
+    if decision is not None:
+        from ..plan.lower import _note_decision
+
+        _note_decision(decision)
     starts = np.zeros(n, np.int64)
     np.cumsum(lens[:-1], out=starts[1:])
     flat_dev = dt.to_torch(np.concatenate(cells), device)
@@ -440,7 +505,7 @@ def _ragged_rows_outs(
         return out0
     group_list = [g for g in _group_rows_by_shape(cols, input_names, n)
                   if len(g)]
-    gather = _ragged_gather_plan(cols, input_names, n, device)
+    gather = _ragged_gather_plan(cols, input_names, n, device, len(group_list))
     window = max(0, get_config().map_pipeline_depth)
 
     def group_feeds(idx):
@@ -514,6 +579,9 @@ def map_rows(
     validate_map(program, frame.schema, block=False)
     out_infos = _sorted_output_infos(program, block_mode=False)
     schema = Schema(out_infos + frame.schema.columns)
+    planned = _plan_map_result(frame, program, schema, True, dev)
+    if planned is not None:
+        return planned
     compiled = program.compiled()
     parent = frame
     input_names = program.input_names
@@ -583,7 +651,9 @@ def map_rows(
         profiling.record("map_rows", time.perf_counter() - t0, n_total)
         return results
 
-    return TensorFrame(None, schema, pending=compute)
+    result = TensorFrame(None, schema, pending=compute)
+    result._produced_by_map = True
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -619,8 +689,17 @@ def reduce_rows(
     out_names = [o.name for o in program.outputs]
     fold = make_pair_fold(program, out_names)
     t0 = time.perf_counter()
-    partials: List[Dict[str, np.ndarray]] = []
-    for b in frame.blocks():
+    # whole-pipeline route: a lazy plan-carrying frame fuses its map
+    # chain WITH the pairwise-fold epilogue (plan/lower.lower_reduce) —
+    # the mapped columns never come back to the host; the per-block
+    # partials then combine exactly as always
+    from ..plan.lower import lower_reduce
+
+    planned = lower_reduce(frame, program, out_names, "rows", dev)
+    partials: List[Dict[str, np.ndarray]] = (
+        list(planned[0]) if planned is not None else []
+    )
+    for b in ([] if planned is not None else frame.blocks()):
         n = _block_num_rows(b)
         if n == 0:
             continue
@@ -652,7 +731,8 @@ def reduce_rows(
             for x in out_names
         })
         finals = {x: dt.to_numpy(res[x]) for x in out_names}
-    profiling.record("reduce_rows", time.perf_counter() - t0, frame.num_rows)
+    n_rows = planned[1] if planned is not None else frame.num_rows
+    profiling.record("reduce_rows", time.perf_counter() - t0, n_rows)
     return _unpack_results(program, finals)
 
 
@@ -679,8 +759,17 @@ def reduce_blocks(
     out_names = [o.name for o in program.outputs]
     compiled = program.compiled()
     t0 = time.perf_counter()
-    partials: List[Dict[str, np.ndarray]] = []
-    for b in frame.blocks():
+    # whole-pipeline route: fuse the recorded map chain with the reduce
+    # program into one dispatch per block (plan/lower.lower_reduce) —
+    # the mapped columns never come back to the host; partials combine
+    # as always
+    from ..plan.lower import lower_reduce
+
+    planned = lower_reduce(frame, program, out_names, "blocks", dev)
+    partials: List[Dict[str, np.ndarray]] = (
+        list(planned[0]) if planned is not None else []
+    )
+    for b in ([] if planned is not None else frame.blocks()):
         if _block_num_rows(b) == 0:
             continue
         feeds = {}
@@ -706,7 +795,8 @@ def reduce_blocks(
             f"{x}_input": np.stack([p[x] for p in partials]) for x in out_names
         }
         finals = compiled.run_block(feeds, dev)
-    profiling.record("reduce_blocks", time.perf_counter() - t0, frame.num_rows)
+    n_rows = planned[1] if planned is not None else frame.num_rows
+    profiling.record("reduce_blocks", time.perf_counter() - t0, n_rows)
     return _unpack_results(program, finals)
 
 
@@ -742,22 +832,43 @@ def _empty_agg_blocks(schema) -> List[Block]:
     return [empty]
 
 
-def _segment_reduce_best(ops_key, num_groups, val_cols, seg_ids, device):
-    """Keyed-reduction dispatch. The values and int32 ids move to the
-    device; the fused segment-reduce kernel (``kernels/segment_reduce.py``
-    — ONE call for every fetch) serves every eligible feed, and
-    :func:`run_segment_fast` (the per-op route: the segment-sum kernel for
-    float32/bfloat16 sums, PyTorch scatter ops for the rest) serves the
-    others. Returns numpy columns."""
+def _segment_reduce_device(ops_key, num_groups, vals, sids, device) -> Dict[str, torch.Tensor]:
+    """Keyed-reduction dispatch on tensors, recorded as a cost-model
+    decision (``plan/rules.decide_segment_reduce``): the fused
+    segment-reduce kernel (``kernels/segment_reduce.py`` — ONE call for
+    every fetch) serves every eligible feed on a CUDA device, and
+    :func:`run_segment_fast` (the per-op route: the segment-sum kernel
+    for float32/bfloat16 sums, PyTorch scatter ops for the rest) the
+    others. On the CPU an eligible feed computes the fused kernel's plain
+    version. Every keyed reduction — the eager aggregate and the plan's
+    epilogues and pushdown — dispatches here, so fused and unfused
+    outputs stay bit-identical. ``vals`` and the int32 ``sids`` are
+    tensors on ``device``; returns tensors there."""
     from ..kernels import segment_reduce as _ksr
+    from ..plan import rules as _prules
+    from ..plan.lower import _note_decision
 
-    _reject_bool_sum_mean(ops_key, val_cols)
-    vals = {x: dt.to_torch(val_cols[x], device) for x, _ in ops_key}
+    _reject_bool_sum_mean(ops_key, vals)
+    decision = _prules.decide_segment_reduce(ops_key, vals, num_groups, device=device)
+    _note_decision(decision)
+    if decision.kind == _prules.CUDA_SEGMENT_REDUCE or (
+            device.type == "cpu" and _ksr.eligible(ops_key, vals, num_groups)):
+        return _ksr.segment_reduce(ops_key, num_groups, vals, sids)
+    return run_segment_fast(ops_key, num_groups, vals, sids)
+
+
+def _segment_reduce_best(ops_key, num_groups, val_cols, seg_ids, device):
+    """:func:`_segment_reduce_device` over host or device columns: numpy
+    values and ids move to the device (device tensors are used as they
+    are); returns numpy columns."""
+    vals = {
+        x: (val_cols[x].to(device) if torch.is_tensor(val_cols[x])
+            else dt.to_torch(val_cols[x], device))
+        for x, _ in ops_key
+    }
+    _reject_bool_sum_mean(ops_key, vals)
     sids = dt.to_torch(np.asarray(seg_ids).astype(np.int32), device)
-    if _ksr.eligible(ops_key, vals, num_groups):
-        res = _ksr.segment_reduce(ops_key, num_groups, vals, sids)
-    else:
-        res = run_segment_fast(ops_key, num_groups, vals, sids)
+    res = _segment_reduce_device(ops_key, num_groups, vals, sids, device)
     return {x: dt.to_numpy(res[x]) for x, _ in ops_key}
 
 
@@ -970,6 +1081,43 @@ def aggregate(
         op in _SEGMENT_OPS or op == "reduce_mean" for _, op, _ in seg_info
     )
     schema = Schema(_agg_schema_infos(frame.schema, keys, program))
+    unfused_reason: Optional[str] = None
+    # whole-pipeline route: a lazy plan-carrying frame records an
+    # `aggregate` node instead of forcing its chain — the lowering
+    # composes the fused upstream maps with the keyed reduction
+    # (plan/lower.execute_aggregate), so the mapped value columns never
+    # come back to the host. Non-algebraic fetches keep the generic
+    # path, with the reason recorded.
+    from ..plan import ir as plan_ir
+
+    if getattr(frame, "_plan", None) is not None and plan_ir.fusion_enabled():
+        if algebraic:
+            node = plan_ir.PlanNode(
+                "aggregate",
+                parent=plan_ir.node_for_parent(frame, dev),
+                program=program,
+                out_names=out_names,
+                keys=keys,
+                spec=tuple(seg_info),
+                schema=schema,
+                device=dev,
+            )
+            node._extended = True  # terminal: consumers re-source on it
+
+            def agg_pending():
+                from ..plan.lower import execute_aggregate
+
+                return execute_aggregate(node)
+
+            result = TensorFrame(None, schema, pending=agg_pending)
+            node.bind(result)
+            result._plan = node
+            return result
+        unfused_reason = (
+            "non-algebraic fetches (no segment lowering): the chain "
+            "materializes before the generic UDAF path runs — use "
+            "reduce_sum/min/max/mean DSL fetches to fuse the epilogue"
+        )
     if frame.num_rows == 0:
         profiling.record("aggregate", time.perf_counter() - t0, 0)
         return TensorFrame(_empty_agg_blocks(schema), schema)
@@ -985,4 +1133,7 @@ def aggregate(
     for o in program.outputs:
         block[o.name] = out_cols[o.name]
     profiling.record("aggregate", time.perf_counter() - t0, n)
-    return TensorFrame([block], schema)
+    result = TensorFrame([block], schema)
+    if unfused_reason is not None:
+        plan_ir.mark_unfused(result, "aggregate", unfused_reason)
+    return result

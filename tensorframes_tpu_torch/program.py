@@ -76,6 +76,9 @@ class Program:
             list(fetch_order) if fetch_order else [o.name for o in self.outputs]
         )
         self._compiled = None  # memoized CompiledProgram (ops/executor.py)
+        # the device analyze_program probed on (tensors the function
+        # captured live there); cost_analysis probes on it too
+        self.device = None
 
     def compiled(self):
         """Memoized executor entrypoints (per-feed-shape dispatch
@@ -124,6 +127,7 @@ class Program:
             return inner({inv.get(k, k): v for k, v in feeds.items()})
 
         renamed = Program(fn, new_inputs, self.outputs, self.fetch_order)
+        renamed.device = self.device
         # carry the segment-lowering info (input names remapped) so the
         # aggregate fast path survives feed_dict renames
         seg = getattr(self, "seg_info", None)
@@ -132,6 +136,54 @@ class Program:
                 (out, op, mapping.get(inp, inp)) for (out, op, inp) in seg
             ]
         return renamed
+
+    def cost_analysis(self, probe: int = 8) -> Dict[str, float]:
+        """The program's cost at ``probe`` rows for every Unknown dim:
+        ``flops`` as ``torch.utils.flop_counter.FlopCounterMode`` counts
+        them (matmul-class ops only: a [m, k] @ [k, n] reads 2·m·k·n) and
+        ``bytes accessed`` as the bytes of the input and output specs,
+        each read or written once. The program runs under
+        ``FakeTensorMode``: no data moves, no kernel runs. Memoized per
+        probe."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        from torch.utils.flop_counter import FlopCounterMode
+
+        cache = self.__dict__.setdefault("_cost_cache", {})
+        if probe in cache:
+            return dict(cache[probe])
+        device = torch.device(self.device if self.device is not None else "cpu")
+        with FakeTensorMode(allow_non_fake_inputs=True), torch.no_grad():
+            feeds = _probe_inputs(self.inputs, probe, device)
+            with FlopCounterMode(display=False) as counter:
+                outs = self.fn(feeds)
+            nbytes = sum(v.numel() * v.element_size() for v in feeds.values())
+            nbytes += sum(v.numel() * v.element_size() for v in outs.values())
+        cache[probe] = {"flops": float(counter.get_total_flops()),
+                        "bytes accessed": float(nbytes)}
+        return dict(cache[probe])
+
+    def flops_per_row(self, probe: int = 8) -> float:
+        """Marginal flops per input row, from :meth:`cost_analysis` at two
+        probe sizes (the difference removes batch-independent work).
+        Memoized."""
+        cached = self.__dict__.get("_flops_per_row")
+        if cached is not None:
+            return cached
+        f1 = float(self.cost_analysis(probe).get("flops", 0.0))
+        f2 = float(self.cost_analysis(2 * probe).get("flops", 0.0))
+        self._flops_per_row = max(0.0, (f2 - f1) / probe)
+        return self._flops_per_row
+
+    def bytes_per_row(self, probe: int = 8) -> float:
+        """Marginal bytes accessed per input row (the two-probe scheme of
+        :meth:`flops_per_row`). Memoized."""
+        cached = self.__dict__.get("_bytes_per_row")
+        if cached is not None:
+            return cached
+        b1 = float(self.cost_analysis(probe).get("bytes accessed", 0.0))
+        b2 = float(self.cost_analysis(2 * probe).get("bytes accessed", 0.0))
+        self._bytes_per_row = max(0.0, (b2 - b1) / probe)
+        return self._bytes_per_row
 
     def explain(self) -> str:
         ins = ", ".join(s.pretty() for s in self.inputs)
@@ -209,7 +261,9 @@ def analyze_program(
     ordered = [by_name[n] for n in order if n in by_name] + [
         o for o in outputs if o.name not in order
     ]
-    return Program(program.fn, program.inputs, ordered, order)
+    analyzed = Program(program.fn, program.inputs, ordered, order)
+    analyzed.device = device
+    return analyzed
 
 
 def program_from_function(

@@ -165,6 +165,17 @@ class DecodeEngine:
         self._slot_buckets = grid["decode"]
         self._prefill_buckets = grid["prefill"]
         self._prefill = gen.paged_prefill_fn(model_cfg, cfg.page_size, max_pages)
+        # decode-attention lowering: a counted cost-model decision made
+        # ONCE per engine, so batched and solo steps run the same choice
+        # and the batched == solo and preemption-replay gates hold
+        from ..plan import rules as _prules
+        from ..plan.lower import _note_decision
+
+        decision = _prules.decide_decode_attention(
+            model_cfg.num_heads, model_cfg.head_dim, cfg.page_size, max_pages,
+            device=self.device,
+        )
+        _note_decision(decision)
         # the logits product pads to the top slot bucket: one library
         # shape whatever the running slot count (batched == solo)
         self._step = gen.paged_decode_step_fn(

@@ -12,6 +12,9 @@ first-class, plus ``torch.profiler`` device traces.
   ``explain``).
 * ``trace(logdir)`` — context manager around ``torch.profiler``:
   captures a Chrome trace of host and device activity into ``logdir``.
+
+When structured tracing is on (:mod:`..observability.events`), every span
+and record also lands on its Chrome-trace timeline as a complete event.
 """
 
 from __future__ import annotations
@@ -41,6 +44,18 @@ class SpanStats:
 
 _lock = threading.Lock()
 _stats: Dict[str, SpanStats] = {}
+_events_mod = None
+
+
+def _trace_events():
+    """The structured event tracer, imported on first use (the
+    observability package imports nothing of this module's callers)."""
+    global _events_mod
+    if _events_mod is None:
+        from ..observability import events
+
+        _events_mod = events
+    return _events_mod
 
 
 @contextlib.contextmanager
@@ -50,16 +65,31 @@ def span(name: str, rows: int = 0) -> Iterator[None]:
     try:
         yield
     finally:
-        record(name, time.perf_counter() - t0, rows)
+        dt = time.perf_counter() - t0
+        _accumulate(name, dt, rows)
+        ev = _trace_events()
+        if ev.TRACER.enabled:
+            ev.TRACER.emit_complete(name, t0, dt, args={"rows": rows} if rows else None,
+                                    cat="profiling")
 
 
-def record(name: str, seconds: float, rows: int = 0) -> None:
-    """Directly accumulate one measurement (for code that times itself)."""
+def _accumulate(name: str, seconds: float, rows: int) -> None:
     with _lock:
         s = _stats.setdefault(name, SpanStats())
         s.calls += 1
         s.seconds += seconds
         s.rows += rows
+
+
+def record(name: str, seconds: float, rows: int = 0) -> None:
+    """Directly accumulate one measurement (for code that times itself)."""
+    _accumulate(name, seconds, rows)
+    ev = _trace_events()
+    if ev.TRACER.enabled:
+        # callers record right after timing, so "it just ended" places
+        # the event's start closely enough for a timeline
+        ev.TRACER.emit_complete(name, time.perf_counter() - seconds, seconds,
+                                args={"rows": rows} if rows else None, cat="profiling")
 
 
 def metrics() -> Dict[str, SpanStats]:

@@ -96,6 +96,50 @@ def test_port_imports_and_runs_without_pandas():
     assert out.stdout.strip() == "[6.0, 5.0, 4.0, 3.0, 2.0] [2, 3]", out.stdout
 
 
+PLAN_MODULES = [
+    "tensorframes_tpu_torch.plan", "tensorframes_tpu_torch.plan.ir",
+    "tensorframes_tpu_torch.plan.rules", "tensorframes_tpu_torch.plan.stats",
+    "tensorframes_tpu_torch.plan.lower", "tensorframes_tpu_torch.observability.events",
+    "tensorframes_tpu_torch.observability.profile",
+]
+
+
+def test_plan_layer_imports_no_jax_and_fuses_without_pandas():
+    """The plan layer's modules are among those the two checks above
+    import; with pandas blocked they load no JAX, and a fused chain, a
+    fused aggregate, a join in the plan and ``explain_plan`` run."""
+    assert set(PLAN_MODULES) <= set(_port_modules())
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['pandas'] = None\n"
+        f"for m in {PLAN_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import numpy as np\n"
+        "import tensorframes_tpu_torch as t\n"
+        "t.configure(device='cpu')\n"
+        "f = t.frame_from_arrays({'k': np.arange(6) % 2, 'x': np.arange(6.0)}, num_blocks=2)\n"
+        "g = t.map_blocks(lambda y: {'z': y * 2}, t.map_blocks(lambda x: {'y': x + 1}, f))\n"
+        "with t.with_graph():\n"
+        "    a = t.aggregate(t.reduce_sum(t.block(g, 'z', tf_name='z_input'), name='z'),\n"
+        "                    g.group_by('k'))\n"
+        "d = t.frame_from_arrays({'k': np.arange(2), 'w': np.arange(2.0)})\n"
+        "j = g.join(d, on='k').select(['k', 'z', 'w'])\n"
+        "print(t.explain_plan(a).splitlines()[-1], a.column_values('z').tolist(),\n"
+        "      j.column_values('w').tolist())\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'tensorframes_tpu'))\n"
+        "print(bad)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.splitlines() == [
+        "  -> aggregate(keys=['k'], ops=['reduce_sum']) [18.0, 24.0] "
+        "[0.0, 1.0, 0.0, 1.0, 0.0, 1.0]",
+        "[]",
+    ], out.stdout
+
+
 def test_importer_modules_import_neither_tensorflow_nor_jax():
     """The GraphDef/SavedModel importer, its bundle reader and VGG-16 are
     among the modules checked above, and importing them (with the

@@ -165,6 +165,8 @@ def test_filter_errors():
 
 
 def test_filter_runs_its_predicate_through_map_blocks(monkeypatch):
+    import torch
+
     from tensorframes_tpu_torch.ops import verbs
 
     calls = []
@@ -172,7 +174,10 @@ def test_filter_runs_its_predicate_through_map_blocks(monkeypatch):
     monkeypatch.setattr(verbs, "map_blocks",
                         lambda *a, **k: calls.append(k.get("device")) or real(*a, **k))
     _frame(tft).filter(lambda x: {"m": x > 0}, device="cpu").blocks()
-    assert calls == ["cpu"]
+    # the filter's call, then (plan fusion on) the lowering's dispatch of
+    # the composed mask program — both on the asked device
+    assert calls[0] == "cpu"
+    assert [torch.device(c) for c in calls] == [torch.device("cpu")] * len(calls)
 
 
 # ---------------------------------------------------------------------------
