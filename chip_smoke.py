@@ -133,6 +133,16 @@ Phases:
    times and each backward kernel 12, on the tensor cores; one step's
    loss and gradients with flash agree with dense attention, and steps
    whose backward is one of the broken versions do not. Steps/s, tokens/s and peak memory follow.
+   Then the resumable_training leg on the same model and frame, counts
+   reset first (``resumable_training_leg``): under deterministic
+   algorithms (``CUBLAS_WORKSPACE_CONFIG`` set at the start of
+   ``main``) a checkpointed run resumed from step 3 equals the
+   uninterrupted one bit for bit, a child process SIGKILLed at the loop
+   edge resumes to the bits of an uninterrupted child, a NaN step is
+   skipped (the bits of a run without it) and raised (a finite
+   emergency checkpoint), ``accum_steps=2`` agrees with 1 and the version
+   without the division does not; save/restore MB/s, peak memory and
+   the warm step times of the plain loop, the guard and the telemetry.
    Then Inception-v3 at full width (299x299, bf16, weights from seed 0,
    each conv's folded-BN scale and bias drawn at random):
    1,024 synthetic images in two host blocks of 512 through
@@ -3327,6 +3337,494 @@ def training_path(tft, dev) -> dict:
             "batch": received[0]}
 
 
+# The resumable_training leg: gpt_small's checkpointed resume, a kill -9
+# drill, a NaN step and gradient accumulation. A resume equals the
+# uninterrupted run bit for bit only when every step is deterministic: on
+# CUDA the backward of loss_fn's gather and of the embedding's index
+# accumulate with atomics unless torch.use_deterministic_algorithms is on,
+# and cuBLAS needs CUBLAS_WORKSPACE_CONFIG set before its first handle.
+RESUME_STEPS, RESUME_SAVE_EVERY = 6, 3
+KILL_LAYERS, KILL_STEPS, KILL_SAVE_EVERY = 2, 4, 2
+NAN_STEP, NAN_STEPS = 3, 5
+ACCUM = 2
+ACCUM_LOSS_RTOL = 1e-5
+ACCUM_PARAM_RTOL, ACCUM_PARAM_ATOL = 2.0 ** -7, 1e-6
+# AdamW's first step moves each entry by about lr·sign(g), whatever g's
+# scale, so the division by accum_steps shows in the first moments (which
+# hold (1 - b1)·g), not in the parameters. bf16 rounds each microbatch's
+# weight gradients (2^-8 relative); an entry whose gradient is within that
+# of zero can step the other way, so the parameter gate skips entries
+# whose moment is below ACCUM_SMALL of its leaf's largest.
+ACCUM_MOMENT_RTOL = 2.0 ** -6  # worst leaf's |m2 - m1| / |m1| (norms)
+ACCUM_SMALL = 2.0 ** -5
+# leg 5: each run takes 1 + OVERHEAD_WARM steps and times the warm ones;
+# the four modes take turns, forwards then backwards, OVERHEAD_ROUNDS
+# times (4 runs and 32 warm steps a mode)
+OVERHEAD_WARM, OVERHEAD_ROUNDS = 8, 2
+CHILD_TIMEOUT_S = 240
+
+# One child of the kill -9 drill: gpt_small's width at KILL_LAYERS layers,
+# run_resumable over the 16-row frame's batches (epoch-cycling, shuffled
+# with seed + epoch), saving every KILL_SAVE_EVERY steps. argv: the
+# checkpoint dir, and the loop edge after which an armed KillRank fires
+# (0: none). Deterministic, as the parent.
+RESUME_CHILD = r"""
+import os, sys
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+import torch
+torch.use_deterministic_algorithms(True)
+sys.path.insert(0, os.environ["TFTORCH_ROOT"])
+import tensorframes_tpu_torch as tft
+from tensorframes_tpu_torch.checkpoint import Checkpointer
+from tensorframes_tpu_torch.models import generation as gen, transformer as tr
+from tensorframes_tpu_torch.resilience import KillRank, inject
+ckdir, kill_after, layers, steps, save_every, rows, seq, batch, lr, seed = sys.argv[1:11]
+layers, steps, save_every, kill_after = int(layers), int(steps), int(save_every), int(kill_after)
+rows, seq, batch, seed = int(rows), int(seq), int(batch), int(seed)
+dev = torch.device("cuda", 0)
+cfg = gen.gpt_small(attention_impl="flash", num_layers=layers)
+tokens, targets = tr.synthetic_batch(cfg, rows, seq, seed=seed)
+frame = tft.frame_from_arrays({"tokens": tokens, "targets": targets})
+batches = []
+for epoch in range(steps):
+    batches += list(tft.io.iterate_batches(frame, ["tokens", "targets"], batch, shuffle=True,
+                                           seed=seed + epoch, drop_remainder=True))
+batches = [tft.io.to_device(b, dev) for b in batches[:steps]]
+params = tr.init_params(cfg, seed=seed, device=dev)
+opt = tr.adamw(params, float(lr))
+step = tr.make_train_step(cfg, opt)
+def step_fn(state, b):
+    p, o = state
+    _, _, loss = step(p, o.state, b["tokens"], b["targets"])
+    return (p, o), loss
+def run():
+    return tft.training.run_resumable(step_fn, (params, opt), Checkpointer(ckdir), batches,
+                                      num_steps=steps, save_every=save_every)
+if kill_after:
+    with inject("fleet.rank.kill", KillRank(), after=kill_after):
+        run()
+else:
+    run()
+torch.cuda.synchronize()
+print("DONE", flush=True)
+"""
+
+
+def state_mismatches(a, b) -> list:
+    """Keys of two train states' leaves (parameters, and the optimizer's
+    moments and step counts) whose bits differ."""
+    import torch
+    from tensorframes_tpu_torch.utils.tree import flatten_with_keys
+
+    fa, fb = dict(flatten_with_keys(a)), dict(flatten_with_keys(b))
+    if set(fa) != set(fb):
+        return sorted(set(fa) ^ set(fb))
+    return [k for k in fa if not (fa[k].dtype == fb[k].dtype and fa[k].shape == fb[k].shape
+                                  and torch.equal(fa[k].to(fb[k].device), fb[k]))]
+
+
+def ckpt_records(flight, kind: str, since: int) -> list:
+    return [r for r in flight.RECORDER.records() if r["kind"] == kind and r["seq"] > since]
+
+
+def dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def resumable_training_leg(tft, dev) -> dict:
+    """gpt_small (vocab 32,000, 12 x 768, 12 heads, seq 1,024, bf16
+    activations, f32 parameters, AdamW lr 1e-3, seed 0) off the training
+    path's 16-row frame in batches of 8, counts reset first:
+
+    1. resume: under deterministic algorithms ``train_on_frame`` with
+       ``Checkpointer(a)`` and ``save_every=3`` runs 6 steps; a fresh
+       state (seed 1, empty AdamW state) and a Checkpointer holding only
+       step 3 resume and run 4-6; parameters, moments and step counts
+       equal bit for bit. Each step launches 12 of each flash kernel on
+       its tensor-core build. Each save's and the restore's seconds,
+       bytes and MB/s.
+    2. kill -9: a child (the same width, 2 layers) SIGKILLs itself at
+       the loop edge after step 2's checkpoint; a relaunch finishes 4
+       steps; its step-4 checkpoint equals an uninterrupted child's bit
+       for bit, and the killed child's flight spool holds the
+       ``fault.kill_rank`` record.
+    3. NaN step: step 3's loss times NaN under ``guard="skip"`` gives the
+       bits of a run that never saw batch 3; under ``guard="raise"`` in
+       ``run_resumable`` ``NonFiniteError`` is raised and the emergency
+       checkpoint (step 2) is finite.
+    4. accumulation: ``make_grad_accum_step(accum_steps=2)`` on one batch
+       of 8 against ``accum_steps=1``: loss within 1e-5 relative, first
+       moments and parameters within their tolerances, the version
+       without the division outside; 24 launches of each flash kernel;
+       peak memory of both.
+    5. overhead: the warm step times of the plain loop, a
+       ``StepTelemetry`` writing JSONL (one row a step, the steps' own
+       losses), ``guard="rollback"`` and both, in alternating turns: each
+       run's first step left out, each warm step's time the gap between
+       CUDA events recorded at consecutive steps' ends (so a host wait
+       shows as the device's idle time); median, p10, p90 and each run's
+       median, a mode's gap against the plain loop's spread."""
+    import math
+    import os
+    import shutil
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+    from tensorframes_tpu_torch.checkpoint import Checkpointer
+    from tensorframes_tpu_torch.models import generation as gen
+    from tensorframes_tpu_torch.models import transformer as tr
+    from tensorframes_tpu_torch.observability import flight
+    from tensorframes_tpu_torch.observability.steps import StepTelemetry
+    from tensorframes_tpu_torch.resilience import NonFiniteError, StepGuard
+
+    cfg = gen.gpt_small(attention_impl="flash")
+    tokens, targets = tr.synthetic_batch(cfg, TRAIN_ROWS, TRAIN_SEQ, seed=SEED)
+    frame = tft.frame_from_arrays({"tokens": tokens, "targets": targets})
+    cols = ["tokens", "targets"]
+    layers = cfg.num_layers
+    per_epoch = TRAIN_ROWS // TRAIN_BATCH
+    host_batches = []
+    for epoch in range(NAN_STEPS // per_epoch + 1):
+        host_batches += list(tft.io.iterate_batches(frame, cols, TRAIN_BATCH, shuffle=True,
+                                                    seed=SEED + epoch, drop_remainder=True))
+
+    def fresh(seed, accum=None, scale=None):
+        """A train state ``(params, opt)`` and its step_fn; ``accum`` steps
+        through make_grad_accum_step, with each microbatch loss times
+        ``scale[0]``."""
+        params = tr.init_params(cfg, seed=seed, device=dev)
+        opt = tr.adamw(params, TRAIN_LR)
+        if accum is None:
+            step = tr.make_train_step(cfg, opt)
+
+            def step_fn(state, b):
+                _, _, loss = step(state[0], state[1].state, b["tokens"], b["targets"])
+                return state, loss
+        else:
+            def loss_fn(p, b):
+                loss = tr.loss_fn(cfg, p, b["tokens"], b["targets"])
+                return loss if scale is None else loss * scale[0]
+
+            step = tft.training.make_grad_accum_step(loss_fn, opt, accum)
+
+            def step_fn(state, b):
+                _, _, loss = step(state[0], state[1].state, b)
+                return state, loss
+        return (params, opt), step_fn
+
+    def per_step_launches(snaps, want, what):
+        prev = {k: 0 for k in snaps[0]}
+        for i, snap in enumerate(snaps):
+            got = {k: snap[k] - prev[k] for k in TRAINING_BUILDS}
+            if set(got.values()) != {want}:
+                fail(f"{what} step {i + 1} launched {got} (want {want} of each, every flash "
+                     "kernel on the tensor cores)")
+            prev = snap
+
+    work = Path(tempfile.mkdtemp(prefix="tftorch_resume_"))
+    out = {}
+    torch.cuda.synchronize()
+    tft.kernels.LAUNCHES.reset()
+    t_leg = time.perf_counter()
+    try:
+        # 1. resume at full width, one process
+        torch.use_deterministic_algorithms(True)
+        log(f"# resumable 1: deterministic algorithms {torch.are_deterministic_algorithms_enabled()}, "
+            f"CUBLAS_WORKSPACE_CONFIG={os.environ.get('CUBLAS_WORKSPACE_CONFIG')}")
+        seq0 = flight.RECORDER.records()[-1]["seq"] if flight.RECORDER.records() else 0
+        state_a, fn_a = fresh(SEED)
+        snaps_a = []
+        state_a, ran_a = tft.training.train_on_frame(
+            fn_a, state_a, frame, cols, batch_size=TRAIN_BATCH, num_steps=RESUME_STEPS,
+            checkpointer=Checkpointer(str(work / "a")), save_every=RESUME_SAVE_EVERY,
+            shuffle=True, seed=SEED, prefetch=2,
+            on_step=lambda i, l: snaps_a.append(launch_counts(tft)), device=dev)
+        torch.cuda.synchronize()
+        (work / "b").mkdir()
+        shutil.copytree(work / "a" / f"step_{RESUME_SAVE_EVERY}",
+                        work / "b" / f"step_{RESUME_SAVE_EVERY}", copy_function=os.link)
+        state_b, fn_b = fresh(SEED + 1)
+        snaps_b = []
+        base = launch_counts(tft)
+        state_b, ran_b = tft.training.train_on_frame(
+            fn_b, state_b, frame, cols, batch_size=TRAIN_BATCH, num_steps=RESUME_STEPS,
+            checkpointer=Checkpointer(str(work / "b")), save_every=RESUME_SAVE_EVERY,
+            shuffle=True, seed=SEED, prefetch=2,
+            on_step=lambda i, l: snaps_b.append(
+                {k: v - base[k] for k, v in launch_counts(tft).items()}), device=dev)
+        torch.cuda.synchronize()
+        if (ran_a, ran_b) != (RESUME_STEPS, RESUME_STEPS - RESUME_SAVE_EVERY):
+            fail(f"the resume runs ran {ran_a} and {ran_b} steps (want {RESUME_STEPS} and "
+                 f"{RESUME_STEPS - RESUME_SAVE_EVERY})")
+        per_step_launches(snaps_a, layers, "resume run A")
+        per_step_launches(snaps_b, layers, "resume run B")
+        bad = state_mismatches(state_a, state_b)
+        if bad:
+            fail(f"the resumed state differs from the uninterrupted one at {len(bad)} leaves, "
+                 f"e.g. {bad[:3]}")
+        saves = ckpt_records(flight, "checkpoint.save", seq0)
+        restores = ckpt_records(flight, "checkpoint.restore", seq0)
+        ck_bytes = dir_bytes(work / "b" / f"step_{RESUME_SAVE_EVERY}")
+        for r in saves:
+            log(f"# resumable 1: save step {r['step']}: {r['seconds']:.3f} s, {r['bytes']} bytes, "
+                f"{r['bytes'] / r['seconds'] / 1e6:.1f} MB/s")
+        for r in restores:
+            log(f"# resumable 1: restore step {r['step']}: {r['seconds']:.3f} s, {ck_bytes} bytes, "
+                f"{ck_bytes / r['seconds'] / 1e6:.1f} MB/s, ok {r['ok']}")
+        log(f"# resumable 1: resumed from step {RESUME_SAVE_EVERY} to {RESUME_STEPS}: parameters, "
+            "AdamW moments and step counts equal the uninterrupted run's bit for bit; 12 "
+            "launches of each flash kernel a step, all on the tensor cores")
+        out["resume"] = {"saves": [{k: r[k] for k in ("step", "seconds", "bytes")} for r in saves],
+                         "restores": [{"step": r["step"], "seconds": r["seconds"],
+                                       "bytes": ck_bytes} for r in restores]}
+        del state_a, state_b
+        shutil.rmtree(work / "a")
+        shutil.rmtree(work / "b")
+
+        # 2. kill -9 drill in child processes
+        env = dict(os.environ, TFTORCH_ROOT=str(ROOT),
+                   CUBLAS_WORKSPACE_CONFIG=os.environ.get("CUBLAS_WORKSPACE_CONFIG", ":4096:8"))
+        env.pop("TFTPU_FLIGHT_DIR", None)
+
+        def child(ckdir, kill_after, flight_dir=None):
+            e = dict(env, TFTPU_FLIGHT_DIR=str(flight_dir)) if flight_dir else env
+            args = [str(ckdir), str(kill_after), str(KILL_LAYERS), str(KILL_STEPS),
+                    str(KILL_SAVE_EVERY), str(TRAIN_ROWS), str(TRAIN_SEQ), str(TRAIN_BATCH),
+                    str(TRAIN_LR), str(SEED)]
+            return subprocess.Popen([sys.executable, "-c", RESUME_CHILD, *args], env=e,
+                                    cwd=str(ROOT), stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+
+        # the uninterrupted child runs beside the drilled one and its relaunch
+        t_kill = time.perf_counter()
+        procs = {"whole": child(work / "w", 0),
+                 "killed": child(work / "k", KILL_SAVE_EVERY, work / "flight")}
+        walls = {}
+        try:
+            so, se = procs["killed"].communicate(timeout=CHILD_TIMEOUT_S)
+            walls["killed"] = time.perf_counter() - t_kill
+            rc = procs["killed"].returncode
+            if rc != -9:
+                fail(f"the drilled child exited {rc} (want -9, SIGKILL)\n{so}\n{se[-3000:]}")
+            steps_k = Checkpointer(str(work / "k")).all_steps()
+            if steps_k != [KILL_SAVE_EVERY]:
+                fail(f"the killed child left checkpoints {steps_k} (want [{KILL_SAVE_EVERY}])")
+            procs["relaunch"] = child(work / "k", 0)
+            for name in ("whole", "relaunch"):
+                so, se = procs[name].communicate(timeout=CHILD_TIMEOUT_S)
+                walls[name] = time.perf_counter() - t_kill
+                if procs[name].returncode != 0 or "DONE" not in so:
+                    fail(f"the {name} child exited {procs[name].returncode}\n{so}\n{se[-3000:]}")
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        got = Checkpointer(str(work / "k")).restore(step=KILL_STEPS)
+        want = Checkpointer(str(work / "w")).restore(step=KILL_STEPS)
+        bad = [k for k in want if k not in got or not torch.equal(got[k], want[k])]
+        if bad or set(got) != set(want):
+            fail(f"the killed-and-resumed child's step {KILL_STEPS} differs from the "
+                 f"uninterrupted child's at {len(bad)} leaves, e.g. {bad[:3]}")
+        box = flight.read_blackbox(str(work / "flight"))
+        kills = [r for r in box if r["kind"] == "fault.kill_rank"]
+        if not kills:
+            fail(f"the killed child's flight spool holds no fault.kill_rank record "
+                 f"({[r['kind'] for r in box][-8:]})")
+        kill_s = time.perf_counter() - t_kill
+        log(f"# resumable 2: kill -9 drill ({KILL_LAYERS} layers, {KILL_STEPS} steps, "
+            f"save_every {KILL_SAVE_EVERY}): SIGKILL at the loop edge after step "
+            f"{KILL_SAVE_EVERY}'s checkpoint, relaunch resumed to step {KILL_STEPS}, "
+            f"{len(want)} leaves bit-equal to the uninterrupted child's; black box "
+            f"{len(box)} records, last {kills[-1]['kind']} at {kills[-1]['site']}; {kill_s:.1f} s "
+            "(each child's end from the drill's start: "
+            + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()) + ")")
+        out["kill"] = {"seconds": kill_s, "leaves": len(want), "blackbox_records": len(box),
+                       "child_walls_s": walls}
+        shutil.rmtree(work / "k")
+        shutil.rmtree(work / "w")
+
+        # 3. a NaN step
+        scale = [1.0]
+        calls = [0]
+        state_s, fn = fresh(SEED, accum=1, scale=scale)
+
+        def poisoned(state, b):
+            calls[0] += 1
+            scale[0] = math.nan if calls[0] == NAN_STEP else 1.0
+            return fn(state, b)
+
+        guard = StepGuard("skip")
+        state_s, ran = tft.training.train_on_frame(
+            poisoned, state_s, frame, cols, batch_size=TRAIN_BATCH, num_steps=NAN_STEPS,
+            shuffle=True, seed=SEED, prefetch=2, guard=guard, device=dev)
+        scale[0] = 1.0
+        state_r, fn_r = fresh(SEED, accum=1, scale=scale)
+        for i, b in enumerate(host_batches[:NAN_STEPS]):
+            if i + 1 != NAN_STEP:
+                state_r, _ = fn_r(state_r, tft.io.to_device(b, dev))
+        torch.cuda.synchronize()
+        if ran != NAN_STEPS or guard.skipped != 1:
+            fail(f"the skip run ran {ran} steps and skipped {guard.skipped} (want {NAN_STEPS}, 1)")
+        bad = state_mismatches(state_s, state_r)
+        if bad:
+            fail(f"guard='skip' left a state other than the run without batch {NAN_STEP} at "
+                 f"{len(bad)} leaves, e.g. {bad[:3]}")
+        steps_seen = int(state_s[1].state[state_s[1].param_groups[0]["params"][0]]["step"])
+        del state_s, state_r
+        calls[0] = 0
+        state_x, fn = fresh(SEED, accum=1, scale=scale)
+
+        def poisoned_x(state, b):
+            calls[0] += 1
+            scale[0] = math.nan if calls[0] == NAN_STEP else 1.0
+            return fn(state, b)
+
+        ck = Checkpointer(str(work / "r"))
+        dev_batches = [tft.io.to_device(b, dev) for b in host_batches[:NAN_STEPS]]
+        try:
+            tft.training.run_resumable(poisoned_x, state_x, ck, dev_batches, num_steps=NAN_STEPS,
+                                       save_every=0, guard="raise")
+            fail("guard='raise' let a NaN step through")
+        except NonFiniteError as e:
+            raised = str(e)
+        if ck.all_steps() != [NAN_STEP - 1]:
+            fail(f"the emergency checkpoint is at {ck.all_steps()} (want [{NAN_STEP - 1}])")
+        saved = ck.restore(step=NAN_STEP - 1)
+        if not all(bool(torch.isfinite(v).all()) for v in saved.values() if v.is_floating_point()):
+            fail("the emergency checkpoint under guard='raise' holds non-finite values")
+        log(f"# resumable 3: step {NAN_STEP}'s loss x NaN: guard='skip' equals the run without "
+            f"batch {NAN_STEP} bit for bit (parameters, moments, step count {steps_seen}); "
+            f"guard='raise' raised ({raised}) and its emergency checkpoint (step "
+            f"{NAN_STEP - 1}, {len(saved)} leaves) is finite")
+        del state_x, saved
+        shutil.rmtree(work / "r")
+        torch.use_deterministic_algorithms(False)
+
+        # 4. gradient accumulation at full width
+        batch = tft.io.to_device(host_batches[0], dev)
+        accum_runs = {}
+        for name, accum, mult in (("accum 1", 1, 1.0), ("accum 2", ACCUM, 1.0),
+                                  ("accum 2 without the division", ACCUM, float(ACCUM))):
+            # multiplying each microbatch loss by accum_steps undoes the
+            # division exactly (a power of two): the broken version
+            state, fn = fresh(SEED, accum=accum, scale=[mult])
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = launch_counts(tft)
+            state, loss = fn(state, batch)
+            torch.cuda.synchronize()
+            after = launch_counts(tft)
+            accum_runs[name] = {
+                "loss": float(loss), "state": state,
+                "launches": {k: after[k] - before[k] for k in TRAINING_BUILDS},
+                "peak_bytes": torch.cuda.max_memory_allocated(dev), "held_bytes": held}
+        ref = accum_runs["accum 1"]
+
+        @torch.no_grad()
+        def gaps(run):
+            p1, o1 = ref["state"]
+            p2, o2 = run["state"]
+            loss_gap = abs(run["loss"] - ref["loss"]) / abs(ref["loss"])
+            moment_gap, param_bad, skipped, worst_dp = 0.0, 0, 0, 0.0
+            for a, b in zip(tr.tree_leaves(p1), tr.tree_leaves(p2)):
+                m1, m2 = o1.state[a]["exp_avg"], o2.state[b]["exp_avg"]
+                moment_gap = max(moment_gap, float((m2 - m1).norm() / m1.norm().clamp_min(1e-30)))
+                big = m1.abs() >= ACCUM_SMALL * m1.abs().max()
+                dp = (b - a).abs()
+                worst_dp = max(worst_dp, float(dp.max()))
+                param_bad += int((big & (dp > ACCUM_PARAM_RTOL * a.abs() + ACCUM_PARAM_ATOL)).sum())
+                skipped += int((~big).sum())
+            return loss_gap, moment_gap, param_bad, skipped, worst_dp
+
+        g2 = gaps(accum_runs["accum 2"])
+        gb = gaps(accum_runs["accum 2 without the division"])
+        for name, run in accum_runs.items():
+            log(f"# resumable 4: {name}: loss {run['loss']:.7f}, launches {run['launches']}, "
+                f"peak memory {run['peak_bytes']} bytes ({run['peak_bytes'] - run['held_bytes']} "
+                f"above the {run['held_bytes']} held)")
+        for name, (lg, mg, pb, sk, dp) in (("accum 2", g2), ("without the division", gb)):
+            log(f"# resumable 4: {name} against accum 1: loss {lg:.3g} relative (tolerance "
+                f"{ACCUM_LOSS_RTOL}), first moments {mg:.3g} (tolerance {ACCUM_MOMENT_RTOL}), "
+                f"{pb} parameters outside 2^-7|p| + 1e-6 ({sk} entries with a moment under "
+                f"{ACCUM_SMALL} of their leaf's largest not held; largest |dp| {dp:.3g})")
+        if g2[0] > ACCUM_LOSS_RTOL or g2[1] > ACCUM_MOMENT_RTOL or g2[2]:
+            fail(f"accum_steps=2 off accum_steps=1: {g2}")
+        if not (gb[0] > ACCUM_LOSS_RTOL and gb[1] > ACCUM_MOMENT_RTOL):
+            fail(f"the accumulation gate cannot see a dropped division: {gb}")
+        want = {k: ACCUM * layers for k in TRAINING_BUILDS}
+        if accum_runs["accum 2"]["launches"] != want:
+            fail(f"an accum_steps=2 step launched {accum_runs['accum 2']['launches']} (want "
+                 f"{want})")
+        out["accum"] = {name: {k: run[k] for k in ("loss", "peak_bytes", "held_bytes")}
+                        for name, run in accum_runs.items()}
+        out["accum"]["gaps"] = {"accum 2": g2, "without the division": gb}
+        del accum_runs, ref
+
+        # 5. overhead of the guard and the telemetry (deterministic mode off)
+        state, fn = fresh(SEED)
+        jsonl = work / "steps.jsonl"
+        step_ms = {}
+        modes = ("plain", "telemetry", "guard", "guard+telemetry")
+        turns = (modes + modes[::-1]) * OVERHEAD_ROUNDS
+        for turn, mode in enumerate(turns):
+            ends, losses = [], []
+
+            def mark(i, loss):
+                losses.append(loss)
+                ends.append(torch.cuda.Event(enable_timing=True))
+                ends[-1].record()
+
+            telemetry = StepTelemetry(str(jsonl)) if "telemetry" in mode else None
+            jsonl.unlink(missing_ok=True)
+            state, ran = tft.training.train_on_frame(
+                fn, state, frame, cols, batch_size=TRAIN_BATCH, num_steps=1 + OVERHEAD_WARM,
+                shuffle=True, seed=SEED + turn, prefetch=2,
+                guard="rollback" if "guard" in mode else None, telemetry=telemetry,
+                on_step=mark, device=dev)
+            torch.cuda.synchronize()
+            step_ms.setdefault(mode, []).append([a.elapsed_time(b) for a, b in zip(ends, ends[1:])])
+            if telemetry is not None:
+                telemetry.close()
+                rows = [json.loads(x) for x in jsonl.read_text().splitlines()]
+                if [r["step"] for r in rows] != list(range(1, OVERHEAD_WARM + 2)) or any(
+                        r["loss"] != float(l) or not math.isfinite(r["loss"])
+                        for r, l in zip(rows, losses)):
+                    fail(f"the telemetry JSONL rows {rows} do not match the steps' losses")
+        overhead = {}
+        for mode, runs in step_ms.items():
+            flat = sorted(x for r in runs for x in r)
+            overhead[mode] = {"steps": len(flat), "median_ms": statistics.median(flat),
+                              "p10_ms": flat[len(flat) // 10],
+                              "p90_ms": flat[(9 * len(flat)) // 10],
+                              "run_medians_ms": [statistics.median(r) for r in runs]}
+        plain = overhead["plain"]
+        spread = (max(plain["run_medians_ms"]) - min(plain["run_medians_ms"])) / plain["median_ms"]
+        for mode, o in overhead.items():
+            o["vs_plain"] = o["median_ms"] / plain["median_ms"] - 1
+            log(f"# resumable 5: {mode}: {o['steps']} warm steps in {len(o['run_medians_ms'])} "
+                f"runs of {OVERHEAD_WARM}, median {o['median_ms']:.3f} ms "
+                f"({1000 / o['median_ms']:.3f} steps/s), p10 {o['p10_ms']:.3f}, p90 "
+                f"{o['p90_ms']:.3f}, run medians "
+                + ", ".join(f"{x:.3f}" for x in o["run_medians_ms"])
+                + f"; {100 * o['vs_plain']:+.2f}% of the plain median")
+        log(f"# resumable 5: turns {', '.join(turns)}; the plain loop's run medians span "
+            f"{100 * spread:.2f}% of its median; guard='rollback', StepTelemetry writing JSONL: "
+            "one row a step, the steps' own finite losses")
+        out["overhead"] = dict(overhead, plain_run_spread=spread)
+        del state
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.synchronize()
+    out["launches"] = launch_counts(tft)
+    out["seconds"] = time.perf_counter() - t_leg
+    return out
+
+
 def step_inputs(cfg, params, prompts, dev):
     """A 16-slot decode step's state: each prompt prefilled (kernel path)
     into its own pages of a fresh pool; returns (pool, step args)."""
@@ -3781,6 +4279,11 @@ def gpu_line() -> str:
 
 
 def main() -> int:
+    import os
+
+    # before CUDA starts: cuBLAS reads it when it makes its first handle,
+    # and the resumable leg's deterministic mode needs it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -3884,6 +4387,13 @@ def main() -> int:
         f"{train['peak_bytes']} bytes ({train['peak_bytes'] - train['held_bytes']} above what "
         "was held before the first step)")
 
+    t_res = time.perf_counter()
+    resumable = resumable_training_leg(tft, dev)
+    log(f"# resumable_training leg: {time.perf_counter() - t_res:.1f} s")
+    missing = [k for k in TRAINING_KERNELS if resumable["launches"][k] <= 0]
+    if missing:
+        fail(f"kernels never launched on the resumable_training leg: {missing}")
+
     t5 = time.perf_counter()
     incep = inception_path(tft, dev)
     log(f"# inception path: {time.perf_counter() - t5:.1f} s")
@@ -3942,7 +4452,8 @@ def main() -> int:
     kernels = []
     paths = ((path, SLICE1_KERNELS), (relational, ("segment_reduce", "segment_sum")),
              (serving, SERVING_KERNELS), (encoder, ENCODER_KERNELS),
-             (train, TRAINING_KERNELS), (imported["int8"], ("int8_matmul",)),
+             (train, TRAINING_KERNELS), (resumable, TRAINING_KERNELS),
+             (imported["int8"], ("int8_matmul",)),
              (vggr["int8"], ("int8_matmul",)))
     for name, info in tft.kernels.KERNELS.items():
         # a kernel on several paths (the flash forward) counts its launches on each

@@ -10,7 +10,10 @@ causal transformer through a decode server (:class:`Server`,
 :class:`DecodeEngine`: continuous batching over a paged int8 KV pool),
 and train it straight off a frame (:func:`training.train_on_frame` over
 :func:`models.transformer.make_train_step`, batches staged by
-:mod:`.io`). Frozen TF graphs and SavedModels import as programs
+:mod:`.io`), resumably: verified checkpoints (:class:`Checkpointer`,
+the JAX package's npz format), :func:`run_resumable`, step guards,
+retries and fault sites (:mod:`.resilience`), step telemetry and a
+flight recorder (:mod:`.observability`). Frozen TF graphs and SavedModels import as programs
 (:func:`load_graphdef`, :func:`load_saved_model`, :mod:`.graphdef`,
 with no TensorFlow), and programs serialize through ``torch.export``
 (:func:`save_program`, :func:`load_program`).
@@ -100,6 +103,11 @@ from .graphdef import (  # noqa: F401
     program_from_graphdef,
 )
 from .bundle import restore_variables  # noqa: F401
+from .checkpoint import CheckpointCorruptionError, Checkpointer  # noqa: F401
+from . import resilience  # noqa: F401
+from .resilience import RetryPolicy, StepGuard  # noqa: F401
+from .observability import StepTelemetry  # noqa: F401
+from .training import run_resumable  # noqa: F401
 
 __version__ = "0.1.0"
 
@@ -133,6 +141,14 @@ __all__ = [
     "observability",
     "io",
     "training",
+    # resumable training
+    "Checkpointer",
+    "CheckpointCorruptionError",
+    "run_resumable",
+    "resilience",
+    "RetryPolicy",
+    "StepGuard",
+    "StepTelemetry",
     # serving
     "Server",
     "ServingConfig",

@@ -35,6 +35,8 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
+from . import dtypes as _dt
+
 _FOOTER_MAGIC = bytes.fromhex("57fb808b247547db")  # little-endian magic
 
 
@@ -136,12 +138,8 @@ _BUNDLE_DTYPES = {
     10: np.bool_,
     19: np.float16,
 }
-try:  # bfloat16 payloads need ml_dtypes (a dependency of the port's bfloat16 columns)
-    import ml_dtypes as _mld
-
-    _BUNDLE_DTYPES[14] = _mld.bfloat16
-except Exception:  # pragma: no cover - ml_dtypes ships with the port's dependencies
-    pass
+if _dt._BFLOAT16 is not None:  # bfloat16 numpy payloads need ml_dtypes (dtypes.py)
+    _BUNDLE_DTYPES[14] = _dt._BFLOAT16.type
 _DT_STRING = 7
 
 

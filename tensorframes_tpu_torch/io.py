@@ -10,8 +10,10 @@ on an event recorded after the copy, and each handed-over tensor is
 marked as used by the consumer's stream (``record_stream``), so the
 allocator does not reuse its memory while the step still reads it.
 
-Readers and writers, ``save_frame``/``load_frame``, retries, fault
-points and sharded placement are not ported yet (ROADMAP queue 1).
+Each staging copy runs under an optional retry policy, with the
+``io.prefetch.device_put`` fault site inside the retry scope, as in the
+reference. Readers and writers, ``save_frame``/``load_frame`` and sharded
+placement are not ported yet (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ import torch
 
 from . import dtypes as dt
 from .config import resolve_device
+from .resilience.faults import fault_point
+from .resilience.retry import RetryPolicy, retry_call
 from .utils import get_logger
 
 logger = get_logger(__name__)
@@ -76,6 +80,7 @@ def prefetch_to_device(
     size: int = 2,
     device=None,
     join_timeout: float = 5.0,
+    retry: Optional[RetryPolicy] = None,
 ) -> Iterator[Dict[str, torch.Tensor]]:
     """Wrap a batch iterator with background staging on ``device``
     (default ``config.device``): a worker thread keeps up to ``size``
@@ -93,21 +98,25 @@ def prefetch_to_device(
     polls the worker's liveness, so a worker that died without a word
     ends the stream instead of hanging it; ``close()`` (or leaving the
     loop) stops the worker, drops staged batches and joins the worker
-    with ``join_timeout``."""
+    with ``join_timeout``. ``retry`` (a
+    :class:`~.resilience.RetryPolicy`) retries a failed staging copy,
+    absorbing transient faults; ``None`` makes one attempt."""
     device = resolve_device(device)
     if size < 1:
         raise ValueError(f"prefetch_to_device: size must be >= 1, got {size}")
-    return _staged(batches, size, device, join_timeout)
+    return _staged(batches, size, device, join_timeout, retry)
 
 
-def _staged(batches, size: int, device: torch.device, join_timeout: float):
+def _staged(batches, size: int, device: torch.device, join_timeout: float,
+            retry: Optional[RetryPolicy]):
     q: "queue.Queue" = queue.Queue(maxsize=size)
     stop = threading.Event()
     done = threading.Event()
     err: List[Optional[BaseException]] = [None]
     side = torch.cuda.Stream(device) if device.type == "cuda" else None
 
-    def stage(batch):
+    def put(batch):
+        fault_point("io.prefetch.device_put")
         if side is None:
             return to_device(batch, device), None
         pinned = {k: dt.host_tensor(v).pin_memory() for k, v in batch.items()}
@@ -116,6 +125,9 @@ def _staged(batches, size: int, device: torch.device, join_timeout: float):
             ready = torch.cuda.Event()
             ready.record(side)
         return staged, ready
+
+    def stage(batch):
+        return retry_call(put, batch, policy=retry, describe="prefetch.device_put")
 
     def enqueue(item) -> bool:
         # a bounded put that gives up when the consumer is gone, so an

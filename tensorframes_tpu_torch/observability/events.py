@@ -27,10 +27,8 @@ dropped and counted (``TRACER.dropped`` and
 ("X"-phase) events at span END, so nesting is reconstructed by time
 containment per thread; a span that never exits leaves no partial event.
 
-The ``otherData`` stamp carries the run id (``TFTPU_RUN_ID``, else one
-minted per process) and the process index (``TFTPU_PROCESS_INDEX``, else
-``RANK``, else the initialized ``torch.distributed`` rank, else 0), so
-per-process shards of one run can be merged.
+The ``otherData`` stamp carries the run id and the process index of
+:mod:`.context`, so per-process shards of one run can be merged.
 """
 
 from __future__ import annotations
@@ -41,10 +39,10 @@ import math
 import os
 import threading
 import time
-import uuid
 from typing import Any, Dict, Iterator, List, Optional
 
 from ..utils import get_logger
+from .context import process_index, run_id
 from .metrics import counter as _counter
 
 logger = get_logger(__name__)
@@ -78,40 +76,6 @@ _EVENTS_DROPPED = _counter(
     "tftpu_trace_events_dropped_total",
     "Trace events discarded because the tracer ring was full",
 )
-
-_ctx_lock = threading.Lock()
-_run_id: Optional[str] = None
-
-
-def run_id() -> str:
-    """The logical run id: ``TFTPU_RUN_ID`` (a launcher exports it to
-    every process of a run), else a random 12-hex id minted once."""
-    global _run_id
-    with _ctx_lock:
-        if _run_id is None:
-            _run_id = os.environ.get("TFTPU_RUN_ID") or uuid.uuid4().hex[:12]
-        return _run_id
-
-
-def process_index() -> int:
-    """This process's rank: ``TFTPU_PROCESS_INDEX``, else ``RANK``, else
-    the rank of an initialized ``torch.distributed`` group, else 0."""
-    for name in ("TFTPU_PROCESS_INDEX", "RANK"):
-        v = os.environ.get(name)
-        if v:
-            try:
-                return int(v)
-            except ValueError:
-                pass
-    try:
-        import torch.distributed as dist
-
-        if dist.is_available() and dist.is_initialized():
-            return int(dist.get_rank())
-    except Exception:  # pragma: no cover - exotic builds
-        pass
-    return 0
-
 
 def _us(t_perf: float) -> float:
     return (t_perf - _EPOCH) * 1e6

@@ -11,7 +11,10 @@ PyTorch compiles nothing per shape, but the dispatch bookkeeping keeps the
 reference's shape accounting: :class:`CompiledProgram` records every
 distinct (entry, feed shapes/dtypes) key it has dispatched, so
 ``cache_sizes`` drives ``map_rows``' adaptive lead-dim bucketing exactly
-as in the reference, and the hit/miss counters keep their names.
+as in the reference, and the hit/miss counters keep their names. Each
+dispatch passes the reference's fault sites (``executor.run_block`` /
+``executor.run_rows``, and the ``executor.dispatch`` delay site around
+the call) and leaves a ``dispatch`` or ``dispatch.error`` flight record.
 Row counts still bucket to powers of two (:func:`bucket_rows`), so padded
 rows match the reference row for row.
 """
@@ -27,8 +30,17 @@ import torch
 from .. import dtypes as dt
 from ..config import get_config
 from ..observability import events as _events
+from ..observability import flight as _flight
 from ..observability.metrics import counter as _counter
 from ..program import Program
+from ..resilience.faults import delay_point, fault_point, register_site
+
+register_site(
+    "executor.dispatch",
+    "CompiledProgram._run dispatch body, inside the deadline-watchdog "
+    "scope — an injected Delay simulates a hung collective (the "
+    "dispatch stalls instead of failing) so the watchdog is drillable",
+)
 
 _JIT_HITS = _counter(
     "tftpu_executor_jit_cache_hits_total",
@@ -130,26 +142,41 @@ class CompiledProgram:
             _JIT_MISSES.inc()
 
     def _run(self, kind: str, fn: Callable, feeds, device, to_numpy: bool):
-        device = torch.device(device)
-        # host arrays are copied to the device; tensors already there (a
-        # prefetched block, a device-side gather) are used as they are
-        tensors = {
-            k: (v if v.device == device else v.to(device)) if torch.is_tensor(v)
-            else dt.to_torch(v, device)
-            for k, v in feeds.items()
+        site = f"executor.run_{'block' if kind == 'block' else 'rows'}"
+        # the flight record's identity of this dispatch, taken before
+        # anything can fail: a postmortem must name the dispatch in flight
+        summary = {
+            "entry": kind,
+            "outputs": ",".join(self.program.fetch_order[:6]),
+            "shapes": {k: list(v.shape) if hasattr(v, "shape") else [len(v)]
+                       for k, v in list(feeds.items())[:6]},
         }
-        key = self._feeds_key(kind, tensors)
-        fresh = key not in self._dispatched
-        self._note_dispatch(key)
-        t0 = time.perf_counter()
-        with torch.inference_mode():
-            out = fn(tensors)
+        try:
+            fault_point(site)
+            device = torch.device(device)
+            # host arrays are copied to the device; tensors already there
+            # (a prefetched block, a device-side gather) are used as they are
+            tensors = {
+                k: (v if v.device == device else v.to(device)) if torch.is_tensor(v)
+                else dt.to_torch(v, device)
+                for k, v in feeds.items()
+            }
+            key = self._feeds_key(kind, tensors)
+            fresh = key not in self._dispatched
+            self._note_dispatch(key)
+            t0 = time.perf_counter()
+            delay_point("executor.dispatch")
+            with torch.inference_mode():
+                out = fn(tensors)
+            wall = time.perf_counter() - t0
+        except BaseException as e:
+            _flight.record("dispatch.error", error=type(e).__name__, message=str(e), **summary)
+            raise
+        # host time of the dispatch (the device runs on asynchronously)
+        _flight.record("dispatch", seconds=round(wall, 6), compiled=fresh, **summary)
         if _events.TRACER.enabled:
-            # host time of the dispatch (the device runs on asynchronously)
-            _events.TRACER.emit_complete(
-                f"executor.run_{'block' if kind == 'block' else 'rows'}",
-                t0, time.perf_counter() - t0, args={"compiled": fresh}, cat="executor",
-            )
+            _events.TRACER.emit_complete(site, t0, wall, args={"compiled": fresh},
+                                         cat="executor")
         if not to_numpy:
             return out
         return {k: dt.to_numpy(v) for k, v in out.items()}

@@ -923,3 +923,87 @@ def test_generic_aggregate_on_card_matches_cpu(cuda_device):
     counts = np.bincount(frame.column_values("k"))[want.column_values("k")]
     np.testing.assert_allclose(got.column_values("v"), want.column_values("v"), rtol=1e-5,
                                atol=1e-5 * 5 * np.sqrt(counts.max()))
+
+
+def test_tree_all_finite_on_card_reduces_on_the_device(cuda_device):
+    """``tree_all_finite`` over CUDA leaves (f32, bf16, f64, an optimizer's
+    moments) finds a NaN or an inf in any one of them, passes a finite
+    tree, and never copies a leaf to the host (no device-to-host copy of
+    a leaf's size: the profiler sees only the flags' few bytes)."""
+    from tensorframes_tpu_torch.resilience import tree_all_finite
+
+    def tree():
+        return {"a": torch.randn(1 << 20, device=cuda_device),
+                "b": [torch.ones(3, 5, dtype=torch.bfloat16, device=cuda_device),
+                      torch.full((2,), 1e300, dtype=torch.float64, device=cuda_device)],
+                "i": torch.arange(4, device=cuda_device), "s": torch.tensor(2.0)}
+
+    assert tree_all_finite(tree())
+    for where, bad in (("a", float("nan")), ("b0", float("inf")), ("b1", float("-inf"))):
+        t = tree()
+        leaf = t["a"] if where == "a" else t["b"][int(where[1])]
+        leaf.view(-1)[-1] = bad
+        assert not tree_all_finite(t), where
+    w = torch.zeros(8, device=cuda_device, requires_grad=True)
+    opt = torch.optim.AdamW([w], lr=1e-3)
+    w.grad = torch.full_like(w, float("nan"))
+    opt.step()
+    w.data.zero_()
+    assert not tree_all_finite((w, opt))  # the NaN lives in the moments alone
+    big = tree()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        assert tree_all_finite(big)
+    moved = [e for e in prof.events() if "DtoH" in e.name and getattr(e, "device_type", None)]
+    assert all(getattr(e, "bytes", 0) < 1024 for e in moved)
+
+
+def test_guarded_step_on_card_skips_a_nan_step_bit_for_bit(cuda_device):
+    """One guarded step on the card: gpt_tiny under the port's AdamW, a
+    NaN loss at step 2 under ``guard="skip"`` leaves parameters, moments
+    and step counts equal bit for bit to a run that never took it (deterministic
+    algorithms on for the comparison)."""
+    import math
+    import os
+
+    from tensorframes_tpu_torch import training
+    from tensorframes_tpu_torch.utils.tree import flatten_with_keys
+
+    if os.environ.get("CUBLAS_WORKSPACE_CONFIG") is None:
+        pytest.skip("needs CUBLAS_WORKSPACE_CONFIG=:4096:8 set before CUDA starts")
+    cfg = tgen.gpt_tiny(attention_impl="dense")
+    toks, tg = ttr.synthetic_batch(cfg, 8, 16, seed=0)
+    batches = [{"tokens": torch.from_numpy(toks[i:i + 4]).to(cuda_device),
+                "targets": torch.from_numpy(tg[i:i + 4]).to(cuda_device)} for i in (0, 4, 0)]
+
+    def state(poison):
+        params = ttr.init_params(cfg, seed=0, device=cuda_device)
+        opt = ttr.adamw(params, 1e-3)
+        scale, calls = [1.0], [0]
+        step = training.make_grad_accum_step(
+            lambda p, b: ttr.loss_fn(cfg, p, b["tokens"], b["targets"]) * scale[0], opt, 1)
+
+        def fn(s, b):
+            calls[0] += 1
+            scale[0] = math.nan if calls[0] == poison else 1.0
+            _, _, loss = step(s[0], s[1].state, b)
+            return s, loss
+
+        return (params, opt), fn
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        s, fn = state(poison=2)
+        guard = tft.StepGuard("skip")
+        guard.seed(0, s)
+        for i, b in enumerate(batches, 1):
+            s, _ = guard.admit(i, *fn(s, b), prev_state=s)
+        r, rfn = state(poison=None)
+        for b in (batches[0], batches[2]):
+            r, _ = rfn(r, b)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(was)
+    assert guard.skipped == 1
+    fa, fb = dict(flatten_with_keys(s)), dict(flatten_with_keys(r))
+    assert list(fa) == list(fb) and all(torch.equal(fa[k], fb[k]) for k in fa)

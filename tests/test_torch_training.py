@@ -21,6 +21,7 @@ Tolerances, per check:
 - ``train_on_frame``: losses per step rtol 1e-5, as the train step.
 """
 
+import json
 import threading
 
 import jax
@@ -36,8 +37,11 @@ from tensorframes_tpu import io as jio
 from tensorframes_tpu import training as jtraining
 from tensorframes_tpu.models import generation as jgen
 from tensorframes_tpu.models import transformer as jtr
+from tensorframes_tpu.checkpoint import Checkpointer as jCheckpointer
 from tensorframes_tpu_torch import io as tio
 from tensorframes_tpu_torch import training as ttraining
+from tensorframes_tpu_torch.checkpoint import Checkpointer as tCheckpointer
+from tensorframes_tpu_torch.observability.steps import StepTelemetry as tStepTelemetry
 from tensorframes_tpu_torch.models import generation as tgen
 from tensorframes_tpu_torch.models import transformer as ttr
 
@@ -266,12 +270,271 @@ def test_train_on_frame_matches_jax(prefetch):
     np.testing.assert_allclose(got, want, rtol=1e-5)
 
 
-@pytest.mark.parametrize("arg", ["checkpointer", "guard", "telemetry"])
-def test_train_on_frame_unported_options_raise(arg):
-    _, tf = _frames()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        ttraining.train_on_frame(lambda s, b: (s, 0.0), None, tf, ["w"], batch_size=2,
-                                 num_steps=1, device=CPU, **{arg: object()})
+class _Crash(RuntimeError):
+    pass
+
+
+def _gpt_tiny_frame_run(pkg, cfg, state, step_fn, frame, ckdir, num_steps, crash_after=None,
+                        **kw):
+    """``train_on_frame`` with a checkpointer (save_every=2): per-step
+    losses; ``crash_after`` raises from ``on_step`` after that step, as a
+    preemption between steps would."""
+    losses = []
+
+    def on_step(i, loss):
+        losses.append((i, float(loss)))
+        if i == crash_after:
+            raise _Crash(f"preempted after step {i}")
+
+    ck = (jCheckpointer(ckdir, backend="npz") if pkg == "jax" else tCheckpointer(ckdir))
+    train = jtraining.train_on_frame if pkg == "jax" else ttraining.train_on_frame
+    try:
+        train(step_fn, state, frame, ["tokens", "targets"], batch_size=4, num_steps=num_steps,
+              checkpointer=ck, save_every=2, seed=2, on_step=on_step, **kw)
+    except _Crash:
+        pass
+    return losses, ck
+
+
+def test_train_on_frame_crashed_and_resumed_matches_jax(tmp_path):
+    """gpt_tiny off a frame with a checkpointer, crashed by an exception
+    after step 3 and resumed to step 6: the emergency checkpoint lands at
+    3, the resume runs steps 4-6, and every step's loss is within rtol
+    1e-5 of the JAX package's same run. The resumed port run also equals
+    an uninterrupted port run bit for bit."""
+    jf, tf = _frames()
+    cj, ct = jgen.gpt_tiny(attention_impl="flash"), tgen.gpt_tiny(attention_impl="flash")
+    pj = jtr.init_params(cj, seed=6)
+    tx = optax.adamw(LR)
+    jstep = jax.jit(jtr.make_train_step(cj, tx))
+
+    def jfn(state, batch):
+        p, s, loss = jstep(*state, batch["tokens"], batch["targets"])
+        return (p, s), loss
+
+    want = []
+    for crash in (3, None):
+        got, jck = _gpt_tiny_frame_run("jax", cj, (pj, tx.init(pj)), jfn, jf,
+                                       str(tmp_path / "j"), 6, crash_after=crash)
+        want += got
+    assert jck.all_steps() == [2, 3, 4, 6]
+
+    def port_state():
+        pt = _carry(pj)
+        opt = ttr.adamw(pt, LR)
+        step = ttr.make_train_step(ct, opt)
+
+        def fn(state, batch):
+            _, _, loss = step(state[0], state[1].state, batch["tokens"], batch["targets"])
+            return state, loss
+
+        return (pt, opt), fn
+
+    got = []
+    for crash in (3, None):
+        state, fn = port_state()  # a fresh process: fresh weights, empty AdamW state
+        losses, tck = _gpt_tiny_frame_run("port", ct, state, fn, tf, str(tmp_path / "t"), 6,
+                                          crash_after=crash, device=CPU)
+        got += losses
+    assert tck.all_steps() == [2, 3, 4, 6]
+    assert [i for i, _ in got] == [i for i, _ in want] == [1, 2, 3, 4, 5, 6]
+    np.testing.assert_allclose([l for _, l in got], [l for _, l in want], rtol=1e-5)
+    whole, fn = port_state()
+    _, wck = _gpt_tiny_frame_run("port", ct, whole, fn, tf, str(tmp_path / "w"), 6, device=CPU)
+    a, b = tck.restore(step=6), wck.restore(step=6)
+    assert list(a) == list(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+
+@pytest.mark.parametrize("prefetch", [0, 2])
+def test_train_on_frame_resumes_past_corrupted_newest(tmp_path, prefetch):
+    """The host-side replay skip goes to the step that restores (the
+    intact one), not to the torn newest."""
+    frame = tft.frame_from_arrays({"x": np.arange(64, dtype=np.float32).reshape(16, 4)})
+
+    def step(state, batch):
+        new = {"w": state["w"] * 1.01 + batch["x"].sum()}
+        return new, {"loss": new["w"].sum()}
+
+    init = {"w": torch.zeros((), dtype=torch.float32)}
+    ck = tCheckpointer(str(tmp_path / "run"))
+    ttraining.train_on_frame(step, init, frame, ["x"], batch_size=4, num_steps=3,
+                             checkpointer=ck, save_every=1, shuffle=False, prefetch=prefetch,
+                             device=CPU)
+    payload = tmp_path / "run" / "step_3" / "arrays.npz"
+    payload.write_bytes(payload.read_bytes()[:10])
+    got, ran = ttraining.train_on_frame(step, init, frame, ["x"], batch_size=4, num_steps=4,
+                                        checkpointer=ck, save_every=1, shuffle=False,
+                                        prefetch=prefetch, device=CPU)
+    assert ran == 2
+    ref, _ = ttraining.train_on_frame(step, init, frame, ["x"], batch_size=4, num_steps=4,
+                                      checkpointer=tCheckpointer(str(tmp_path / "ref")),
+                                      save_every=100, shuffle=False, prefetch=prefetch,
+                                      device=CPU)
+    assert torch.equal(got["w"], ref["w"])
+
+
+def test_train_on_frame_with_checkpointer_guard_and_telemetry(tmp_path):
+    """The three options the port's train_on_frame now takes at once: a
+    run relaunched at step 7 runs 5 more, with the guard seeded from the
+    restore and one telemetry row per step (global step numbers)."""
+    frame = tft.frame_from_arrays(
+        {"x": np.random.default_rng(0).standard_normal((64, 4)).astype(np.float32)})
+    w0 = {"w": torch.zeros(4)}
+
+    def step(state, batch):
+        w = state["w"].clone().requires_grad_(True)
+        loss = ((batch["x"] @ w - 1.0) ** 2).mean()
+        (g,) = torch.autograd.grad(loss, [w])
+        return {"w": (w - 0.1 * g).detach()}, loss.detach()
+
+    ck = tCheckpointer(str(tmp_path / "ck"))
+    log = tmp_path / "steps.jsonl"
+    with tStepTelemetry(jsonl_path=str(log)) as tel:
+        _, ran1 = ttraining.train_on_frame(step, w0, frame, ["x"], batch_size=16, num_steps=7,
+                                           checkpointer=ck, save_every=5, shuffle=False,
+                                           guard="skip", telemetry=tel, device=CPU)
+        _, ran2 = ttraining.train_on_frame(step, w0, frame, ["x"], batch_size=16, num_steps=12,
+                                           checkpointer=ck, save_every=5, shuffle=False,
+                                           guard="rollback", telemetry=tel, device=CPU)
+    assert (ran1, ran2) == (7, 5) and ck.all_steps() == [5, 7, 10, 12]
+    rows = [json.loads(x) for x in log.read_text().splitlines()]
+    assert [r["step"] for r in rows] == list(range(1, 13))
+    assert all(r["rows_per_sec"] > 0 and np.isfinite(r["loss"]) for r in rows)
+    assert tel.rows_per_step == 16
+
+
+def test_train_on_frame_logreg_converges():
+    """The reference's logreg case: frame columns → minibatch stream →
+    a step over Adam(1e-2); 30 steps cut the loss by at least 10%."""
+    from tensorframes_tpu_torch.models import logreg
+
+    x, y = logreg.make_synthetic_mnist(512, seed=0)
+    frame = tft.frame_from_arrays({"features": x, "label_true": y})
+    params = logreg.init_params(seed=0, device=CPU)
+    for leaf in params.values():
+        leaf.requires_grad_(True)
+    opt = torch.optim.Adam(list(params.values()), lr=1e-2)
+
+    def loss_fn(p, batch):
+        logp = torch.log_softmax(batch["features"] @ p["w"] + p["b"], dim=-1)
+        return -logp.gather(-1, batch["label_true"][:, None]).mean()
+
+    step = ttraining.make_grad_accum_step(loss_fn, opt, 1)
+
+    def step_fn(state, batch):
+        p, s, loss = step(state[0], state[1], batch)
+        return (p, s), loss
+
+    losses = []
+    _, ran = ttraining.train_on_frame(step_fn, (params, opt.state), frame,
+                                      ["features", "label_true"], batch_size=128, num_steps=30,
+                                      on_step=lambda i, l: losses.append(float(l)), device=CPU)
+    assert ran == 30
+    assert losses[-1] < losses[0] * 0.9, (losses[0], losses[-1])
+
+
+def test_grad_accum_matches_jax_linear_sgd():
+    """The reference's linear model under SGD: make_grad_accum_step with 1
+    and 4 microbatches against the JAX package's, loss and parameters
+    within rtol 1e-5, and 4 microbatches against 1."""
+    rng = np.random.default_rng(0)
+    w0 = rng.standard_normal(4).astype(np.float32)
+    x = rng.standard_normal((8, 4)).astype(np.float32)
+    y = rng.standard_normal(8).astype(np.float32)
+
+    def jloss(params, batch):
+        bx, by = batch
+        return jnp.mean((bx @ params["w"] - by) ** 2)
+
+    def tloss(params, batch):
+        bx, by = batch
+        return torch.mean((bx @ params["w"] - by) ** 2)
+
+    got = {}
+    for accum in (1, 4):
+        tx = optax.sgd(0.1)
+        jw = {"w": jnp.asarray(w0)}
+        pj, _, lj = jtraining.make_grad_accum_step(jloss, tx, accum)(
+            jw, tx.init(jw), (jnp.asarray(x), jnp.asarray(y)))
+        pt = {"w": torch.from_numpy(w0.copy()).requires_grad_(True)}
+        opt = torch.optim.SGD([pt["w"]], lr=0.1)
+        out, st, lt = ttraining.make_grad_accum_step(tloss, opt, accum)(
+            pt, opt.state, (torch.from_numpy(x), torch.from_numpy(y)))
+        assert out is pt and st is opt.state and lt.dtype == torch.float32
+        np.testing.assert_allclose(float(lt), float(lj), rtol=1e-5)
+        np.testing.assert_allclose(pt["w"].detach().numpy(), np.asarray(pj["w"]), rtol=1e-5)
+        got[accum] = (float(lt), pt["w"].detach().clone())
+    np.testing.assert_allclose(got[4][0], got[1][0], rtol=1e-6)
+    np.testing.assert_allclose(got[4][1].numpy(), got[1][1].numpy(), rtol=1e-5, atol=1e-6)
+
+
+def test_grad_accum_gpt_tiny_adamw_matches_jax():
+    """make_grad_accum_step(accum_steps=2) over the port's AdamW on
+    gpt_tiny against the JAX package's over optax.adamw: the loss rtol
+    1e-5, the parameters as the train step's (rtol 1e-5, atol 0.05·lr)."""
+    cj, ct = jgen.gpt_tiny(attention_impl="flash"), tgen.gpt_tiny(attention_impl="flash")
+    pj = jtr.init_params(cj, seed=3)
+    toks, tg = jtr.synthetic_batch(cj, 4, 16, seed=3)
+    tx = optax.adamw(LR)
+    jstep = jtraining.make_grad_accum_step(
+        lambda p, b: jtr.loss_fn(cj, p, b[0], b[1]), tx, 2)
+    pj2, _, lj = jstep(pj, tx.init(pj), (jnp.asarray(toks), jnp.asarray(tg)))
+    pt = _carry(pj)
+    opt = ttr.adamw(pt, LR)
+    tstep = ttraining.make_grad_accum_step(lambda p, b: ttr.loss_fn(ct, p, b[0], b[1]), opt, 2)
+    _, _, lt = tstep(pt, opt.state, (torch.from_numpy(toks), torch.from_numpy(tg)))
+    np.testing.assert_allclose(float(lt), float(lj), rtol=1e-5)
+    _leaves_close(pt, pj2, 1e-5, 5e-2 * LR)
+
+
+def test_grad_accum_validates_and_float64_loss():
+    with pytest.raises(ValueError, match="accum_steps"):
+        ttraining.make_grad_accum_step(lambda p, b: 0.0, torch.optim.SGD([torch.zeros(1)], 0.1), 0)
+    w = {"w": torch.ones(2, requires_grad=True)}
+    step = ttraining.make_grad_accum_step(lambda p, b: b[0].mean() * p["w"].sum(),
+                                          torch.optim.SGD([w["w"]], 0.1), 3)
+    with pytest.raises(ValueError, match="not divisible"):
+        step(w, None, (torch.ones(8, 2),))
+    w64 = {"w": torch.ones(3, dtype=torch.float64, requires_grad=True)}
+    step = ttraining.make_grad_accum_step(lambda p, b: ((b[0] @ p["w"]) ** 2).mean(),
+                                          torch.optim.SGD([w64["w"]], 0.01), 2)
+    _, _, loss = step(w64, None, (torch.ones(4, 3, dtype=torch.float64),))
+    assert loss.dtype == torch.float32 and np.isfinite(float(loss))
+
+
+def test_mixed_precision_step_keeps_f32_masters():
+    """compute_dtype='bfloat16': the loss sees bf16 parameters, the
+    gradients land in f32 on the f32 masters, the step follows the f32
+    one to bf16 tolerance (rtol 5e-2 loss, 0.1 / 5e-3 parameters, the
+    reference's), and ten steps train."""
+    rng = np.random.default_rng(1)
+    w0 = rng.standard_normal(8).astype(np.float32)
+    x = torch.from_numpy(rng.standard_normal((16, 8)).astype(np.float32))
+    y = torch.from_numpy(rng.standard_normal(16).astype(np.float32))
+    seen = []
+
+    def loss_fn(params, batch):
+        bx, by = batch
+        seen.append(params["w"].dtype)
+        return ((bx.to(params["w"].dtype) @ params["w"]).float() - by).pow(2).mean()
+
+    def run(dtype):
+        p = {"w": torch.from_numpy(w0.copy()).requires_grad_(True)}
+        opt = torch.optim.SGD([p["w"]], lr=0.05)
+        return p, opt, ttraining.make_grad_accum_step(loss_fn, opt, 2, compute_dtype=dtype)
+
+    p32, _, s32 = run(None)
+    _, _, l32 = s32(p32, None, (x, y))
+    seen.clear()
+    pmp, opt, smp = run("bfloat16")
+    _, _, lmp = smp(pmp, None, (x, y))
+    assert torch.bfloat16 in seen and pmp["w"].dtype == torch.float32
+    assert pmp["w"].grad.dtype == torch.float32
+    np.testing.assert_allclose(float(lmp), float(l32), rtol=5e-2)
+    np.testing.assert_allclose(pmp["w"].detach().numpy(), p32["w"].detach().numpy(), rtol=0.1,
+                               atol=5e-3)
+    losses = [float(smp(pmp, None, (x, y))[2]) for _ in range(10)]
+    assert losses[-1] < losses[0] * 0.7, losses
 
 
 def test_cast_float_leaves():
