@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke for tensorframes_tpu_torch: build the CUDA kernels, hold each
 against its plain PyTorch version on the card, then drive the five verbs,
-the decode server, BERT-base embedding extraction, gpt_small training,
+the decode server (with its prefix cache and KV swap), BERT-base embedding
+extraction (also as a flush endpoint over HTTP), gpt_small training,
 Inception-v3 scoring (native, and from a frozen GraphDef this script
 writes) and VGG-16 scoring through the package's entry points at full
 size on one GPU.
@@ -44,9 +45,12 @@ Phases:
    outside the tolerance (timed: one layer's four products at m = 16, m
    = 1 and 128 logged; library: ``torch.matmul`` on a pre-widened bf16
    weight), and ``decode_attention`` at 1 and 16 slots over a 193-page
-   pool and at 4 slots of 64-page tables (past its staging buffer), twice
+   pool, at 4 slots of 64-page tables (past its staging buffer) and at
+   the prefills' geometry (128 rows of one sequence's table, pos = start
+   + i from starts 0 and 112, padding rows after them), twice
    bit for bit, each slot alone equal to the batch's, two broken plain
-   versions outside the tolerance (timed at 16; library:
+   versions outside the tolerance (timed at 16 slots and at the cold
+   prefill's 128 rows; library:
    ``scaled_dot_product_attention`` over pages already gathered and
    dequantized, the gather not timed); ``flash_attention``
    at [1024, 12, 128, 64] bf16 (q/k/v the encoder's strided views of one
@@ -111,18 +115,40 @@ Phases:
    requests; the first 8 re-run solo must match exactly; an engine with a
    4-horizon pool must preempt and still return the same tokens; the
    kernels must have launched 12 (attention) and 48 (matmul, every one on
-   its tensor-core build) times per step; one 16-slot step's logits,
+   its tensor-core build) times per decode step and per prefill; one 16-slot step's logits,
    kernel path against plain path on the same pool, within a tolerance
    that three deliberately broken plain
    paths must exceed. Tokens/s, TTFT (each request's own, from its
-   future) and step time follow. Then BERT-base embedding extraction with
+   future) and step time follow. Then the decode server's KV tiers on
+   the same model (``kv_tiers_leg``, counts reset before each engine's
+   traffic): with ``prefix_cache=True`` a 112-token prefix published, 12
+   cold one-token requests, 12 suffix hits (the prefix plus 16 fresh
+   tokens) and a 120-token repeat that copy-on-extends a shared page,
+   the hits' 64 tokens equal to an unarmed engine's exactly, TTFT p50 of
+   cold and hit reported; with ``kv_swap=True`` on a 1 + 2 x 12-page pool
+   the 32 prompts resume from swapped pages with the first run's tokens,
+   a corrupted segment falls back once (counted) with the same tokens,
+   and a hard-stopped engine's parked segments spill into a fresh
+   engine whose redriven requests resume from them; ``decode_attention``
+   12 and ``int8_matmul`` 48 (tensor cores) per decode step and per
+   prefill, whatever its route. Then BERT-base embedding extraction with
    flash attention (f32 weights from seed 0, 1,024 rows of 128 tokens):
    ``map_rows`` and ``map_blocks`` must launch the flash kernel 12 times
    per call, all on its tensor-core build, agree with each other and with dense attention through the
    same verb, while an attention that drops the last key tile must not;
    a 64-row ``map_rows`` over int8 weights must launch 48 int8 and 12
    flash kernels, all on their tensor-core builds. Rows/s per verb
-   follow. Then gpt_small training with
+   follow. Then the same BERT-base as a flush endpoint
+   (``flush_serving_leg``: ``Server.register`` over int32 [128] token
+   cells, 64-row flushes, a 2 ms timer, warmed by ``start()``): 256
+   requests of 1, 2 and 4 rows sent open-loop at 400 requests/s, half
+   through ``submit`` and half through ``serve_http`` from a child
+   process over 64 keep-alive connections, each row within
+   2e-2·max|embedding| of one ``map_rows`` call (bit-identical rows
+   counted), no new dispatch key, 12 flash launches a flush, a repeated
+   idempotent POST run once, ``POST /admin/drain`` through ``draining``
+   to ``stopped``; rows/s and latency p50/p99 of each half, the server
+   process's CPU share and its flushes' wall against their CPU time. Then gpt_small training with
    flash attention (f32 weights from seed 0, AdamW at lr 1e-3):
    ``training.train_on_frame`` takes 10 steps of 8 x 1024 tokens off a
    16-row frame, counts reset first; every step must launch the flash
@@ -200,8 +226,10 @@ from __future__ import annotations
 import contextlib
 import json
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -894,43 +922,60 @@ def check_int8_model_products(dev) -> dict:
 
 
 def paged_inputs(dev, S: int, pages: int = 193, layers: int = 12, nh: int = 12,
-                 page: int = 16, hd: int = 64, maxp: int = 12):
-    """A random int8 pool of the decode server's geometry, with S slots
-    whose positions spread over the 192-position horizon on distinct
-    pages; with S > 1 the last slot is padding (null table, position 0)."""
+                 page: int = 16, hd: int = 64, maxp: int = 12, start=None):
+    """A random int8 pool of the decode server's geometry. Decode geometry
+    (``start=None``): S slots whose positions spread over the 192-position
+    horizon on distinct pages; with S > 1 the last slot is padding (null
+    table, position 0). Prefill geometry (``start`` given): the rows of
+    one sequence's prefill, each carrying its table, ``pos = start + i``
+    up to the table's horizon and at most S - 1 rows; the rows past them
+    are padding (null table, position 0), as ``paged_suffix_prefill_fn``
+    lays them out."""
     import numpy as np
     import torch
 
-    rng = np.random.default_rng(SEED + S)
+    rng = np.random.default_rng(SEED + S + (0 if start is None else 1 + start))
     kv = [torch.from_numpy(rng.integers(-127, 128, (pages, layers, nh, page, hd)).astype(
         np.int8)).to(dev) for _ in range(2)]
     sc = [torch.from_numpy(rng.uniform(0.001, 0.03, (pages, layers, nh, page, 1)).astype(
         np.float32)).to(dev) for _ in range(2)]
     q = torch.from_numpy(rng.standard_normal((S, nh, hd)).astype(np.float32)).to(
         dev, torch.bfloat16)
-    pos = np.linspace(maxp * page - 1, 0, S).astype(np.int32)
     tables = np.zeros((S, maxp), np.int32)
     free = rng.permutation(np.arange(1, pages))
-    for s in range(S):
-        n = pos[s] // page + 1
-        tables[s, :n], free = free[:n], free[n:]
-    if S > 1:
-        pos[-1], tables[-1] = 0, 0
+    if start is None:
+        pos = np.linspace(maxp * page - 1, 0, S).astype(np.int32)
+        for s in range(S):
+            n = pos[s] // page + 1
+            tables[s, :n], free = free[:n], free[n:]
+        if S > 1:
+            pos[-1], tables[-1] = 0, 0
+    else:
+        rows = min(S - 1, maxp * page - start)
+        pos = np.zeros(S, np.int32)
+        pos[:rows] = start + np.arange(rows)
+        n = (start + rows - 1) // page + 1
+        tables[:rows, :n] = free[:n]
     return (q, *kv, *sc, torch.from_numpy(tables).to(dev), torch.from_numpy(pos).to(dev))
 
 
-DECODE_CASES = (  # (slots, page-table width): the serving geometry, and a context
-    (1, 12), (16, 12), (4, 64))  # of up to 1,024 positions, past the 256-position staging
+# (slots, page-table width, prefill start): the serving geometry, a context
+# of up to 1,024 positions (past the 256-position staging), and the
+# prefills' geometry, a row a slot at the suffix bucket's top of 128 rows:
+# a cold prefill of 127 rows and a suffix after a 112-token prefix
+DECODE_CASES = ((1, 12, None), (16, 12, None), (4, 64, None), (128, 12, 0), (128, 12, 112))
 
 
 def check_decode_attention(dev) -> dict:
-    """Kernel against plain at 1 and 16 slots of the serving pool and at 4
-    slots of 64-page tables (layer 5 of 12), twice with the same bits, each
-    slot alone equal to the same slot in the batch, and two broken plain
+    """Kernel against plain at 1 and 16 slots of the serving pool, at 4
+    slots of 64-page tables and at the prefills' 128 rows of one table
+    (starts 0 and 112; layer 5 of 12), twice with the same bits, each slot
+    alone equal to the same slot in the batch, and two broken plain
     versions (the step gate's: no V scale, the newest position missed)
-    outside the tolerance at each; timed at 16 slots. The library call is
-    SDPA over K/V already gathered and dequantized (that gather is not
-    timed)."""
+    outside the tolerance at each; timed at 16 slots, and at the cold
+    prefill's 128 rows (``prefill_ms``, ``prefill_plain_ms``). The library
+    call is SDPA over K/V already gathered and dequantized (that gather is
+    not timed)."""
     import torch
     import torch.nn.functional as F
     from tensorframes_tpu_torch import kernels
@@ -939,15 +984,16 @@ def check_decode_attention(dev) -> dict:
     err, worst = 0.0, 0.0
     broken = {what: fn for what, (name, fn) in broken_plain_paths().items()
               if name == "paged_attention_reference"}
-    for S, maxp in DECODE_CASES:
-        inputs = paged_inputs(dev, S, maxp=maxp)
+    for S, maxp, start in DECODE_CASES:
+        inputs = paged_inputs(dev, S, maxp=maxp, start=start)
         args = (*inputs[:5], 5, *inputs[5:])
         kernels.LAUNCHES.reset()
         got, again = kda.paged_decode_attention(*args), kda.paged_decode_attention(*args)
         launched = kernels.LAUNCHES.snapshot()["decode_attention"]
         ref = kda.paged_attention_reference(*args)
         torch.cuda.synchronize()
-        what = f"decode_attention S={S} maxp={maxp}"
+        what = f"decode_attention S={S} maxp={maxp}" + (
+            "" if start is None else f" prefill start={start}")
         if launched != 2 or not torch.equal(got, again):
             fail(f"{what}: {launched} launches for two calls, or two launches differ")
         err = max(err, bf16_close(got, ref, what))
@@ -979,7 +1025,16 @@ def check_decode_attention(dev) -> dict:
     valid = int((pos.long() + 1).sum())  # the positions this run's slots attend
     nbytes = 2 * q.numel() * 2 + valid * nh * (2 * hd + 8) + tables.numel() * 4 + S * 4
     log(f"# decode_attention: the kernel used at most {worst:.4g} of the tolerance")
+    pre = paged_inputs(dev, 128, start=0)
+    pre = (*pre[:5], 5, *pre[5:])
+    prefill_ms = time_ms(lambda: kda.paged_decode_attention(*pre), "decode_attention prefill")
+    prefill_plain_ms = time_ms(lambda: kda.paged_attention_reference(*pre),
+                               "decode_attention prefill plain")
+    log(f"# decode_attention prefill rows (S=128, start=0): kernel {prefill_ms:.6f} ms, "
+        f"plain {prefill_plain_ms:.6f} ms")
     return {
+        "prefill_ms": prefill_ms,
+        "prefill_plain_ms": prefill_plain_ms,
         "max_abs_err": err,
         "ms": time_ms(lambda: kda.paged_decode_attention(*args), "decode_attention"),
         "plain_ms": time_ms(lambda: kda.paged_attention_reference(*args),
@@ -2101,9 +2156,9 @@ def serving_path(tft, dev) -> dict:
                     or o.max() >= cfg.vocab_size):
                 fail(f"a decode result of shape {o.shape} / {o.dtype} or out of range")
         # the kernels ran as often as the steps say
-        if launches["decode_attention"] != 12 * steps["decode"]:
+        if launches["decode_attention"] != 12 * (steps["decode"] + steps["prefill"]):
             fail(f"decode_attention launched {launches['decode_attention']} times in "
-                 f"{steps['decode']} decode steps (want 12 per step)")
+                 f"{steps} (want 12 per decode step and per prefill)")
         if launches["int8_matmul"] != 48 * (steps["decode"] + steps["prefill"]):
             fail(f"int8_matmul launched {launches['int8_matmul']} times in {steps} "
                  "(want 48 per decode step and per prefill)")
@@ -2138,8 +2193,552 @@ def serving_path(tft, dev) -> dict:
         "launches": launches, "steps": steps, "wall_s": wall,
         "tokens_per_s": 32 * 64 / wall, "ttft_s": ttft,
         "latency_s": {"p50": float(np.percentile(lat, 50)), "p99": float(np.percentile(lat, 99))},
-        "cfg": cfg, "params": params, "prompts": prompts,
+        "cfg": cfg, "params": params, "prompts": prompts, "outs": outs,
     }
+
+
+KV_SHARED, KV_SUFFIX, KV_HITS = 112, 16, 12  # a 7-page shared prefix, 16 fresh tokens
+
+
+def counted(obj, attr: str) -> list:
+    """Wrap ``obj.attr`` (a callable) so each call appends to the returned
+    list: the script's own count of an engine route's calls."""
+    calls, fn = [], getattr(obj, attr)
+
+    def wrapper(*a, **k):
+        calls.append(1)
+        return fn(*a, **k)
+
+    setattr(obj, attr, wrapper)
+    return calls
+
+
+def step_launch_gates(launches: dict, steps: dict, what: str) -> None:
+    """decode_attention 12 and int8_matmul 48 (all on the tensor-core
+    build) per decode step and per prefill, whatever its route (cold,
+    suffix or copy-on-extend: every route reads the pool through the
+    kernel)."""
+    want_attn = 12 * (steps["decode"] + steps["prefill"])
+    want_mm = 48 * (steps["decode"] + steps["prefill"])
+    if launches["decode_attention"] != want_attn:
+        fail(f"{what}: decode_attention launched {launches['decode_attention']} times "
+             f"(want {want_attn}: 12 x {steps})")
+    if launches["int8_matmul"] != want_mm or launches["int8_matmul_mma"] != want_mm:
+        fail(f"{what}: int8_matmul launched {launches['int8_matmul']} times, "
+             f"{launches['int8_matmul_mma']} on the tensor cores (want {want_mm}: 48 x "
+             f"{steps})")
+
+
+def kv_tiers_leg(tft, dev, serving) -> dict:
+    """The decode server's KV tiers at gpt_small's full width (int8 weights
+    from seed 0, 16 slots, 16-position pages, prompts <= 128, 64 new
+    tokens). (a) ``prefix_cache=True``: a 112-token prefix published, 12
+    cold one-token requests of fresh 128-token prompts, 12 suffix hits
+    (the shared 112 plus 16 fresh tokens) and one 120-token repeat that
+    copy-on-extends a shared ragged page; the hits' 64 tokens equal an
+    unarmed engine's exactly. (b) ``kv_swap=True`` on a pool of 1 + 2 x 12
+    pages: ``serving_path``'s 32 prompts resume from swapped pages with its
+    tokens; one corrupted segment falls back once, counted, with the same
+    tokens; a hard-stopped engine's parked segments spill into a fresh
+    engine, whose redriven requests resume from them with the same tokens.
+    Launch counts are reset before and read after each engine's traffic."""
+    import dataclasses
+    import os
+
+    import numpy as np
+    from tensorframes_tpu_torch.blockstore import BlockStore
+    from tensorframes_tpu_torch.observability import context as ctx
+    from tensorframes_tpu_torch.serving import DecodeConfig, Server
+    from tensorframes_tpu_torch.serving import metrics as sm
+
+    t0 = time.perf_counter()
+    cfg, params = serving["cfg"], serving["params"]
+    dcfg = DecodeConfig(max_slots=16, page_size=16, max_prompt_len=128, max_new_tokens=64)
+    rng = np.random.default_rng(SEED + 15)
+    shared = rng.integers(0, cfg.vocab_size, KV_SHARED).astype(np.int32)
+    cold_prompts = [rng.integers(0, cfg.vocab_size, 128).astype(np.int32)
+                    for _ in range(KV_HITS)]
+    hit_prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab_size, KV_SUFFIX)]
+                                  ).astype(np.int32) for _ in range(KV_HITS)]
+    # the whole-prompt repeat: the shared prefix plus the first half of a
+    # hit's suffix, which that hit published as a page of its own
+    repeat = hit_prompts[0][:KV_SHARED + KV_SUFFIX // 2].copy()
+    srv = Server(device=dev)
+    eng = srv.register_decode("kv_prefix", cfg, params,
+                              dataclasses.replace(dcfg, prefix_cache=True))
+    srv.register_decode("kv_unarmed", cfg, params, dcfg)
+    srv.start()
+    setup_s = time.perf_counter() - t0
+    launches, steps, out = {}, {}, {}
+    try:
+        suffix_calls = counted(eng, "_suffix_prefill")
+        cow_calls = counted(eng, "_copy_page")
+        steps0 = {p: sm.DECODE_STEPS[p].value for p in sm.DECODE_PHASES}
+        h0 = sm.PREFIX_HITS.value
+        tft.kernels.LAUNCHES.reset()
+        t1 = time.perf_counter()
+        srv.call("kv_prefix", {"prompt": shared, "max_new_tokens": 1}, timeout=600)
+        cold = [srv.submit("kv_prefix", {"prompt": p, "max_new_tokens": 1})
+                for p in cold_prompts]
+        for f in cold:
+            f.result(600)
+        hits = [srv.submit("kv_prefix", {"prompt": p}) for p in hit_prompts]
+        hit_out = [f.result(600)["tokens"] for f in hits]
+        rep = srv.submit("kv_prefix", {"prompt": repeat})
+        rep_out = rep.result(600)["tokens"]
+        prefix_wall = time.perf_counter() - t1
+        launches["prefix"] = launch_counts(tft)
+        steps["prefix"] = {p: int(sm.DECODE_STEPS[p].value - steps0[p])
+                           for p in sm.DECODE_PHASES}
+        n_hits = int(sm.PREFIX_HITS.value - h0)
+        if n_hits < KV_HITS + 1 or len(cow_calls) != 1 or len(suffix_calls) != KV_HITS:
+            fail(f"prefix leg: {n_hits} hits counted, {len(suffix_calls)} suffix prefills, "
+                 f"{len(cow_calls)} copy-on-extend (want >= 13, 12, 1)")
+        step_launch_gates(launches["prefix"], steps["prefix"], "prefix leg")
+        want = [srv.submit("kv_unarmed", {"prompt": p}) for p in hit_prompts + [repeat]]
+        want = [f.result(600)["tokens"] for f in want]
+        mismatch = [i for i, (a, b) in enumerate(zip(hit_out + [rep_out], want))
+                    if not np.array_equal(a, b)]
+        if mismatch:
+            fail(f"prefix leg: the hits {mismatch} (12 = the copy-on-extend repeat) differ "
+                 "from the unarmed engine's tokens")
+        ttft = {k: float(np.percentile([f.ttft_s for f in fs], 50))
+                for k, fs in (("cold", cold), ("hit", hits))}
+        out["prefix"] = {"hits": n_hits, "suffix_prefills": len(suffix_calls),
+                         "copy_on_extend": len(cow_calls), "ttft_p50_s": ttft,
+                         "wall_s": prefix_wall, "steps": steps["prefix"],
+                         "shared_pages": eng.pool.num_shared}
+        eng.pool.check()
+    finally:
+        srv.stop(drain=False, timeout=60)
+
+    prompts, ref = serving["prompts"], serving["outs"]
+    maxp = -(-(dcfg.max_prompt_len + dcfg.max_new_tokens) // dcfg.page_size)
+    root = ROOT / "build" / "kv_swap"
+    swap_cfg = dataclasses.replace(dcfg, num_pages=1 + 2 * maxp, kv_swap=True)
+
+    def swap_server(name: str):
+        s = Server(device=dev)
+        e = s.register_decode(name, cfg, params,
+                              dataclasses.replace(swap_cfg, swap_dir=str(root / name)))
+        return s.start(), e
+
+    def drive(s, name: str, keyed: bool = False):
+        futs = []
+        for i, p in enumerate(prompts):
+            with ctx.request_scope(f"kv-{i}" if keyed else None):
+                futs.append(s.submit(name, {"prompt": p}))
+        return futs
+
+    def same_tokens(outs, what: str) -> None:
+        bad = [i for i, (a, b) in enumerate(zip(outs, ref)) if not np.array_equal(a, b)]
+        if bad:
+            fail(f"{what}: requests {bad} differ from serving_path's tokens")
+
+    counters = lambda: {k: v.value for k, v in (  # noqa: E731
+        ("outs", sm.KVSWAP_OUTS), ("resumes", sm.KVSWAP_RESUMES),
+        ("fallbacks", sm.KVSWAP_FALLBACKS), ("bytes", sm.KVSWAP_BYTES))}
+
+    def delta(c0):
+        return {k: int(v - c0[k]) for k, v in counters().items()}
+
+    srv, eng = swap_server("kv_swap")
+    try:
+        steps0 = {p: sm.DECODE_STEPS[p].value for p in sm.DECODE_PHASES}
+        c0 = counters()
+        tft.kernels.LAUNCHES.reset()
+        t2 = time.perf_counter()
+        outs = [f.result(900)["tokens"] for f in drive(srv, "kv_swap")]
+        swap_wall = time.perf_counter() - t2
+        launches["swap"] = launch_counts(tft)
+        steps["swap"] = {p: int(sm.DECODE_STEPS[p].value - steps0[p]) for p in sm.DECODE_PHASES}
+        swap = delta(c0)
+        if swap["resumes"] < 1 or swap["fallbacks"] != 0:
+            fail(f"swap leg: {swap} (want resumes > 0, fallbacks 0)")
+        same_tokens(outs, "swap leg")
+        step_launch_gates(launches["swap"], steps["swap"], "swap leg")
+        # one corrupted segment: the first to land gets a byte flipped
+        store = eng._swap_store
+        orig_put, flipped = store.put_spilled, []
+
+        def corrupting_put(block):
+            ref_ = orig_put(block)
+            if not flipped:
+                path = os.path.join(store._seg_dir(ref_.block_id), "c0.bin")
+                with open(path, "r+b") as f:
+                    b = f.read(1)
+                    f.seek(0)
+                    f.write(bytes([b[0] ^ 0xFF]))
+                flipped.append(path)
+            return ref_
+
+        store.put_spilled = corrupting_put
+        c1 = counters()
+        outs = [f.result(900)["tokens"] for f in drive(srv, "kv_swap")]
+        corrupt = delta(c1)
+        if corrupt["fallbacks"] != 1:
+            fail(f"corrupted-segment leg: {corrupt} (want exactly one fallback)")
+        same_tokens(outs, "corrupted-segment leg")
+    finally:
+        srv.stop(drain=False, timeout=120)
+
+    # a hard stop with swapped sequences pending parks their segments;
+    # spill() hands them to a fresh engine through a BlockStore
+    parked = 0
+    for attempt in range(6):
+        srv, eng = swap_server(f"kv_swapstop{attempt}")
+        drive(srv, f"kv_swapstop{attempt}", keyed=True)
+        deadline = time.time() + 120
+        while time.time() < deadline and not eng._swap:
+            time.sleep(0.001)
+        srv.stop(drain=False, timeout=120)
+        parked = len(eng._swap_parked)
+        if parked:
+            break
+    if not parked:
+        fail("restart leg: never caught a swapped sequence pending across 6 hard stops")
+    handoff = BlockStore(root=str(root / "handoff"), budget_bytes=0)
+    snap = eng.spill(handoff)
+    srv2, eng2 = swap_server("kv_swaprestored")
+    try:
+        adopted = eng2.restore(handoff, snap)
+        c2 = counters()
+        outs = [f.result(900)["tokens"] for f in drive(srv2, "kv_swaprestored", keyed=True)]
+        restart = delta(c2)
+        if adopted < 1 or restart["resumes"] < 1:
+            fail(f"restart leg: adopted {adopted}, {restart} (want resumes from the "
+                 "restored segments)")
+        same_tokens(outs, "restart leg")
+    finally:
+        srv2.stop(drain=True, timeout=120)
+        handoff.close()
+    total = {k: launches["prefix"][k] + launches["swap"][k] for k in launches["prefix"]}
+    out.update({"swap": {**swap, "wall_s": swap_wall, "steps": steps["swap"]},
+                "corrupt": corrupt, "restart": {**restart, "parked": parked,
+                                                "adopted": adopted},
+                "launches": total, "setup_s": setup_s,
+                "wall_s": time.perf_counter() - t0})
+    log(f"# serving kv tiers: prefix {json.dumps(out['prefix'])}; swap {json.dumps(out['swap'])}; "
+        f"corrupted segment {json.dumps(corrupt)}; restart {json.dumps(out['restart'])}; "
+        f"launches {json.dumps(total)}; setup {setup_s:.1f} s, leg {out['wall_s']:.1f} s")
+    return out
+
+
+FLUSH_REQUESTS, FLUSH_RATE = 256, 400.0  # open loop: requests at a fixed rate
+FLUSH_ROWS = (1, 2, 4)
+# the flush leg's HTTP half: ``python -c FLUSH_HTTP_CLIENT base rate conns
+# feed.npz out.npz`` encodes every request body, opens ``conns`` keep-alive
+# connections (a thread each), prints "ready" and reads t_start (wall clock)
+# from its stdin. Each thread takes the next request i of the feed's ``idx``
+# in order, posts it at t_start + i / rate (later when every connection is
+# busy: the wait counts in its latency) and keeps the raw answer, parsed
+# only after the last one. Connects stay out of the schedule: on the card's
+# machine a burst of them waited out TCP's 1, 3 and 7 s retries. Saved:
+# each answer's embeddings, its time after t_start (taken when its body is
+# read) and how late its send was.
+FLUSH_HTTP_CLIENT = r"""
+import http.client, json, queue, sys, threading, time
+from urllib.parse import urlsplit
+import numpy as np
+
+base, rate, conns, feed, out = sys.argv[1], float(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:6]
+where = urlsplit(base)
+with np.load(feed) as f:
+    tokens, offs, idx = f["tokens"], f["offs"], f["idx"]
+bodies = [json.dumps({"inputs": {"tokens": tokens[offs[i]:offs[i + 1]].tolist()}}).encode()
+          for i in idx]
+raws, done, late, errors = [None] * len(idx), [0.0] * len(idx), [0.0] * len(idx), []
+work = queue.Queue()
+for j, i in enumerate(idx):
+    work.put((j, int(i)))
+go, connected, t_start = threading.Event(), threading.Semaphore(0), [0.0]
+
+
+def connection():
+    c = http.client.HTTPConnection(where.hostname, where.port, timeout=120)
+    try:
+        c.connect()
+    finally:
+        connected.release()
+    go.wait()
+    while True:
+        try:
+            j, i = work.get_nowait()
+        except queue.Empty:
+            c.close()
+            return
+        t_send = t_start[0] + i / rate
+        pause = t_send - time.time()
+        if pause > 0:
+            time.sleep(pause)
+        late[j] = time.time() - t_send
+        try:
+            c.request("POST", "/v1/bert", body=bodies[j],
+                      headers={"Content-Type": "application/json"})
+            r = c.getresponse()
+            body = r.read()
+            if r.status != 200:
+                raise RuntimeError(f"status {r.status}: {body[:200]!r}")
+            raws[j] = body
+            done[j] = time.time() - t_start[0]
+        except Exception as e:
+            errors.append(f"request {i}: {type(e).__name__}: {e}")
+            c.close()
+            c = http.client.HTTPConnection(where.hostname, where.port, timeout=120)
+
+
+threads = [threading.Thread(target=connection) for _ in range(conns)]
+for th in threads:
+    th.start()
+for _ in threads:
+    connected.acquire()
+print("ready", flush=True)
+t_start[0] = float(sys.stdin.readline())
+go.set()
+for th in threads:
+    th.join(300)
+if errors or any(r is None for r in raws):
+    print("\n".join(errors[:5]) or "unanswered requests", file=sys.stderr)
+    sys.exit(1)
+embs = [np.asarray(json.loads(r)["outputs"]["embedding"], np.float32) for r in raws]
+start = np.concatenate([[0], np.cumsum([len(e) for e in embs])])
+np.savez(out, emb=np.concatenate(embs), start=start, done=np.asarray(done),
+         late=np.asarray(late))
+"""
+FLUSH_HTTP_CONNECTIONS = 64  # keep-alive connections of the HTTP half
+
+
+def listen_overflows():
+    """The kernel's count of connections dropped at a full listen queue
+    (``TcpExt ListenOverflows`` in ``/proc/net/netstat``; None where it
+    cannot be read). A dropped SYN is retried by the client after 1 s,
+    then 3 s, 7 s: the latency steps of an overflowing accept queue."""
+    try:
+        lines = Path("/proc/net/netstat").read_text().splitlines()
+    except OSError:
+        return None
+    for head, vals in zip(lines[::2], lines[1::2]):
+        if head.startswith("TcpExt:"):
+            return dict(zip(head.split()[1:], map(int, vals.split()[1:]))).get(
+                "ListenOverflows")
+    return None
+
+
+def flush_serving_leg(tft, dev, encoder) -> dict:
+    """BERT-base (flash attention, the encoder path's weights) as a flush
+    endpoint: ``Server.register("bert", embed_row_program, schema)`` over
+    int32 [128] token cells, ``ServingConfig(max_batch_rows=64,
+    max_latency_s=0.002)``, warmed by ``start()``; 256 requests of 1, 2 and
+    4 rows in turn, sent open-loop at 400 requests/s, half through
+    ``submit`` and half through ``serve_http`` on 127.0.0.1 from a child
+    process over ``FLUSH_HTTP_CONNECTIONS`` keep-alive connections
+    (``FLUSH_HTTP_CLIENT``), so the server's process runs no client code; each half's rows/s and latency are reported apart,
+    with the server process's CPU seconds over the wall and each flush's
+    wall against the worker thread's CPU time in it. Gates: every
+    row within EMB_RTOL·max|embedding| of the same rows through one
+    ``map_rows`` call, no new dispatch key after warm-up, 12 flash launches
+    per flush (the encoder path's per dispatch), a repeated POST with one
+    idempotency key run once, ``POST /admin/drain`` leading ``/healthz``
+    through ``draining`` to ``stopped``."""
+    import urllib.request
+
+    import numpy as np
+    from tensorframes_tpu_torch.models import transformer as tr
+    from tensorframes_tpu_torch.ops.executor import _JIT_MISSES
+    from tensorframes_tpu_torch.serving import Server, ServingConfig, serve_http
+    from tensorframes_tpu_torch.serving import metrics as sm
+
+    t0 = time.perf_counter()
+    cfg, params = encoder["cfg"], encoder["params"]
+    sizes = [FLUSH_ROWS[i % len(FLUSH_ROWS)] for i in range(FLUSH_REQUESTS)]
+    offs = np.concatenate([[0], np.cumsum(sizes)])
+    tokens, _ = tr.synthetic_batch(cfg, int(offs[-1]), ENC_SEQ, seed=SEED + 15)
+    schema = tft.Schema([tft.ColumnInfo("tokens", tft.dtypes.int32,
+                                        tft.Shape((tft.Unknown, ENC_SEQ)))])
+    frame = tft.frame_from_arrays({"tokens": tokens}, num_blocks=1)
+    ref, _ = embed_rows(tft, cfg, params, frame, dev, "map_rows")
+    srv = Server(ServingConfig(max_batch_rows=64, max_latency_s=0.002), device=dev)
+    srv.register("bert", tr.embed_row_program(cfg, params), schema)
+    srv.start()  # warms the 8/16/32/64-row ladder
+    ep = srv._endpoints["bert"]
+    alone_ms, alone_cpu_ms = {}, {}
+    for n in (1, 64):  # one flush's dispatch alone: host wall to the result, and CPU
+        walls, cpus = [], []
+        for _ in range(3):
+            t, c = time.perf_counter(), time.thread_time()
+            ep.dispatch({"tokens": tokens[:n]}, n)
+            walls.append(1e3 * (time.perf_counter() - t))
+            cpus.append(1e3 * (time.thread_time() - c))
+        alone_ms[n], alone_cpu_ms[n] = float(np.median(walls)), float(np.median(cpus))
+    httpd = serve_http(srv, max_body_bytes=64 << 20)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    setup_s = time.perf_counter() - t0
+
+    def post(path, body, timeout=120):
+        req = urllib.request.Request(base + path, data=json.dumps(body).encode(),
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.load(r)
+
+    def get_state():
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+            return json.load(r)["state"]
+
+    results, lat, done = [None] * FLUSH_REQUESTS, [0.0] * FLUSH_REQUESTS, [0.0] * FLUSH_REQUESTS
+    http_idx = list(range(1, FLUSH_REQUESTS, 2))
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_flush_"))
+    np.savez(tmp / "feed.npz", tokens=tokens, offs=offs, idx=np.asarray(http_idx))
+    # the worker's flushes: host wall and the worker thread's own CPU time,
+    # so a flush that waits for the interpreter lock shows as wall > CPU
+    batcher = srv._batchers["bert"]
+    dispatch, flush_times = batcher._dispatch, []
+
+    def timed_dispatch(feeds, rows):
+        w, c = time.perf_counter(), time.thread_time()
+        try:
+            return dispatch(feeds, rows)
+        finally:
+            flush_times.append((time.perf_counter() - w, time.thread_time() - c))
+
+    batcher._dispatch = timed_dispatch
+    client = None
+    try:
+        flush0 = sum(c.value for c in sm.FLUSHES.values())
+        miss0 = _JIT_MISSES.value
+        hist0 = {h: (h.count, h.sum) for h in (sm.DISPATCH_SECONDS, sm.QUEUE_WAIT,
+                                               sm.BATCH_ROWS)}
+        tft.kernels.LAUNCHES.reset()
+        # the HTTP half's clients run in a child process (numpy and urllib
+        # only), so the server's process holds only its handler threads and
+        # the batcher's worker; both halves keep one schedule on the wall
+        # clock, set once the child has loaded (its start-up takes seconds)
+        t_spawn = time.time()
+        client = subprocess.Popen(
+            [sys.executable, "-c", FLUSH_HTTP_CLIENT, base, repr(FLUSH_RATE),
+             str(FLUSH_HTTP_CONNECTIONS), str(tmp / "feed.npz"), str(tmp / "out.npz")],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if client.stdout.readline().strip() != "ready":
+            fail(f"flush leg: the HTTP client did not start: {client.communicate(timeout=60)[0]}")
+        t_start = time.time() + 0.2
+        client_start_s = t_start - 0.2 - t_spawn
+        client.stdin.write(f"{t_start!r}\n")
+        client.stdin.flush()
+        pending = {}
+
+        def reap():  # each answer's time to within the 0.5 ms poll
+            now = time.time() - t_start
+            for i in [i for i, f in pending.items() if f.done()]:
+                results[i] = pending.pop(i).result(0)["embedding"]
+                done[i] = now
+
+        while time.time() < t_start:
+            time.sleep(0.001)
+        cpu0, over0 = time.process_time(), listen_overflows()
+        for i in range(0, FLUSH_REQUESTS, 2):
+            while time.time() < t_start + i / FLUSH_RATE:
+                reap()
+                time.sleep(0.0005)
+            pending[i] = srv.submit("bert", {"tokens": tokens[offs[i]:offs[i + 1]]})
+        deadline = time.time() + 300
+        while pending and time.time() < deadline:
+            reap()
+            time.sleep(0.0005)
+        said, _ = client.communicate(timeout=300)
+        cpu_s = time.process_time() - cpu0
+        over1 = listen_overflows()
+        fw = np.asarray(flush_times)  # the traffic's flushes alone
+        if client.returncode != 0:
+            fail(f"flush leg: the HTTP client exited {client.returncode}: {said[-2000:]}")
+        with np.load(tmp / "out.npz") as got_http:
+            emb, cut = got_http["emb"], got_http["start"]
+            send_late_s = float(got_http["late"].max())
+            for j, i in enumerate(http_idx):
+                results[i] = emb[int(cut[j]):int(cut[j + 1])]
+                done[i] = float(got_http["done"][j])
+                lat[i] = done[i] - i / FLUSH_RATE
+        for i in range(FLUSH_REQUESTS):
+            lat[i] = done[i] - i / FLUSH_RATE
+        wall = max(done)
+        launches = launch_counts(tft)
+        flushes = int(sum(c.value for c in sm.FLUSHES.values()) - flush0)
+        misses = int(_JIT_MISSES.value - miss0)
+        means = {name: (h.sum - hist0[h][1]) / max(1, h.count - hist0[h][0])
+                 for name, h in (("dispatch_s", sm.DISPATCH_SECONDS),
+                                 ("queue_wait_s", sm.QUEUE_WAIT),
+                                 ("rows_per_flush", sm.BATCH_ROWS))}
+        if any(r is None for r in results):
+            fail(f"flush leg: {sum(r is None for r in results)} unanswered requests")
+        got = np.concatenate(results)
+        tol = EMB_RTOL * float(np.abs(ref).max())
+        gap = float(np.abs(got - ref).max())
+        identical = int(sum(np.array_equal(got[j], ref[j]) for j in range(len(ref))))
+        if gap > tol:
+            fail(f"flush leg: served embeddings off map_rows' by {gap} (tolerance {tol})")
+        if misses:
+            fail(f"flush leg: {misses} new dispatch keys after warm-up (want 0)")
+        if (launches["flash_attention"] != cfg.num_layers * flushes
+                or launches["flash_attention_mma"] != launches["flash_attention"]):
+            fail(f"flush leg: flash launched {launches['flash_attention']} times "
+                 f"({launches['flash_attention_mma']} on the tensor cores) in {flushes} "
+                 f"flushes (want {cfg.num_layers} per flush, all on the tensor cores)")
+        # a POST repeated with one idempotency key runs once
+        rows0, dd0 = sm.ROWS.value, sm.IDEMPOTENT_DEDUP.value
+        body = {"inputs": {"tokens": tokens[:2].tolist()}, "idempotency_key": "bert-once"}
+        first, again = post("/v1/bert", body), post("/v1/bert", body)
+        if (first[0], again[0]) != (200, 200) or first[1]["outputs"] != again[1]["outputs"] \
+                or sm.ROWS.value - rows0 != 2 or sm.IDEMPOTENT_DEDUP.value - dd0 != 1:
+            fail("flush leg: a POST repeated with one idempotency key did not run once")
+        # drain over HTTP: a request in flight keeps the server draining
+        pending = srv.submit("bert", {"tokens": tokens[:4]})
+        code, drained = post("/admin/drain", {})
+        states = [drained["state"]]
+        deadline = time.time() + 60
+        while states[-1] != "stopped" and time.time() < deadline:
+            time.sleep(0.01)
+            states.append(get_state())
+        pending.result(60)
+        if code != 202 or states[0] != "draining" or states[-1] != "stopped":
+            fail(f"flush leg: /admin/drain answered {code}, states {states[:3]} .. "
+                 f"{states[-1]} (want 202, draining, then stopped)")
+    finally:
+        if client is not None and client.poll() is None:
+            client.kill()
+            client.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+        httpd.shutdown()
+        httpd.server_close()
+        srv.stop(drain=False, timeout=60)
+    rows = int(offs[-1])
+
+    def half(idx):
+        n = int(sum(sizes[i] for i in idx))
+        w = max(done[i] for i in idx)
+        return {"rows": n, "wall_s": w, "rows_per_s": n / w,
+                "latency_s": {"p50": float(np.percentile([lat[i] for i in idx], 50)),
+                              "p99": float(np.percentile([lat[i] for i in idx], 99))}}
+
+    out = {"requests": FLUSH_REQUESTS, "rows": rows, "wall_s": wall, "rows_per_s": rows / wall,
+           "latency_s": {"p50": float(np.percentile(lat, 50)),
+                         "p99": float(np.percentile(lat, 99))},
+           "halves": {"in_process": half(range(0, FLUSH_REQUESTS, 2)), "http": half(http_idx)},
+           # the server process: its CPU seconds over the traffic's wall (1.0 =
+           # one core busy throughout), and the worker's flushes' wall and CPU
+           "process_cpu_share": cpu_s / wall,
+           "listen_overflows": None if over0 is None or over1 is None else over1 - over0,
+           "http_client_start_s": client_start_s, "http_send_late_max_s": send_late_s,
+           "http_latency_s_sorted": sorted(lat[i] for i in http_idx),
+           "flush_wall_ms": {"median": 1e3 * float(np.median(fw[:, 0])),
+                             "sum": 1e3 * float(fw[:, 0].sum())},
+           "flush_cpu_ms": {"median": 1e3 * float(np.median(fw[:, 1])),
+                            "sum": 1e3 * float(fw[:, 1].sum())},
+           "flushes": flushes, "means": means, "dispatch_alone_ms": alone_ms,
+           "dispatch_alone_cpu_ms": alone_cpu_ms,
+           "dispatch_key_misses": misses, "max_abs_gap": gap,
+           "tolerance": tol, "bit_identical_rows": identical, "launches": launches,
+           "setup_s": setup_s, "leg_s": time.perf_counter() - t0}
+    log(f"# flush serving: {json.dumps({k: v for k, v in out.items() if k not in ('launches', 'http_latency_s_sorted')})}; "
+        f"launches {json.dumps(launches)}")
+    return out
 
 
 EMB_RTOL = 2e-2  # of max |embedding|: ~3x the flash-vs-dense gap of a sound run (PERF.md)
@@ -4362,6 +4961,12 @@ def main() -> int:
     if missing:
         fail(f"kernels never launched on the decode server's path: {missing}")
     state = check_step_logits(serving, dev)
+    t_kv = time.perf_counter()
+    kv = kv_tiers_leg(tft, dev, serving)
+    log(f"# kv tiers leg: {time.perf_counter() - t_kv:.1f} s")
+    missing = [k for k in SERVING_KERNELS if kv["launches"][k] <= 0]
+    if missing:
+        fail(f"kernels never launched on the KV tiers' path: {missing}")
 
     t3 = time.perf_counter()
     encoder = encoder_path(tft, dev)
@@ -4372,6 +4977,11 @@ def main() -> int:
     for verb in ("map_rows", "map_blocks"):
         log(f"# encoder BERT-base {verb}: {encoder['rows_per_s'][verb]:.1f} rows/s (1,024 rows "
             f"x 128 tokens in {encoder['seconds'][verb]:.4f} s, flash attention)")
+    t_flush = time.perf_counter()
+    flush = flush_serving_leg(tft, dev, encoder)
+    log(f"# flush serving leg: {time.perf_counter() - t_flush:.1f} s")
+    if flush["launches"]["flash_attention"] <= 0:
+        fail("flash_attention never launched on the flush endpoint's path")
 
     t4 = time.perf_counter()
     train = training_path(tft, dev)
@@ -4451,7 +5061,8 @@ def main() -> int:
 
     kernels = []
     paths = ((path, SLICE1_KERNELS), (relational, ("segment_reduce", "segment_sum")),
-             (serving, SERVING_KERNELS), (encoder, ENCODER_KERNELS),
+             (serving, SERVING_KERNELS), (kv, SERVING_KERNELS),
+             (encoder, ENCODER_KERNELS), (flush, ENCODER_KERNELS),
              (train, TRAINING_KERNELS), (resumable, TRAINING_KERNELS),
              (imported["int8"], ("int8_matmul",)),
              (vggr["int8"], ("int8_matmul",)))
@@ -4469,6 +5080,21 @@ def main() -> int:
     log(f"# pipeline legs: {json.dumps(pipeline)}")
     log(f"# generic aggregate: {json.dumps(generic)}; relational walls: "
         f"{json.dumps(relational['walls_ms'])}")
+    log(f"# serving kv tiers: TTFT p50 cold {kv['prefix']['ttft_p50_s']['cold']:.4f} s, suffix "
+        f"hit {kv['prefix']['ttft_p50_s']['hit']:.4f} s (bursts of 12, not gated); swap run "
+        f"{kv['swap']['wall_s']:.3f} s for 32 requests, resumes {kv['swap']['resumes']}")
+    log(f"# flush serving BERT-base: {flush['rows_per_s']:.1f} rows/s ({flush['rows']} rows in "
+        f"{flush['requests']} requests at {FLUSH_RATE:.0f} requests/s, {flush['flushes']} "
+        f"flushes in {flush['wall_s']:.3f} s); latency p50 {flush['latency_s']['p50']:.4f} s, "
+        f"p99 {flush['latency_s']['p99']:.4f} s; "
+        + "; ".join(f"{h} half {v['rows_per_s']:.1f} rows/s, p50 {v['latency_s']['p50']:.4f} s, "
+                    f"p99 {v['latency_s']['p99']:.4f} s" for h, v in flush["halves"].items())
+        + f" (HTTP sends at most {flush['http_send_late_max_s']:.4f} s late, listen overflows "
+        f"{flush['listen_overflows']})"
+        + f"; server process CPU share {flush['process_cpu_share']:.3f}, flush median wall "
+        f"{flush['flush_wall_ms']['median']:.2f} ms against {flush['flush_cpu_ms']['median']:.2f} "
+        f"ms of the worker's CPU; {flush['bit_identical_rows']} of "
+        f"{flush['rows']} rows bit-identical to map_rows")
     log(f"# total: {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(gpu_line())

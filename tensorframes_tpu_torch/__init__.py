@@ -7,7 +7,10 @@ through five verbs — ``map_rows``, ``map_blocks`` (± trimmed),
 ``reduce_rows``, ``reduce_blocks``, keyed ``aggregate`` — plus schema
 tooling (``analyze``, ``append_shape``, ``print_schema``), and serve a
 causal transformer through a decode server (:class:`Server`,
-:class:`DecodeEngine`: continuous batching over a paged int8 KV pool),
+:class:`DecodeEngine`: continuous batching over a paged int8 KV pool,
+with a prefix cache and KV swap over :class:`BlockStore`) and any
+row program through a flush endpoint (``Server.register``, over HTTP with
+:func:`serve_http`),
 and train it straight off a frame (:func:`training.train_on_frame` over
 :func:`models.transformer.make_train_step`, batches staged by
 :mod:`.io`), resumably: verified checkpoints (:class:`Checkpointer`,
@@ -92,7 +95,8 @@ from .ops.verbs import (  # noqa: F401
 from .utils import profiling  # noqa: F401
 from . import observability  # noqa: F401
 from .plan import explain_plan  # noqa: F401  (registers tftpu_plan_* metrics)
-from .serving import DecodeConfig, DecodeEngine, Server, ServingConfig  # noqa: F401
+from .serving import DecodeConfig, DecodeEngine, Server, ServingConfig, serve_http  # noqa: F401
+from .blockstore import BlockCorruptionError, BlockStore  # noqa: F401
 from . import io, training  # noqa: F401
 from .graphdef import (  # noqa: F401
     load_graphdef,
@@ -154,6 +158,10 @@ __all__ = [
     "ServingConfig",
     "DecodeConfig",
     "DecodeEngine",
+    "serve_http",
+    # out-of-core data plane
+    "BlockStore",
+    "BlockCorruptionError",
     # dsl / placeholder helpers
     "Node",
     "block",

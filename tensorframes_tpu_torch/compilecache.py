@@ -32,7 +32,8 @@ def serving_row_buckets(max_rows: int) -> List[int]:
             f"max_rows={max_rows} exceeds the bucket ladder's top "
             f"({table[-1]}): flush sizes above the ladder dispatch at "
             "exact, unwarmable shapes. Raise TFTPU_MAX_BUCKET_DOUBLINGS"
-            "/configure(max_bucket_doublings=) or lower the bound"
+            "/configure(max_bucket_doublings=) or lower "
+            "ServingConfig.max_batch_rows"
         )
     top = bucket_rows(max_rows)
     return [b for b in table if b <= top]

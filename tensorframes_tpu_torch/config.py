@@ -69,6 +69,9 @@ class Config:
     # Root directory of persistent caches; the plan-stats sidecar lives
     # in <dir>/planstats. Empty: stats stay in memory.
     compilation_cache_dir: str = os.environ.get("TFTPU_COMPILE_CACHE", "")
+    # Parent directory of block stores' private spill directories (empty:
+    # the system temp dir). Point at fast local disk in production.
+    blockstore_dir: str = os.environ.get("TFTPU_BLOCKSTORE_DIR", "")
     # Where verbs execute: "cuda" (the default) or "cpu". With no GPU
     # present, "cuda" raises at the verb call instead of running on the
     # CPU; the CPU is used only when asked for.

@@ -3,8 +3,10 @@
 The reference package's ``models/generation.py``: a dense static-shape KV
 cache for ``generate`` (prefill the prompt as one chunk, then one cached
 step per token), the cache-free ``generate_naive`` oracle, and the paged
-int8 KV pool with the two step functions the serving decode engine runs
-(``paged_prefill_fn``, ``paged_decode_step_fn``). Logits tie to the
+int8 KV pool with the step functions the serving decode engine runs
+(``paged_prefill_fn``, ``paged_decode_step_fn``, the prefix cache's
+``paged_suffix_prefill_fn``, and ``paged_page_ops_fns`` for the prefix
+and swap tiers). Logits tie to the
 token embedding (no separate LM head); greedy decoding is an argmax in
 the step.
 
@@ -13,11 +15,12 @@ a Python loop. The caches and the paged pool are dicts of tensors that
 the step functions **update in place** (the reference returns new
 arrays); they still return the pool, so the call shapes match.
 
-On CUDA tensors the decode step launches the hand-written paged
-decode-attention kernel once per layer and every weight product of a
-quantized model launches the int8-weight kernel; on CPU tensors both use
-their plain versions. ``paged_decode_step_fn(plain=True)`` takes the plain
-versions on any device (the card's check of kernel against plain).
+On CUDA tensors the decode step and both prefills launch the
+hand-written paged decode-attention kernel once per layer, and every
+weight product of a quantized model launches the int8-weight kernel; on
+CPU tensors both use their plain versions. ``paged_decode_step_fn(plain=True)``
+takes the plain versions on any device (the card's check of kernel
+against plain).
 """
 
 from __future__ import annotations
@@ -294,54 +297,126 @@ def paged_prefill_fn(cfg: TransformerConfig, page_size: int, max_pages: int):
     ``tokens`` is the prompt padded to a ladder bucket T; ``length`` the
     true prompt length. Writes positions ``[0, length)`` into the
     sequence's pages through ``table`` (padding positions route to the
-    null page; the pool is updated in place), attends causally within the
-    chunk over the QUANTIZED k/v — exactly what decode steps will read
-    back — and returns the greedy first token (an int32 0-d tensor on the
-    pool's device)."""
+    null page; the pool is updated in place), attends causally over the
+    QUANTIZED k/v — exactly what decode steps will read back — and
+    returns the greedy first token (an int32 0-d tensor on the pool's
+    device).
+
+    It is :func:`paged_suffix_prefill_fn` at ``start=0``: one slot of the
+    paged attention a prompt row, so every route that reads the pool —
+    cold prefill, suffix prefill, copy-on-extend and decode steps —
+    shares one attention whose rows do not depend on how many ride with
+    them, and a prefix hit's tokens equal the cold route's bit for bit on
+    the card too (the reference's chunk product sums in another order
+    than the decode-attention kernel). On the CPU its pool bytes and
+    first token equal the reference's chunk prefill at ``gpt_tiny``
+    (``tests/test_torch_generation.py``)."""
+    suffix = paged_suffix_prefill_fn(cfg, page_size, max_pages)
 
     def prefill(params, pool, tokens, length, table):
+        return suffix(params, pool, tokens, 0, length, table)
+
+    return prefill
+
+
+def paged_suffix_prefill_fn(cfg: TransformerConfig, page_size: int, max_pages: int):
+    """Build the prefix-cache suffix prefill: ``fn(params, pool, tokens[T],
+    start, length, table[max_pages]) -> (pool, first_token)``.
+
+    Positions ``[0, start)`` are already resident in the sequence's pages
+    (shared pages matched by content hash), so only ``tokens[:length]`` is
+    processed: written at positions ``[start, start + length)`` through
+    ``table`` (padding positions route to the null page), then attended
+    against the whole sequence through its table. Each suffix row is one
+    slot of the paged attention the decode step runs — the sequence's
+    table repeated, ``pos = start + i``; padding rows carry null tables and
+    position 0 — so a cache-hit join reads the pool through the same
+    attention as every decode step: the decode-attention kernel on CUDA,
+    :func:`paged_attention_reference` on the CPU. ``start=0`` is a full
+    prefill through that attention."""
+
+    def suffix_prefill(params, pool, tokens, start, length, table):
         dev = pool["k"].device
         tokens = _as_index(tokens, dev)
         table = _as_index(table, dev)
-        length = int(length)
+        start, length = int(start), int(length)
         (T,) = tokens.shape
         h, nh, hd = cfg.hidden, cfg.num_heads, cfg.head_dim
         tpos = torch.arange(T, device=dev)
-        x = params["embed"]["tok"][tokens].to(cfg.dtype)
-        x = x + params["embed"]["pos"][tpos].to(cfg.dtype)
         valid = tpos < length
-        # per-position pool coordinates; masked positions → null page 0
-        pg = torch.where(valid, table[torch.clamp(tpos // page_size, max=max_pages - 1)], 0)
-        off = tpos % page_size
-        causal = tpos[None, :] <= tpos[:, None]      # [T, T]
+        seqpos = start + tpos                     # absolute KV positions
+        emb_pos = torch.clamp(seqpos, max=params["embed"]["pos"].shape[0] - 1)
+        x = params["embed"]["tok"][tokens].to(cfg.dtype)
+        x = x + params["embed"]["pos"][emb_pos].to(cfg.dtype)
+        pg = torch.where(valid, table[torch.clamp(seqpos // page_size, max=max_pages - 1)], 0)
+        off = seqpos % page_size
+        # per-row attention coordinates: row i sees its sequence's pages
+        # masked to j <= start + i; padding rows see the null page at 0
+        tables_r = torch.where(valid[:, None], table[None, :], 0).to(torch.int32)
+        pos_r = torch.where(valid, seqpos, 0).to(torch.int32)
         for li, p in enumerate(params["layers"]):
             y = _layer_norm(x, **p["ln1"])
             qkv = matmul(y, p["attn"]["qkv"]).reshape(T, 3, nh, hd)
-            q, k, v = (qkv[:, i].permute(1, 0, 2) for i in range(3))   # [nh, T, hd]
-            kq, ks = _quantize_slots(k[None])        # [1, nh, T, hd]
-            vq, vs = _quantize_slots(v[None])
-            kq, ks, vq, vs = kq[0], ks[0], vq[0], vs[0]
-            # one scatter per tensor per layer; duplicate null-page
-            # indices are plain stores (never accumulate)
-            pool["k"][pg, li, :, off] = kq.permute(1, 0, 2)
-            pool["v"][pg, li, :, off] = vq.permute(1, 0, 2)
-            pool["k_scale"][pg, li, :, off] = ks.permute(1, 0, 2)
-            pool["v_scale"][pg, li, :, off] = vs.permute(1, 0, 2)
-            kd = kq.to(cfg.dtype)
-            scores = torch.einsum("ntd,nsd->nts", q.float(), kd.float()) / _sqrt(hd, dev)
-            scores = scores * ks[..., 0][:, None, :]
-            scores = scores.masked_fill(~causal[None], NEG)
-            w = _softmax(scores)
-            w = (w * vs[..., 0][:, None, :]).to(cfg.dtype)
-            ctx = torch.einsum("nts,nsd->ntd", w.float(), vq.to(cfg.dtype).float())
-            ctx = ctx.to(cfg.dtype).permute(1, 0, 2).reshape(T, h)
+            q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]          # [T, nh, hd]
+            kq, ks = _quantize_slots(k[:, :, None, :])           # [T, nh, 1, hd]
+            vq, vs = _quantize_slots(v[:, :, None, :])
+            # write first, then attend: row i sees its own token, the
+            # decode step's order
+            pool["k"][pg, li, :, off] = kq[:, :, 0]
+            pool["v"][pg, li, :, off] = vq[:, :, 0]
+            pool["k_scale"][pg, li, :, off] = ks[:, :, 0]
+            pool["v_scale"][pg, li, :, off] = vs[:, :, 0]
+            ctx = paged_decode_attention(q, pool["k"], pool["v"], pool["k_scale"], pool["v_scale"],
+                         li, tables_r, pos_r).reshape(T, h)
             x = x + matmul(ctx, p["attn"]["out"])
             x = x + _mlp(p["mlp"], _layer_norm(x, **p["ln2"]))
         hs = _layer_norm(x, **params["final_ln"])
         first = torch.argmax(_logits(cfg, params, hs[length - 1]), dim=-1).to(torch.int32)
         return pool, first
 
-    return prefill
+    return suffix_prefill
+
+
+def paged_page_ops_fns(max_pages: int):
+    """The page-granular pool maintenance steps of the KV memory
+    hierarchy, each an in-place index op on the pool's four tensors:
+
+    * ``extract(pool, idx) -> {col: [len(idx), ...]}`` — gather pages out
+      of the pool (a swap-out reads this; null-page entries gather
+      garbage the caller discards);
+    * ``restore(pool, idx, k, v, k_scale, v_scale) -> pool`` — scatter
+      swapped-in page payloads back (null-page entries land in the null
+      page, whose contents are garbage by contract);
+    * ``copy_page(pool, src, dst) -> pool`` — duplicate one page
+      (copy-on-extend: a ragged-tail prefix hit copies the shared page
+      before writing into it).
+
+    ``idx`` is int32 of any length up to ``max_pages`` (numpy or tensor);
+    payloads may be numpy arrays or tensors."""
+
+    def _idx(pool, idx):
+        idx = _as_index(idx, pool["k"].device)
+        if idx.ndim != 1 or idx.shape[0] > max_pages:
+            raise ValueError(f"page index of shape {tuple(idx.shape)}; want [<= {max_pages}]")
+        return idx
+
+    def extract(pool, idx):
+        idx = _idx(pool, idx)
+        return {name: col[idx] for name, col in pool.items()}
+
+    def restore(pool, idx, k, v, k_scale, v_scale):
+        idx = _idx(pool, idx)
+        for name, val in (("k", k), ("v", v), ("k_scale", k_scale), ("v_scale", v_scale)):
+            col = pool[name]
+            pool[name][idx] = torch.as_tensor(val).to(device=col.device, dtype=col.dtype)
+        return pool
+
+    def copy_page(pool, src, dst):
+        for name in ("k", "v", "k_scale", "v_scale"):
+            pool[name][int(dst)] = pool[name][int(src)]
+        return pool
+
+    return extract, restore, copy_page
 
 
 def paged_decode_step_fn(cfg: TransformerConfig, page_size: int, max_pages: int,

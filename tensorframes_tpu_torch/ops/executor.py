@@ -194,6 +194,30 @@ class CompiledProgram:
         in :meth:`run_block`."""
         return self._run("vmap", self._vmapped, feeds, device, to_numpy)
 
+    def run_rows_bucketed(self, feeds: Dict[str, np.ndarray], device,
+                          to_numpy: bool = True) -> Dict[str, np.ndarray]:
+        """The serving layer's coalesced dispatch: pad the shared lead dim
+        up the power-of-two ladder (:func:`bucket_rows`, the ladder the
+        server warms), run the vmapped program on ``device``, slice back
+        to the true row count. Unlike ``map_rows``' adaptive bucketing
+        this always buckets, so a server warmed over the ladder dispatches
+        any admissible row count at a key it has seen — and a row's result
+        does not depend on how it was coalesced (vmap is row-independent;
+        padding replicates the last row and is sliced off here)."""
+        sizes = {k: int(np.shape(v)[0]) for k, v in feeds.items()}
+        ns = set(sizes.values())
+        if len(ns) != 1:
+            raise ValueError(f"run_rows_bucketed: feeds disagree on the lead dim: {sizes}")
+        n = ns.pop()
+        if n == 0:
+            raise ValueError("run_rows_bucketed: zero-row dispatch")
+        feeds = pad_lead_dim(feeds, n, bucket_rows(n))
+        outs = self._run("vmap", self._vmapped, feeds, device, to_numpy=False)
+        outs = {k: v[:n] for k, v in outs.items()}
+        if not to_numpy:
+            return outs
+        return {k: dt.to_numpy(v) for k, v in outs.items()}
+
     def cache_sizes(self) -> Dict[str, int]:
         """How many distinct feed shapes each entrypoint has dispatched
         (the reference's recompile accounting, SURVEY §7 hard-part 1).

@@ -1,16 +1,31 @@
-"""Online serving: the iterative decode engine behind an in-process server.
+"""Online serving: flush endpoints and the iterative decode engine behind
+an in-process server, with an HTTP adapter.
 
-:class:`Server` with :meth:`Server.register_decode` puts a
-:class:`DecodeEngine` behind a name: token-level continuous batching over
-a block-paged int8 KV pool (:class:`PagedKVPool`), where sequence slots
-join and leave the running batch every step, and the pool preempts
-(evict, requeue, bit-identical replay) when it runs out of pages.
+:class:`Server` puts two kinds of endpoint behind names:
 
-Guarantees, as in the reference package: a batched request's tokens equal
-its solo run exactly; a preempted request resumes with exactly its
-recorded tokens or fails loudly; admission is bounded (counted
-``queue_full`` rejections) and deadlines are total elapsed wall-clock
-(a full pool cannot hold a request past its deadline); shutdown drains.
+* :meth:`Server.register` — a program over cells whose small requests a
+  push-mode :class:`ContinuousBatcher` coalesces into one dispatch through
+  the executor's power-of-two row buckets (the ladder ``start()`` warms,
+  so a warmed server dispatches any admissible mix at keys it has seen),
+  scattering each request's rows back;
+* :meth:`Server.register_decode` — a :class:`DecodeEngine`: token-level
+  continuous batching over a block-paged int8 KV pool
+  (:class:`PagedKVPool`), where sequence slots join and leave the running
+  batch every step, the pool preempts (evict, requeue, bit-identical
+  replay, or restore from a swap segment with ``kv_swap=True``) when it
+  runs out of pages, and ``prefix_cache=True`` shares prompt-prefix pages
+  across requests.
+
+:func:`serve_http` serves a :class:`Server` over HTTP (``POST
+/v1/<endpoint>``, ``GET /healthz``, ``POST /admin/drain``).
+
+Guarantees, as in the reference package: a coalesced request's rows equal
+its solo dispatch exactly, and a batched, prefix-hit or swap-resumed
+sequence's tokens equal its solo cold run exactly; admission is bounded
+(counted ``queue_full`` rejections), deadlines are total elapsed
+wall-clock, shutdown drains, and an idempotency key joins a request
+already admitted instead of running it twice. The router, the fleet, the
+replica process and registered queries wait in ROADMAP queue 1.
 """
 
 from __future__ import annotations
@@ -23,13 +38,15 @@ from .batcher import (  # noqa: F401
     ResultFuture,
     ServingError,
 )
-from .decode import DecodeConfig, DecodeEngine  # noqa: F401
+from .decode import DecodeConfig, DecodeEngine, prefix_cache_events  # noqa: F401
+from .http import serve_http  # noqa: F401
 from .kvpool import PagedKVPool, PoolAccountingError, PoolExhaustedError  # noqa: F401
-from .server import Server, ServingConfig, UnknownEndpointError  # noqa: F401
+from .server import Endpoint, Server, ServingConfig, UnknownEndpointError  # noqa: F401
 
 __all__ = [
     "Server",
     "ServingConfig",
+    "Endpoint",
     "ContinuousBatcher",
     "ResultFuture",
     "ServingError",
@@ -38,8 +55,10 @@ __all__ = [
     "UnknownEndpointError",
     "DecodeConfig",
     "DecodeEngine",
+    "prefix_cache_events",
     "PagedKVPool",
     "PoolAccountingError",
     "PoolExhaustedError",
+    "serve_http",
     "metrics",
 ]

@@ -29,8 +29,30 @@ the card every step launches the paged decode-attention kernel once per
 layer and the int8-weight kernel for every weight product; there is no
 fallback — a build or launch failure fails the running requests.
 
-Not ported yet (ROADMAP queue 1): the prefix cache and KV swap tiers,
-flight/event hooks and fault-injection sites, CUDA graphs for the step.
+KV memory hierarchy, both tiers off by default:
+
+* ``prefix_cache=True`` arms the content-addressed prefix cache: a fresh
+  prompt's page-granular prefix is hash-matched against pages other
+  sequences prefilled and published read-only (refcounted;
+  ``PagedKVPool.check()``'s partition extends to them). A hit skips those
+  pages' prefill: the suffix runs through ``paged_suffix_prefill_fn`` (the
+  decode step's paged attention, one row a slot), or copy-on-extend
+  duplicates a shared ragged-tail page and teacher-forces only the final
+  prompt token through the solo decode step. Outputs equal the cold
+  path's exactly (the same quantized-KV arithmetic end to end).
+* ``kv_swap=True`` arms per-sequence swap: a preempted sequence's pages
+  (slot scales and generated prefix included) travel to a CRC-stamped
+  :class:`~tensorframes_tpu_torch.blockstore.BlockStore` segment under
+  ``swap_dir``, and rejoin restores them instead of replaying. The replay
+  data is kept beside every swap snapshot: a corrupt segment falls back
+  to replay, counted (``tftpu_kvswap_fallback_total``), so no store
+  problem loses a request. :meth:`DecodeEngine.spill` and
+  :meth:`DecodeEngine.restore` carry parked segments across engines.
+
+Joins, steps, preemptions, swaps, prefix hits and finishes leave
+``serving.decode.*`` flight records and, with the tracer on,
+``decode.join``/``decode.step``/``decode.finish`` spans carrying the
+requests' trace ids. CUDA graphs for the step wait in ROADMAP queue 1.
 """
 
 from __future__ import annotations
@@ -39,12 +61,14 @@ import collections
 import dataclasses
 import threading
 import time
-from typing import Deque, Dict, List, Optional
+from typing import Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import resolve_device
+from ..observability import events as _events
+from ..observability import flight as _flight
 from ..utils import get_logger
 from ..validation import ValidationError
 from . import metrics as m
@@ -60,7 +84,22 @@ from .kvpool import PagedKVPool, PoolExhaustedError
 
 logger = get_logger(__name__)
 
-__all__ = ["DecodeConfig", "DecodeEngine"]
+__all__ = ["DecodeConfig", "DecodeEngine", "prefix_cache_events"]
+
+# Prefix-cache ineligibility evidence: one entry per (endpoint, reason)
+# the first time it arises, bounded, withdrawn when the engine stops.
+_PREFIX_INELIGIBLE: Deque[Dict[str, object]] = collections.deque(maxlen=128)
+_PREFIX_INELIGIBLE_SEEN: set = set()
+_KV_COLUMNS = ("k", "v", "k_scale", "v_scale")
+
+
+def prefix_cache_events() -> List[Dict[str, object]]:
+    """Recent prefix-cache ineligibility evidence (deduplicated per
+    endpoint and reason): ``store_unarmed`` (an unarmed engine saw a
+    prompt's first page repeat), ``sampling_state_mismatch`` (a replayed
+    join bypasses the cache by design) and ``page_misalignment`` (a prompt
+    within one page can never share)."""
+    return list(_PREFIX_INELIGIBLE)
 
 
 @dataclasses.dataclass
@@ -78,9 +117,13 @@ class DecodeConfig:
     ``max_queue_requests`` — admission bound (``queue_full`` past it).
     ``default_deadline_s`` — total-elapsed deadline for requests that
     carry none (covers queue and slot wait). ``warmup`` — run every point
-    of the slot × phase bucket grid once at start. ``kv_swap``,
-    ``prefix_cache`` and ``swap_dir`` belong to tiers not ported yet:
-    ``True`` raises.
+    of the slot × phase bucket grid once at start.
+    ``kv_swap`` — swap a preempted sequence's pages to a BlockStore
+    segment and restore them on rejoin (counted fallback to replay on
+    corruption); ``swap_dir`` roots the swap store (default: a private
+    temp dir, deleted at stop). ``prefix_cache`` — share read-only
+    prompt-prefix pages across requests by content hash (refcounted,
+    copy-on-extend at the ragged tail, evicted only at refcount 0).
     """
 
     max_slots: int = 8
@@ -136,13 +179,6 @@ class DecodeEngine:
         self.name = name
         self.cfg = model_cfg
         self.config = cfg = config or DecodeConfig()
-        if cfg.prefix_cache or cfg.kv_swap:
-            raise NotImplementedError(
-                "DecodeConfig(prefix_cache=True) and DecodeConfig(kv_swap=True) are not "
-                "ported yet: the prefix cache and KV swap tiers wait in ROADMAP queue 1 "
-                "(serving: paged_suffix_prefill_fn, paged_page_ops_fns, the pool's "
-                "shared-page and swap methods)"
-            )
         if cfg.max_slots < 1:
             raise ValueError("max_slots must be >= 1")
         if cfg.max_prompt_len < 1 or cfg.max_new_tokens < 1:
@@ -181,7 +217,39 @@ class DecodeEngine:
         self._step = gen.paged_decode_step_fn(
             model_cfg, cfg.page_size, max_pages, logits_rows=self._slot_buckets[-1],
         )
-        self._admission = ContinuousBatcher(name, max_queue_rows=cfg.max_queue_requests)
+        # the KV memory hierarchy's steps, warmed with the grid
+        self._prefix_cache = bool(cfg.prefix_cache)
+        self._kv_swap = bool(cfg.kv_swap)
+        self._suffix_prefill = None
+        self._extract = self._restore = self._copy_page = None
+        if self._prefix_cache:
+            self._suffix_prefill = gen.paged_suffix_prefill_fn(model_cfg, cfg.page_size,
+                                                               max_pages)
+        if self._prefix_cache or self._kv_swap:
+            ex_fn, rs_fn, cp_fn = gen.paged_page_ops_fns(max_pages)
+            if self._kv_swap:
+                self._extract, self._restore = ex_fn, rs_fn
+            if self._prefix_cache:
+                self._copy_page = cp_fn
+        self._swap_store = None
+        self._swap: Dict[_Request, Dict[str, object]] = {}
+        # swap segments outlive the engine: stop() parks the pending keyed
+        # sequences' segments (trace_id → swap snapshot), spill() folds
+        # them into the whole-pool snapshot, and restore() on a fresh
+        # engine re-homes them here; a redriven request with the same
+        # trace id resumes from its pages
+        self._swap_parked: Dict[str, Dict[str, object]] = {}
+        self._swap_restored: Dict[str, Dict[str, object]] = {}
+        # first-page fingerprints of fresh prompts on an unarmed engine:
+        # a repeat is evidence the prefill work was shareable (bounded)
+        self._seen_first_pages: set = set()
+        self._swap_outs = 0
+        self._swap_resumes = 0
+        self._swap_fallbacks = 0
+        self._prefix_hits = 0
+        self._prefix_misses = 0
+        self._admission = ContinuousBatcher(name, None, max_batch_rows=1, max_latency_s=0.0,
+                                            max_queue_rows=cfg.max_queue_requests)
         self._slots: List[Optional[_Seq]] = [None] * cfg.max_slots
         self._resume: Dict[_Request, List[int]] = {}
         self._lock = threading.Lock()
@@ -209,9 +277,23 @@ class DecodeEngine:
         with self._lock:
             snap["running_slots"] = sum(1 for s in self._slots if s is not None)
         snap["free_pages"] = self._pool.num_free
+        snap["allocatable_pages"] = self._pool.num_allocatable
+        snap["shared_pages"] = self._pool.num_shared
+        snap["swap_outs"] = self._swap_outs
+        snap["swap_resumes"] = self._swap_resumes
+        snap["swap_fallbacks"] = self._swap_fallbacks
+        snap["prefix_hits"] = self._prefix_hits
+        snap["prefix_misses"] = self._prefix_misses
         return snap
 
     # -- lifecycle ----------------------------------------------------------
+
+    def _new_swap_store(self):
+        from ..blockstore import BlockStore
+
+        # budget 0: swap segments go straight to disk (put_spilled), and
+        # the swap store never holds pages resident for the pool it relieves
+        return BlockStore(root=self.config.swap_dir, budget_bytes=0)
 
     def start(self) -> "DecodeEngine":
         with self._lock:
@@ -223,10 +305,13 @@ class DecodeEngine:
                     "stop(); retry once it finishes"
                 )
             self._starting = True
+        t0 = time.perf_counter()
         try:
             # _running commits only after warmup, admission and the loop
             # thread all succeed: a failed warm leaves it restartable
             self._pool.reopen()
+            if self._kv_swap and self._swap_store is None:
+                self._swap_store = self._new_swap_store()
             if self.config.warmup:
                 self._warm()
             self._admission.start()
@@ -240,13 +325,17 @@ class DecodeEngine:
         finally:
             with self._lock:
                 self._starting = False
+        _flight.record("serving.decode.start", endpoint=self.name,
+                       slots=self.config.max_slots, pages=self._pool.num_pages,
+                       page_size=self.config.page_size,
+                       warmup_s=round(time.perf_counter() - t0, 6))
         return self
 
     def _warm(self) -> None:
         """Run every point of the slot × phase bucket grid once against
-        null tables (writes land in the null page; results are discarded):
-        the kernel build and the library handles are paid here, before
-        the first request."""
+        null tables (writes land in the null page; results are discarded),
+        and the prefix and swap tiers' steps: the kernel build and the
+        library handles are paid here, before the first request."""
         t0 = time.perf_counter()
         cols = self._pool.columns
         null = self._pool.null_table()
@@ -256,6 +345,15 @@ class DecodeEngine:
         for sb in self._slot_buckets:
             self._step(self.params, cols, np.zeros(sb, np.int32), np.zeros(sb, np.int32),
                        np.zeros((sb, maxp), np.int32))
+        if self._suffix_prefill is not None:
+            for tb in self._prefill_buckets:
+                self._suffix_prefill(self.params, cols, np.zeros(tb, np.int32), 0, 1, null)
+        if self._copy_page is not None:
+            self._copy_page(cols, 0, 0)  # the null page onto itself: garbage either way
+        if self._extract is not None:
+            idx = np.zeros(1, np.int32)
+            ex = self._extract(cols, idx)
+            self._restore(cols, idx, *(ex[k] for k in _KV_COLUMNS))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         logger.info("decode warmup[%s]: prefill buckets %s + decode buckets %s in %.2fs",
@@ -265,7 +363,9 @@ class DecodeEngine:
     def stop(self, drain: bool = True, timeout: Optional[float] = None) -> None:
         """Close admission; ``drain=True`` completes every admitted and
         queued sequence first, ``drain=False`` fails them with
-        :class:`ServingError`. Bounded by ``timeout``."""
+        :class:`ServingError`. Bounded by ``timeout``. Swap segments of
+        unanswered requests that carry a trace id are parked for
+        :meth:`spill`; the rest are dropped with the swap store."""
         with self._lock:
             if not self._running and self._thread is None:
                 self._pool.close()
@@ -285,6 +385,88 @@ class DecodeEngine:
             if self._thread is thread and not (thread is not None and thread.is_alive()):
                 self._thread = None
         self._pool.close()
+        store = self._swap_store
+        if store is not None:
+            for r in list(self._swap):
+                if r.trace_id:
+                    self._swap_parked[str(r.trace_id)] = self._swap.pop(r)
+                else:
+                    self._drop_swap(r)
+            # restored but never redriven segments live in this store too:
+            # park them, so chained restarts keep them
+            self._swap_parked.update(self._swap_restored)
+            self._swap_restored.clear()
+            if not self._swap_parked:
+                self._swap_store = None
+                store.close()  # deletes the root if the engine made it
+        # ineligibility evidence is scoped to running endpoints
+        kept = [e for e in _PREFIX_INELIGIBLE if e.get("endpoint") != self.name]
+        _PREFIX_INELIGIBLE.clear()
+        _PREFIX_INELIGIBLE.extend(kept)
+        for key in [k for k in _PREFIX_INELIGIBLE_SEEN if k[0] == self.name]:
+            _PREFIX_INELIGIBLE_SEEN.discard(key)
+        _flight.record("serving.decode.stop", endpoint=self.name, drain=drain)
+
+    def spill(self, store) -> Dict[str, object]:
+        """Whole-engine KV snapshot (call after ``stop()``): the pool's
+        whole-pool spill plus every parked per-sequence swap segment,
+        folded into one snapshot dict. Hand it to a fresh engine's
+        :meth:`restore` and redrive the pending requests with the same
+        trace ids: each resumes from its swapped pages through the swap-in
+        path, with no prefill recompute. The engine's own swap store is
+        emptied and closed (the segments now live in ``store``)."""
+        with self._lock:
+            if self._running or self._starting:
+                raise ServingError(
+                    f"decode engine {self.name!r}: spill() requires a stopped engine "
+                    "(stop() first — a live loop would race the snapshot)"
+                )
+            parked = dict(self._swap_parked)
+        snap = self._pool.spill(store, swaps=parked, swap_store=self._swap_store)
+        swap_store = self._swap_store
+        if swap_store is not None:
+            for entry in parked.values():
+                try:
+                    swap_store.drop(entry["ref"])
+                except Exception:  # pragma: no cover - already dropped
+                    pass
+            self._swap_parked.clear()
+            self._swap_store = None
+            swap_store.close()
+        _flight.record("serving.decode.spill", endpoint=self.name,
+                       swapped=len(snap.get("swapped", {})))
+        return snap
+
+    def restore(self, store, snapshot: Dict[str, object]) -> int:
+        """Adopt a :meth:`spill` snapshot's swapped sequences: segments are
+        re-homed into this engine's swap store and parked by trace id;
+        a redriven request with the same trace id resumes from its pages.
+        Pool page state is not restored (a fresh engine owns a fresh pool,
+        and swapped sequences hold no pages). Returns the number adopted
+        (corrupt segments are skipped, counted by the store)."""
+        if not self._kv_swap:
+            return 0
+        if self._swap_store is None:
+            self._swap_store = self._new_swap_store()
+        manifest = self._pool.adopt_swapped(store, snapshot, self._swap_store)
+        with self._lock:
+            self._swap_restored.update(manifest)
+        _flight.record("serving.decode.restore", endpoint=self.name, adopted=len(manifest),
+                       offered=len(snapshot.get("swapped", {})))
+        return len(manifest)
+
+    def _adopt_restored(self, req: _Request) -> Optional[Dict]:
+        """Move a restored swap snapshot onto a redriven request (same
+        trace id), keeping the replay data beside it — the counted
+        fallback if the segment comes back corrupt."""
+        if not self._swap_restored or not req.trace_id:
+            return None
+        snap = self._swap_restored.pop(str(req.trace_id), None)
+        if snap is None:
+            return None
+        self._swap[req] = snap
+        self._resume[req] = list(snap["generated"]) + list(snap["replay"] or ())
+        return snap
 
     # -- request path -------------------------------------------------------
 
@@ -350,7 +532,9 @@ class DecodeEngine:
         """Admit one request; the future resolves to ``{"tokens": int32
         [1, max_new_tokens]}`` when its last token is generated. Raises
         :class:`RejectedError` on shed/closed/oversize; the deadline covers
-        queue and slot wait."""
+        queue and slot wait. The request carries the calling thread's
+        bound request id (``observability.context.request_scope``) as its
+        trace id."""
         norm = self.validate_feeds(feeds)
         if deadline_s is None:
             deadline_s = self.config.default_deadline_s
@@ -371,6 +555,8 @@ class DecodeEngine:
             self._loop_body()
         except Exception as e:
             logger.exception("decode engine %r loop died", self.name)
+            _flight.record("serving.decode.error", endpoint=self.name,
+                           error=type(e).__name__, message=str(e))
             self._fail_all(ServingError(
                 f"decode engine {self.name!r} failed: {type(e).__name__}: {e}"
             ))
@@ -404,12 +590,21 @@ class DecodeEngine:
 
     def _admit_budget(self):
         """A fresh admission predicate for ONE poll: each accepted request
-        claims its prompt pages from a snapshot budget, so a multi-request
-        poll never overcommits the pool."""
+        claims its pages from a snapshot budget (``num_allocatable``: free
+        plus reclaimable shared pages), so a multi-request poll never
+        overcommits the pool. A swapped request claims its snapshot's page
+        count, not its prompt's."""
         budget = [self._pool.num_allocatable]
 
         def can_take(req: _Request) -> bool:
-            need = self._pool.pages_needed(int(req.feeds["prompt"].shape[0]))
+            snap = self._swap.get(req)
+            if snap is None:
+                # a redriven request adopting a restored swap segment
+                snap = self._adopt_restored(req)
+            if snap is not None:
+                need = int(snap["pages"])
+            else:
+                need = self._pool.pages_needed(int(req.feeds["prompt"].shape[0]))
             if need > budget[0]:
                 return False
             budget[0] -= need
@@ -419,9 +614,21 @@ class DecodeEngine:
 
     def _purge_resume(self) -> None:
         # a preempted request can expire while requeued: drop its replay
+        # state and its swap segment
         if self._resume:
             for r in [r for r in self._resume if r.future.done()]:
                 del self._resume[r]
+        if self._swap:
+            for r in [r for r in self._swap if r.future.done()]:
+                self._drop_swap(r)
+
+    def _drop_swap(self, req: _Request) -> None:
+        snap = self._swap.pop(req, None)
+        if snap is not None and self._swap_store is not None:
+            try:
+                self._swap_store.drop(snap["ref"])
+            except Exception:  # pragma: no cover - already dropped
+                pass
 
     def _prefill_bucket(self, plen: int) -> int:
         for b in self._prefill_buckets:
@@ -431,16 +638,99 @@ class DecodeEngine:
             f"prompt of {plen} tokens above the prefill ladder {self._prefill_buckets}"
         )
 
-    def _prefill_seq(self, seq: int, prompt: np.ndarray, plen: int) -> int:
-        """Allocate the prompt's pages, write its KV and return the first
-        token (one host sync)."""
-        self._pool.alloc(seq, self._pool.pages_needed(plen))
-        padded = np.zeros(self._prefill_bucket(plen), np.int32)
-        padded[:plen] = prompt
-        _, first = self._prefill(self.params, self._pool.columns, padded, plen,
-                                 self._pool.table(seq))
+    def _note_prefix_ineligible(self, reason: str, plen: int) -> None:
+        key = (self.name, reason)
+        if key in _PREFIX_INELIGIBLE_SEEN:
+            return
+        _PREFIX_INELIGIBLE_SEEN.add(key)
+        _PREFIX_INELIGIBLE.append({"endpoint": self.name, "reason": reason,
+                                   "prompt_len": int(plen),
+                                   "page_size": int(self.config.page_size)})
+
+    def _solo_step(self, seq: int, token: int, pos: int) -> int:
+        """One decode step for one sequence in the smallest slot bucket
+        (the copy-on-extend route): writes ``token``'s KV at ``pos`` and
+        returns the next token."""
+        sb = self._slot_buckets[0]
+        tokens = np.zeros(sb, np.int32)
+        positions = np.zeros(sb, np.int32)
+        tables = np.zeros((sb, self._pool.max_pages_per_seq), np.int32)
+        tokens[0], positions[0], tables[0] = token, pos, self._pool.table(seq)
+        _, nxt = self._step(self.params, self._pool.columns, tokens, positions, tables)
+        return int(nxt[0])
+
+    def _prefill_seq(self, seq: int, prompt: np.ndarray, plen: int,
+                     resumed: bool) -> Tuple[int, int]:
+        """Write the prompt's KV for a fresh sequence and produce its first
+        token (one host sync) through the cheapest eligible route:
+        shared-prefix suffix prefill, copy-on-extend, or cold prefill.
+        Returns ``(first_token, shared_pages_referenced)``."""
+        hit_pages: List[int] = []
+        covered = 0
+        cow = None
+        ps = self.config.page_size
+        if not self._prefix_cache:
+            # evidence only on an observed repeat: a prompt whose first
+            # page an earlier fresh request already prefilled
+            if not resumed and plen > ps:
+                fp = prompt[:ps].tobytes()
+                if fp in self._seen_first_pages:
+                    self._note_prefix_ineligible("store_unarmed", plen)
+                elif len(self._seen_first_pages) < 512:
+                    self._seen_first_pages.add(fp)
+        elif resumed:
+            # a replayed join reproduces its recorded tokens against the
+            # page state of its first admission: not through cache pages
+            # published since — ineligible by design
+            self._note_prefix_ineligible("sampling_state_mismatch", plen)
+        else:
+            hit_pages, covered, cow, _r = self._pool.prefix_match(prompt)
+            if not hit_pages and cow is None:
+                if plen <= ps:
+                    self._note_prefix_ineligible("page_misalignment", plen)
+                m.PREFIX_MISSES.inc()
+                self._prefix_misses += 1
+        if hit_pages:
+            self._pool.prefix_acquire(seq, hit_pages)
+        if hit_pages or cow is not None:
+            m.PREFIX_HITS.inc()
+            self._prefix_hits += 1
+        if cow is not None:
+            # the whole remaining tail is resident in a published page:
+            # copy it (a shared page is never written), then teacher-force
+            # only the final prompt token through the solo decode step —
+            # it rewrites the last position's KV and yields the first
+            # token's logits
+            dst = self._pool.copy_on_extend(seq, cow)
+            self._copy_page(self._pool.columns, cow, dst)
+            first = self._solo_step(seq, int(prompt[plen - 1]), plen - 1)
+        elif hit_pages:
+            # matched pages cover [0, covered): prefill only the suffix,
+            # whose rows see the shared pages through the sequence's table
+            self._pool.alloc(seq, self._pool.pages_needed(plen) - len(hit_pages))
+            tlen = plen - covered
+            padded = np.zeros(self._prefill_bucket(tlen), np.int32)
+            padded[:tlen] = prompt[covered:]
+            _, fd = self._suffix_prefill(self.params, self._pool.columns, padded, covered,
+                                         tlen, self._pool.table(seq))
+            first = int(fd)
+        else:
+            self._pool.alloc(seq, self._pool.pages_needed(plen))
+            padded = np.zeros(self._prefill_bucket(plen), np.int32)
+            padded[:plen] = prompt
+            _, fd = self._prefill(self.params, self._pool.columns, padded, plen,
+                                  self._pool.table(seq))
+            first = int(fd)
         m.DECODE_STEPS["prefill"].inc()
-        return int(first)
+        if self._prefix_cache and not resumed:
+            # publish this prompt's freshly written full pages (a no-op on
+            # total overlap; stops at another lineage's chain key)
+            self._pool.publish_prefix(seq, prompt)
+        if hit_pages or cow is not None:
+            _flight.record("serving.decode.prefix_hit", endpoint=self.name, seq=seq,
+                           prompt_len=plen, shared_pages=len(hit_pages),
+                           covered_tokens=covered, copy_on_extend=cow is not None)
+        return first, len(hit_pages)
 
     def _join(self, req: _Request) -> None:
         now = time.perf_counter()
@@ -452,14 +742,20 @@ class DecodeEngine:
                 "waiting for a decode slot"
             ))
             self._resume.pop(req, None)
+            self._drop_swap(req)
             return
+        if self._swap_store is not None and req in self._swap:
+            if self._swap_in(req, self._swap.pop(req), now):
+                return
+            # counted fallback: the replay data kept beside the snapshot
+            # resumes it through the route below
         prompt = req.feeds["prompt"]
         plen = int(prompt.shape[0])
         seq = self._next_seq
         self._next_seq += 1
         replay = self._resume.pop(req, None)
         try:
-            tok = self._prefill_seq(seq, prompt, plen)
+            tok, prefix_pages = self._prefill_seq(seq, prompt, plen, resumed=bool(replay))
         except BaseException as e:
             # the joining request holds no slot yet: fail it here, then let
             # the loop fail the rest
@@ -485,8 +781,67 @@ class DecodeEngine:
         s.generated.append(tok)
         self._slots[self._slots.index(None)] = s
         m.DECODE_SLOTS.inc()
+        _flight.record("serving.decode.join", endpoint=self.name, seq=seq, prompt_len=plen,
+                       new_tokens=s.want, resumed=bool(replay), prefix_pages=prefix_pages,
+                       waited_s=round(now - req.t_submit, 6))
+        if _events.TRACER.enabled:
+            args = {"endpoint": self.name, "seq": seq, "prompt_len": plen,
+                    "resumed": bool(replay)}
+            if req.trace_id:
+                args["request_id"] = req.trace_id
+            _events.TRACER.emit_complete("decode.join", now, time.perf_counter() - now,
+                                         args=args, cat="serving")
         if len(s.generated) >= s.want:
             self._finish(s)
+
+    def _swap_in(self, req: _Request, snap: Dict[str, object], now: float) -> bool:
+        """Restore a swapped sequence's pages bit for bit and put it
+        straight back into a slot — no prefill, no replay. Returns False on
+        any store or pool problem (counted as
+        ``tftpu_kvswap_fallback_total``; the caller's replay route still
+        resumes the request)."""
+        seq = self._next_seq
+        self._next_seq += 1
+        try:
+            pages, block = self._pool.swap_in_seq(self._swap_store, snap, seq)
+        except Exception as e:
+            # a corrupt segment was already quarantined and counted by the
+            # store; drop the ref if it survived, count the fallback
+            try:
+                self._swap_store.drop(snap["ref"])
+            except Exception:
+                pass
+            m.KVSWAP_FALLBACKS.inc()
+            self._swap_fallbacks += 1
+            logger.warning("decode engine %r: swap-in failed (%s: %s); falling back to "
+                           "recompute-replay", self.name, type(e).__name__, e)
+            _flight.record("serving.decode.swap_fallback", endpoint=self.name,
+                           error=type(e).__name__, message=str(e)[:200])
+            return False
+        self._restore(self._pool.columns, np.asarray(pages, np.int32),
+                      *(block[k] for k in _KV_COLUMNS))
+        self._join_counter += 1
+        s = _Seq(req, seq, req.feeds["prompt"], int(req.feeds["new"]), self._join_counter)
+        s.pos = int(snap["pos"])
+        s.generated = list(snap["generated"])
+        s.replay = collections.deque(snap["replay"]) if snap["replay"] else None
+        self._resume.pop(req, None)
+        self._slots[self._slots.index(None)] = s
+        m.DECODE_SLOTS.inc()
+        m.KVSWAP_RESUMES.inc()
+        self._swap_resumes += 1
+        _flight.record("serving.decode.swap_in", endpoint=self.name, seq=seq,
+                       pages=len(pages), tokens_done=len(s.generated),
+                       waited_s=round(now - req.t_submit, 6))
+        if _events.TRACER.enabled:
+            args = {"endpoint": self.name, "seq": seq, "swap_resumed": True}
+            if req.trace_id:
+                args["request_id"] = req.trace_id
+            _events.TRACER.emit_complete("decode.join", now, time.perf_counter() - now,
+                                         args=args, cat="serving")
+        if len(s.generated) >= s.want:
+            self._finish(s)
+        return True
 
     def _active(self) -> List[_Seq]:
         return [s for s in self._slots if s is not None]
@@ -526,9 +881,17 @@ class DecodeEngine:
             tokens[row] = s.generated[-1]
             pos[row] = s.pos
             tables[row] = self._pool.table(s.seq)
+        t_step = time.perf_counter()
         _, nxt = self._step(self.params, self._pool.columns, tokens, pos, tables)
         nxt = nxt.cpu().numpy()  # the step's one host sync
         m.DECODE_STEPS["decode"].inc()
+        if _events.TRACER.enabled:
+            args = {"endpoint": self.name, "slots": n}
+            rids = [s.req.trace_id for s in active if s.req.trace_id]
+            if rids:
+                args["request_ids"] = rids[:16]
+            _events.TRACER.emit_complete("decode.step", t_step, time.perf_counter() - t_step,
+                                         args=args, cat="serving")
         for row, s in enumerate(active):
             s.pos += 1
             tok = int(nxt[row])
@@ -545,26 +908,67 @@ class DecodeEngine:
             if len(s.generated) >= s.want:
                 self._finish(s)
 
+    def _swap_out(self, s: _Seq) -> Optional[Dict[str, object]]:
+        """Copy the sequence's pages to the host and publish them to the
+        swap store's CRC-stamped disk segment. Returns the snapshot, or
+        None if the store write failed — the caller then evicts and the
+        request replays, so a swap problem never loses a request."""
+        pages = self._pool.seq_pages(s.seq)
+        ex = self._extract(self._pool.columns, np.asarray(pages, np.int32))
+        block = {name: col.cpu().numpy() for name, col in ex.items()}
+        try:
+            snap = self._pool.swap_out_seq(self._swap_store, s.seq, block)
+        except Exception as e:
+            logger.warning("decode engine %r: swap-out failed (%s: %s); evicting with "
+                           "recompute-replay resume", self.name, type(e).__name__, e)
+            return None
+        snap["pos"] = s.pos
+        snap["generated"] = list(s.generated)
+        snap["replay"] = list(s.replay or ())
+        m.KVSWAP_OUTS.inc()
+        m.KVSWAP_BYTES.inc(int(snap["ref"].nbytes))
+        self._swap_outs += 1
+        _flight.record("serving.decode.swap_out", endpoint=self.name, seq=s.seq,
+                       pages=int(snap["pages"]), bytes=int(snap["ref"].nbytes),
+                       tokens_done=len(s.generated))
+        return snap
+
     def _preempt(self, s: _Seq) -> None:
         self._slots[self._slots.index(s)] = None
         m.DECODE_SLOTS.dec()
-        freed = self._pool.free_seq(s.seq)
+        snap = self._swap_out(s) if self._swap_store is not None else None
+        freed = int(snap["freed"]) if snap is not None else self._pool.free_seq(s.seq)
         m.DECODE_PREEMPTIONS.inc()
         m.DECODE_EVICTIONS.inc(freed)
+        _flight.record("serving.decode.preempt", endpoint=self.name, seq=s.seq,
+                       tokens_done=len(s.generated), pages_evicted=freed,
+                       swapped=snap is not None)
         # requeue at the HEAD with the generated prefix (and any
-        # unreplayed suffix) kept: on rejoin prefill + teacher-forced
-        # replay must reproduce it exactly
+        # unreplayed suffix) kept: a swap snapshot restores the pages on
+        # rejoin, and the replay data beside it is the counted fallback
         self._resume[s.req] = list(s.generated) + list(s.replay or ())
+        if snap is not None:
+            self._swap[s.req] = snap
         if not self._admission.requeue_front(s.req):
             self._resume.pop(s.req, None)
+            self._drop_swap(s.req)
 
     def _finish(self, s: _Seq) -> None:
         self._slots[self._slots.index(s)] = None
         m.DECODE_SLOTS.dec()
         self._pool.free_seq(s.seq)
         out = np.asarray(s.generated[:s.want], np.int32)[None, :]
-        self._admission.observe_latency(time.perf_counter() - s.req.t_submit)
+        done = time.perf_counter()
+        self._admission.observe_latency(done - s.req.t_submit)
         s.req.future._set({"tokens": out})
+        _flight.record("serving.decode.finish", endpoint=self.name, seq=s.seq,
+                       tokens=int(out.shape[1]), seconds=round(done - s.req.t_submit, 6))
+        if _events.TRACER.enabled:
+            args = {"endpoint": self.name, "seq": s.seq, "tokens": int(out.shape[1])}
+            if s.req.trace_id:
+                args["request_id"] = s.req.trace_id
+            _events.TRACER.emit_complete("decode.finish", s.req.t_submit,
+                                         done - s.req.t_submit, args=args, cat="serving")
 
     def _bit_identity_violation(self, s: _Seq, got: int, expect: int) -> None:
         """A resumed sequence diverged from its recorded tokens — a
@@ -575,6 +979,8 @@ class DecodeEngine:
             m.DECODE_SLOTS.dec()
         self._pool.free_seq(s.seq)
         m.DISPATCH_ERRORS.inc()
+        _flight.record("serving.decode.replay_divergence", endpoint=self.name, seq=s.seq,
+                       got=got, expected=expect, at_token=len(s.generated))
         s.req.future._fail(ServingError(
             f"decode engine {self.name!r}: resumed sequence diverged from its "
             f"pre-preemption prefix (got token {got}, recorded {expect} at index "

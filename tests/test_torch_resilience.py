@@ -178,7 +178,7 @@ def test_fault_sites_registered_and_documented():
     assert {s: ref[s] for s in registered} == faults_mod.list_sites()
     assert registered == {"executor.run_block", "executor.run_rows", "executor.dispatch",
                           "io.prefetch.device_put", "checkpoint.save", "checkpoint.restore",
-                          "fleet.rank.kill"}
+                          "fleet.rank.kill", "serving.flush", "blockstore.spill"}
     with pytest.raises(ValueError):
         faults_mod.register_site("", "nowhere")
 

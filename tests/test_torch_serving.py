@@ -372,9 +372,12 @@ def test_engine_config_validation_and_unported_options(model):
                      device=CPU)
     with pytest.raises(ValueError):
         DecodeEngine("t_bad2", cfg, params, DecodeConfig(max_slots=0), device=CPU)
+    # the KV tiers are ported: both options build an engine that arms them
     for opt in ("prefix_cache", "kv_swap"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            DecodeEngine("t_opt", cfg, params, DecodeConfig(**{opt: True}), device=CPU)
+        eng = DecodeEngine("t_opt", cfg, params, DecodeConfig(warmup=False, **{opt: True}),
+                           device=CPU)
+        assert getattr(eng, f"_{opt}") is True
+        eng.stop()
 
 
 def test_cuda_asked_without_a_gpu_raises(model, monkeypatch):
