@@ -2,7 +2,9 @@
 """Chip smoke for tensorframes_tpu_torch: build the CUDA kernels, hold each
 against its plain PyTorch version on the card, then drive the five verbs,
 the decode server (with its prefix cache and KV swap), BERT-base embedding
-extraction (also as a flush endpoint over HTTP), gpt_small training,
+extraction (also as a flush endpoint over HTTP), the data path (a growing
+CSV directory as a registered query, an out-of-core ``stream_chain``,
+frame and CSV round trips), gpt_small training,
 Inception-v3 scoring (native, and from a frozen GraphDef this script
 writes) and VGG-16 scoring through the package's entry points at full
 size on one GPU.
@@ -109,6 +111,18 @@ Phases:
    bytes avoided, a profiled call's copies and busy share. The main
    path's logreg aggregate by label also runs off the lazy scoring
    chain, fused and unfused, bit-equal to the materialized frame's.
+   Then the data path (``data_plane_leg``, counts reset before each
+   drill): 56 CSV parts of 80,000 rows registered as a query
+   (``Server.register_query``, int32 sum/min/max by key through
+   ``segment_reduce``, the result store armed): the cold execute, 20
+   repeats (all hits, no new dispatch key), one appended part refreshed
+   by one chunk's execution and equal to the full recompute and numpy
+   bit for bit, a fresh server warmed from the store, one HTTP answer; a
+   CSV directory five times a 32 MB block budget streamed by
+   ``stream_chain`` (map, filter, keyed sum, folded; the map/filter alone
+   spilled) equal to the in-memory chain, with the peak RSS growth
+   sampled and held under 3.5 budgets; a 1M-row ``save_frame``/
+   ``load_frame`` and a 1M-row native ``read_csv`` against numpy.
    Then the decode server's path, counts reset again: a
    ``Server`` with a gpt_small decode endpoint (int8 weights from seed 0,
    16 slots, 16-position pages, prompts <= 128, 64 new tokens) answers 32
@@ -449,9 +463,9 @@ def segment_leg(dev, what: str, ids, cols, ops, groups: int) -> dict:
     ``ops`` (min/max and integer sums exact against the plain version,
     float sums and means within ``float_close`` of the float64 sums, the
     raw float sums bit-exact against ``segment_sum_in_kernel_order``),
-    ``segment_sum`` over the widest f32 column, each relaunched bit for bit;
-    device times of both kernels, their plain versions and library calls,
-    and their byte bounds."""
+    ``segment_sum`` over the widest f32 column (where the feed has one),
+    each relaunched bit for bit; device times of both kernels, their plain
+    versions and library calls, and their byte bounds."""
     import torch
     from tensorframes_tpu_torch.kernels import segment_reduce as ksr
     from tensorframes_tpu_torch.ops import segment as seg
@@ -481,14 +495,6 @@ def segment_leg(dev, what: str, ids, cols, ops, groups: int) -> dict:
             want = want / counts.reshape(-1, *([1] * (want.ndim - 1)))
         err = max(err, float_close(got[x], want, counts, float(cols[x].abs().max()),
                                    mean=op == "reduce_mean"))
-    w2 = widest_f32(cols, ops)
-    s_got = seg.segment_sum_kernel(w2, ids, groups)
-    if not torch.equal(s_got, seg.segment_sum_kernel(w2, ids, groups)):
-        fail(f"segment_sum {what}: not deterministic")
-    if not torch.equal(s_got.cpu(), ksr.segment_sum_in_kernel_order(
-            w2, ids, groups, ksr.num_chunks(n, groups, int(w2.shape[1])))):
-        fail(f"segment_sum {what}: not summed in the kernel's order")
-    err_sum = float_close(s_got, f64_sums(w2, ids, groups), counts, float(w2.abs().max()))
     idx = ids.long()
 
     def library():
@@ -506,15 +512,25 @@ def segment_leg(dev, what: str, ids, cols, ops, groups: int) -> dict:
     distinct = {cols[x].data_ptr(): cols[x].nbytes for x, _ in ops}
     in_bytes = 4 * n + sum(distinct.values())
     out_lanes = sum(1 if cols[x].ndim == 1 else int(cols[x].shape[1]) for x, _ in ops)
-    return {
-        "segment_reduce": {
-            "max_abs_err": err,
-            "ms": time_ms(lambda: ksr.segment_reduce(ops, groups, cols, ids), f"segment_reduce {what}"),
-            "plain_ms": time_ms(lambda: ksr.segment_reduce_plain(ops, groups, cols, ids),
-                                f"segment_reduce {what} plain"),
-            "library_ms": time_ms(library, f"segment_reduce {what} library"),
-            "bound_ms": bound_ms(in_bytes + groups * out_lanes * 4), "bound_by": "bytes",
-        },
+    out = {"segment_reduce": {
+        "max_abs_err": err,
+        "ms": time_ms(lambda: ksr.segment_reduce(ops, groups, cols, ids), f"segment_reduce {what}"),
+        "plain_ms": time_ms(lambda: ksr.segment_reduce_plain(ops, groups, cols, ids),
+                            f"segment_reduce {what} plain"),
+        "library_ms": time_ms(library, f"segment_reduce {what} library"),
+        "bound_ms": bound_ms(in_bytes + groups * out_lanes * 4), "bound_by": "bytes",
+    }}
+    if not any(cols[x].dtype == torch.float32 for x, _ in ops):
+        return out
+    w2 = widest_f32(cols, ops)
+    s_got = seg.segment_sum_kernel(w2, ids, groups)
+    if not torch.equal(s_got, seg.segment_sum_kernel(w2, ids, groups)):
+        fail(f"segment_sum {what}: not deterministic")
+    if not torch.equal(s_got.cpu(), ksr.segment_sum_in_kernel_order(
+            w2, ids, groups, ksr.num_chunks(n, groups, int(w2.shape[1])))):
+        fail(f"segment_sum {what}: not summed in the kernel's order")
+    err_sum = float_close(s_got, f64_sums(w2, ids, groups), counts, float(w2.abs().max()))
+    return {**out,
         "segment_sum": {
             "max_abs_err": err_sum,
             "ms": time_ms(lambda: seg.segment_sum_kernel(w2, ids, groups), f"segment_sum {what}"),
@@ -525,17 +541,19 @@ def segment_leg(dev, what: str, ids, cols, ops, groups: int) -> dict:
                 f"segment_sum {what} library"),
             "bound_ms": bound_ms(4 * n + w2.nbytes + groups * int(w2.shape[1]) * 4),
             "bound_by": "bytes",
-        },
-    }
+        }}
 
 
 def segment_feeds(dev) -> dict:
     """The segment kernels' feeds, ``{name: (ids, cols, ops, groups)}``: the
     main path's four columns over 4,096 groups with uniform keys
     (``main``) and with one key holding half of the 10M rows (``skew``),
-    the logreg scores [262,144, 10] by label (``ten_groups``), and 16 f32
+    the logreg scores [262,144, 10] by label (``ten_groups``), 16 f32
     [100,000, 64] columns, max and sum in turn, over 256 groups (``wide``:
-    each column runs in two 32-lane slices)."""
+    each column runs in two 32-lane slices), one int32 sum of 65,519 rows
+    over 1,000 groups (``stream_chunk``: the out-of-core drill's per-chunk
+    aggregate) and one of 136 stacked 1,000-key partial tables
+    (``stream_fold``: its fold)."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -553,6 +571,17 @@ def segment_feeds(dev) -> dict:
     wide = {f"x{i}": torch.randn((n, 64), generator=g, device=dev) for i in range(16)}
     wide_ops = tuple((f"x{i}", "reduce_max" if i % 2 else "reduce_sum") for i in range(16))
     feeds["wide"] = (ids, wide, wide_ops, 256)
+    # one streamed chunk's aggregate on the data plane: the int32 w > 150,000
+    # that survive the filter of 131,072 rows (about half) over 1,000 keys
+    n = STREAM_CHUNK // 2 - 17
+    ids = torch.randint(0, STREAM_KEYS, (n,), generator=g, device=dev, dtype=torch.int32)
+    w = torch.randint(150_001, 300_000, (n,), generator=g, device=dev, dtype=torch.int32)
+    feeds["stream_chunk"] = (ids, {"w": w}, (("w", "reduce_sum"),), STREAM_KEYS)
+    # the drill's fold: every chunk's partial table (each key once) stacked
+    n = 136 * STREAM_KEYS
+    ids = torch.arange(STREAM_KEYS, device=dev, dtype=torch.int32).repeat(136)
+    w = torch.randint(12_000_000, 18_000_000, (n,), generator=g, device=dev, dtype=torch.int32)
+    feeds["stream_fold"] = (ids, {"w": w}, (("w", "reduce_sum"),), STREAM_KEYS)
     return feeds
 
 
@@ -567,7 +596,8 @@ def widest_f32(cols, ops):
 
 def segment_legs(dev) -> dict:
     """Phase 1's segment legs beyond the main path's feed: ``segment_leg``
-    over the skew, 10-group and wide feeds of ``segment_feeds``."""
+    over the skew, 10-group, wide, streamed-chunk and fold feeds of
+    ``segment_feeds``."""
     feeds = segment_feeds(dev)
     del feeds["main"]
     return {name: segment_leg(dev, name, *feed) for name, feed in feeds.items()}
@@ -1880,6 +1910,528 @@ def relational_leg(tft, dev, n: int = REL_ROWS, keys: int = REL_KEYS,
 # leave the pushed-down partial aggregate to the torch route
 PLAN_ROWS, PLAN_BLOCKS, PLAN_G1, PLAN_G2, PLAN_REPS = 10_000_000, 8, 512, 8, 3
 PLAN_TRACE = ROOT / "build" / "plan_leg_trace.json"
+
+
+QUERY_PARTS = 56            # the registered-query drill's CSV parts ...
+QUERY_PART_ROWS = 80_000    # ... of 80,000 rows: k in 0-63, v in -1,000-999
+QUERY_KEYS = 64
+QUERY_REPEATS = 20
+STREAM_BUDGET = 32 << 20    # the out-of-core drill's BlockStore budget
+STREAM_FACTOR = 5           # CSV bytes on disk over the budget
+STREAM_CHUNK = 131_072      # rows a chunk
+STREAM_RSS_CAP = 3.5        # peak RSS growth over the walk, in budgets
+STREAM_KEYS = 1000          # k in 0-999, v in 0-99,999
+STREAM_PART_ROWS = (900_000, 1_150_000)  # each part's rows, drawn: ~10 MB, a ragged last chunk
+ROUNDTRIP_ROWS = 1_000_000
+
+
+def csv_body(*cols) -> bytes:
+    """Rows of integer columns as unquoted CSV bytes without a header, each
+    cell as ``str`` writes it (a minus sign, no leading zeros): one byte
+    matrix of sign, digit and separator columns, masked and flattened,
+    rather than one Python string a row."""
+    import numpy as np
+
+    n = len(cols[0])
+    mats, masks = [], []
+    for j, x in enumerate(cols):
+        x = np.asarray(x, np.int64)
+        a = np.abs(x)
+        width = len(str(int(a.max()))) if n else 1
+        if width < 10:
+            a = a.astype(np.int32)
+        p10 = 10 ** np.arange(width - 1, -1, -1, dtype=a.dtype)
+        ndig = 1 + (a[:, None] >= p10[None, :-1]).sum(axis=1)
+        sep = b"\n" if j == len(cols) - 1 else b","
+        mats += [np.full((n, 1), ord("-"), np.uint8),
+                 ((a[:, None] // p10) % 10 + ord("0")).astype(np.uint8),
+                 np.full((n, 1), sep[0], np.uint8)]
+        masks += [(x < 0)[:, None], np.arange(width)[None, :] >= (width - ndig)[:, None],
+                  np.ones((n, 1), bool)]
+    return np.hstack(mats)[np.hstack(masks)].tobytes()
+
+
+class RssPeak:
+    """The process's peak resident set over a window, sampled from
+    ``/proc/self/status`` every 5 ms by a thread (the kernel's own high-water
+    mark counts the legs before this one)."""
+
+    def __init__(self):
+        self.base = self.peak = self.read()
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, daemon=True, name="rss-peak")
+        self._t.start()
+
+    @staticmethod
+    def read() -> int:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) << 10
+        return 0
+
+    def _run(self):
+        while not self._stop.wait(0.005):
+            self.peak = max(self.peak, self.read())
+
+    def stop(self) -> int:
+        self._stop.set()
+        self._t.join()
+        self.peak = max(self.peak, self.read())
+        return self.peak - self.base
+
+
+def query_oracle(parts) -> dict:
+    """The registered query's answer by numpy over every part: int32
+    ``v * 3 + 1`` summed, min'd and max'd by ``k``."""
+    import numpy as np
+
+    k = np.concatenate([p[0] for p in parts])
+    y = (np.concatenate([p[1] for p in parts]) * 3 + 1).astype(np.int32)
+    keys = np.unique(k)
+    idx = np.searchsorted(keys, k)
+    ysum = np.bincount(idx, weights=y, minlength=len(keys)).astype(np.int64).astype(np.int32)
+    ymin = np.full(len(keys), np.iinfo(np.int32).max, np.int32)
+    ymax = np.full(len(keys), np.iinfo(np.int32).min, np.int32)
+    np.minimum.at(ymin, idx, y)
+    np.maximum.at(ymax, idx, y)
+    return {"k": keys, "ysum": ysum, "ymin": ymin, "ymax": ymax}
+
+
+def same_table(got: dict, want: dict, what: str) -> None:
+    """Bit for bit, dtypes included, row order too (a query's rows come in
+    canonical key order); the column order is not compared (a folded
+    refresh lists the fetches in their order, a plan's table in its
+    schema's, in both packages)."""
+    import numpy as np
+
+    if sorted(got) != sorted(want):
+        fail(f"{what}: columns {list(got)} != {list(want)}")
+    for c in want:
+        g, w = np.asarray(got[c]), np.asarray(want[c])
+        if g.dtype != w.dtype or g.shape != w.shape or g.tobytes() != w.tobytes():
+            fail(f"{what}: column {c!r} differs ({g.dtype}{g.shape} vs {w.dtype}{w.shape})")
+
+
+def registered_query_drill(tft, work: str) -> dict:
+    """A growing directory of CSV parts served as a registered query on the
+    card (≙ the reference's ``bench.py:1314-1440``): 56 parts of 80,000
+    rows, a map to int32 ``ysum = ymin = ymax = v * 3 + 1`` and a keyed
+    sum/min/max by ``k`` through ``segment_reduce``, the result store armed
+    under a temporary ``compilation_cache_dir``. Gates: 20 repeats all hits
+    with no new dispatch key; one appended part refreshes by executing one
+    chunk; the refresh equals ``_execute_full`` and a numpy int32 oracle
+    bit for bit; a fresh ``Server`` over the same cache dir warms from the
+    store executing no chunk; one answer over ``serve_http``;
+    ``segment_reduce`` launched during the cold execute and the refresh."""
+    import http.client
+    import os
+
+    import numpy as np
+    import torch
+
+    data = os.path.join(work, "query")
+    os.makedirs(data)
+    rng = np.random.default_rng(SEED)
+    parts = []
+
+    def write_part(i):
+        k = rng.integers(0, QUERY_KEYS, QUERY_PART_ROWS)
+        v = rng.integers(-1000, 1000, QUERY_PART_ROWS)
+        with open(os.path.join(data, f"part-{i:04d}.csv"), "wb") as f:
+            f.write(b"k,v\n" + csv_body(k, v))
+        parts.append((k, v))
+
+    for i in range(QUERY_PARTS):
+        write_part(i)
+
+    def build(f):
+        g = tft.map_blocks(lambda v: {"ysum": (v * 3 + 1).to(torch.int32),
+                                      "ymin": (v * 3 + 1).to(torch.int32),
+                                      "ymax": (v * 3 + 1).to(torch.int32)}, f)
+        with tft.with_graph():
+            ins = {c: tft.block(g, c, tf_name=f"{c}_input") for c in ("ysum", "ymin", "ymax")}
+            return tft.aggregate([tft.reduce_sum(ins["ysum"], axis=0, name="ysum"),
+                                  tft.reduce_min(ins["ymin"], axis=0, name="ymin"),
+                                  tft.reduce_max(ins["ymax"], axis=0, name="ymax")],
+                                 g.group_by("k"))
+
+    out = {}
+    with knobs(tft, compilation_cache_dir=os.path.join(work, "cache")):
+        srv = tft.Server()
+        q = srv.register_query("dashboard", tft.QuerySource(path=data), build)
+        if not (q.cache_stats()["cacheable"] and q.cache_stats()["incremental"]):
+            fail(f"data plane: the query declined a cache level: {q.cache_stats()}")
+        tft.kernels.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        srv.start()  # the cold execute: every part read and executed once
+        out["first_execute_s"] = time.perf_counter() - t0
+        cold = tft.kernels.LAUNCHES.snapshot()
+        out["cold_launches"] = cold
+        if cold["segment_reduce"] <= 0:
+            fail(f"data plane: the cold execute never launched segment_reduce: {cold}")
+        if q.cache_stats()["chunks_executed"] != QUERY_PARTS:
+            fail(f"data plane: the cold execute ran {q.cache_stats()['chunks_executed']} chunks")
+        misses0 = srv.stats()["process"]["xla_compiles"]
+        hits0 = q.cache_stats()["hits"]
+        from tensorframes_tpu_torch.compilecache.fingerprint import content_digest
+
+        walls = []
+        split = {"list_s": [], "manifest_s": [], "digest_s": []}
+        first = None
+        for _ in range(QUERY_REPEATS):
+            # a hit's own steps timed beside it: the directory listing, the
+            # manifest (listing and a stat and sha256 a part), the digest
+            t0 = time.perf_counter()
+            tft.io._part_files(data, tft.io.PART_EXTS["csv"])
+            t1 = time.perf_counter()
+            manifest = q._manifest()
+            t2 = time.perf_counter()
+            content_digest(sig for _, sig in manifest)
+            t3 = time.perf_counter()
+            table = srv.call("dashboard", None)
+            walls.append(time.perf_counter() - t3)
+            for key, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2)):
+                split[key].append(dt)
+            first = first or table
+        out["hit_split_p50_s"] = {k: float(np.median(v)) for k, v in split.items()}
+        if q.cache_stats()["hits"] - hits0 != QUERY_REPEATS:
+            fail(f"data plane: {QUERY_REPEATS} repeats made "
+                 f"{q.cache_stats()['hits'] - hits0} hits")
+        if srv.stats()["process"]["xla_compiles"] != misses0:
+            fail("data plane: the repeats added executor dispatch-key misses")
+        out["repeat_p50_s"] = float(np.median(walls))
+        same_table(first, query_oracle(parts), "data plane: the cold answer against numpy")
+
+        write_part(QUERY_PARTS)
+        executed0 = q.cache_stats()["chunks_executed"]
+        tft.kernels.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        refreshed = srv.call("dashboard", None)
+        out["refresh_s"] = time.perf_counter() - t0
+        refresh = tft.kernels.LAUNCHES.snapshot()
+        out["refresh_launches"] = refresh
+        if refresh["segment_reduce"] <= 0:
+            fail(f"data plane: the refresh never launched segment_reduce: {refresh}")
+        if q.cache_stats()["chunks_executed"] - executed0 != 1:
+            fail(f"data plane: the refresh executed "
+                 f"{q.cache_stats()['chunks_executed'] - executed0} chunks (want 1)")
+        from tensorframes_tpu_torch.plan.lower import canonical_table_order
+
+        t0 = time.perf_counter()
+        full = canonical_table_order(q._execute_full(tft.io.part_manifest(data)), ("k",))
+        out["full_recompute_s"] = time.perf_counter() - t0
+        same_table(refreshed, full, "data plane: the refresh against _execute_full")
+        same_table(refreshed, query_oracle(parts), "data plane: the refresh against numpy")
+        srv.stop()
+
+        srv2 = tft.Server()
+        q2 = srv2.register_query("dashboard", tft.QuerySource(path=data), build)
+        srv2.start()
+        httpd = tft.serve_http(srv2, port=0)
+        try:
+            if q2.cache_stats()["chunks_executed"] != 0 or q2.cache_stats()["hits"] != 1:
+                fail(f"data plane: a fresh server did not warm from the store: "
+                     f"{q2.cache_stats()}")
+            same_table(srv2.call("dashboard", None), refreshed,
+                       "data plane: the fresh server's answer")
+            c = http.client.HTTPConnection("127.0.0.1", httpd.server_address[1], timeout=60)
+            c.request("POST", "/v1/dashboard", body=b"{}",
+                      headers={"Content-Type": "application/json"})
+            r = c.getresponse()
+            body = json.loads(r.read())
+            c.close()
+            if r.status != 200 or body["outputs"] != {k: v.tolist() for k, v in refreshed.items()}:
+                fail(f"data plane: the HTTP answer differs (status {r.status})")
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            srv2.stop()
+    out["refresh_over_full"] = out["refresh_s"] / out["full_recompute_s"]
+    out["rows"] = (QUERY_PARTS + 1) * QUERY_PART_ROWS
+    return out
+
+
+def out_of_core_drill(tft, work: str) -> dict:
+    """A CSV directory five times a 32 MB ``BlockStore`` budget streamed
+    through ``stream_chain`` on the card (≙ the reference's
+    ``bench.py:3436-3595``): ``w = int32(v * 3)``, ``w > 150,000``, a keyed
+    sum by ``k`` per chunk of 131,072 rows, folded; then the map/filter
+    alone, whose output spills. Every part holds its own seeded rows, and
+    no part is a whole number of chunks, so no two chunks are alike. Gates:
+    the fold equals the in-memory chain and numpy's (``bincount`` of the
+    kept ``w`` by ``k``, cast to int32 as the kernel's int32 sum wraps) bit
+    for bit; the spilled result read back equals the in-memory map/filter
+    and numpy's filter; something spilled; the peak RSS growth over the
+    walk (after a warm-up walk over one part) stays within 3.5 budgets;
+    ``segment_reduce`` launched."""
+    import os
+
+    import numpy as np
+    import torch
+
+    parts_dir = os.path.join(work, "stream")
+    os.makedirs(parts_dir)
+    rng = np.random.default_rng(11)
+    ks, vs = [], []
+    written = 0
+    while written < STREAM_FACTOR * STREAM_BUDGET:
+        n = int(rng.integers(*STREAM_PART_ROWS))
+        k, v = rng.integers(0, STREAM_KEYS, n), rng.integers(0, 100_000, n)
+        body = csv_body(k, v)
+        with open(os.path.join(parts_dir, f"part-{len(ks):04d}.csv"), "wb") as f:
+            f.write(b"k,v\n" + body)
+        written += len(body)
+        ks.append(k)
+        vs.append(v)
+    del body
+    n_rows = sum(len(k) for k in ks)
+
+    def agg(f):
+        with tft.with_graph():
+            w = tft.block(f, "w", tf_name="w_input")
+            return tft.aggregate(tft.reduce_sum(w, axis=0, name="w"), f.group_by("k"))
+
+    def mapfilter(f):
+        g = tft.map_blocks(lambda v: {"w": (v * 3).to(torch.int32)}, f)
+        return g.filter(lambda w: w > 150_000)
+
+    def chain(f):
+        return agg(mapfilter(f))
+
+    first_part = os.path.join(parts_dir, "part-0000.csv")
+    with tft.BlockStore(root=os.path.join(work, "warm"), budget_bytes=STREAM_BUDGET) as warm:
+        tft.stream_chain(tft.scan_csv([first_part], rows_per_chunk=STREAM_CHUNK),
+                         chain_fn=chain, fold_fn=agg, store=warm)
+        tft.stream_chain(tft.scan_csv([first_part], rows_per_chunk=STREAM_CHUNK),
+                         chain_fn=mapfilter, store=warm).drop()
+    store = tft.BlockStore(root=os.path.join(work, "store"), budget_bytes=STREAM_BUDGET)
+    rss = RssPeak()
+    tft.kernels.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    res = tft.stream_chain(tft.scan_csv(parts_dir, rows_per_chunk=STREAM_CHUNK),
+                           chain_fn=chain, fold_fn=agg, store=store)
+    stream_s = time.perf_counter() - t0
+    launches = tft.kernels.LAUNCHES.snapshot()
+    sf = tft.stream_chain(tft.scan_csv(parts_dir, rows_per_chunk=STREAM_CHUNK),
+                          chain_fn=mapfilter, store=store)
+    peak = rss.stop()
+    out = {"rows": n_rows, "csv_bytes": written, "parts": len(ks),
+           "chunks": sum(-(-len(k) // STREAM_CHUNK) for k in ks),
+           "budget_bytes": STREAM_BUDGET,
+           "rss_growth_bytes": peak, "rss_cap_bytes": int(STREAM_RSS_CAP * STREAM_BUDGET),
+           "resident_bytes": store.resident_bytes, "spilled_bytes": store.spilled_bytes,
+           "stream_s": stream_s, "stream_rows_per_s": n_rows / stream_s,
+           "launches": launches}
+    if launches["segment_reduce"] <= 0:
+        fail(f"data plane: the streamed chain never launched segment_reduce: {launches}")
+    if store.spilled_bytes <= 0:
+        fail("data plane: the streamed map/filter spilled nothing")
+    if peak > out["rss_cap_bytes"]:
+        fail(f"data plane: peak RSS grew {peak} bytes over the walk, above "
+             f"{STREAM_RSS_CAP} x the {STREAM_BUDGET}-byte budget")
+    stream_k, stream_w = res.column_values("k"), res.column_values("w")
+    del res
+
+    k_all, v_all = np.concatenate(ks), np.concatenate(vs)
+    del ks, vs
+    w_all = (v_all * 3).astype(np.int32)
+    keep = w_all > 150_000
+    kept = {"k": k_all[keep], "v": v_all[keep], "w": w_all[keep]}
+    present = np.flatnonzero(np.bincount(kept["k"], minlength=STREAM_KEYS))
+    sums = np.bincount(kept["k"], weights=kept["w"], minlength=STREAM_KEYS)  # exact: < 2**53
+    order = np.argsort(stream_k, kind="stable")
+    same_table({"k": stream_k[order], "w": stream_w[order]},
+               {"k": present, "w": sums[present].astype(np.int64).astype(np.int32)},
+               "data plane: the streamed fold against numpy")
+
+    full = tft.frame_from_arrays({"k": k_all, "v": v_all})
+    del k_all, v_all, w_all, keep
+    t0 = time.perf_counter()
+    oracle = chain(full)
+    oracle.blocks()
+    out["in_memory_s"] = time.perf_counter() - t0
+    out["in_memory_rows_per_s"] = n_rows / out["in_memory_s"]
+    same_table({"k": stream_k, "w": stream_w},
+               {"k": oracle.column_values("k"), "w": oracle.column_values("w")},
+               "data plane: the streamed fold against the in-memory chain")
+    mem_mf = mapfilter(full)
+    back = sf.to_frame(mmap=True)
+    back_cols = {c: back.column_values(c) for c in ("k", "v", "w")}
+    same_table(back_cols, {c: mem_mf.column_values(c) for c in ("k", "v", "w")},
+               "data plane: the spilled map/filter read back against the in-memory one")
+    same_table(back_cols, kept,
+               "data plane: the spilled map/filter read back against numpy's filter")
+    out["groups"] = int(len(stream_k))
+    out["kept_rows"] = int(len(kept["k"]))
+    del back, back_cols, mem_mf, oracle, full, kept
+    sf.drop()
+    store.close()
+    return out
+
+
+def round_trip_drill(tft, dev, work: str) -> dict:
+    """``save_frame``/``load_frame`` of a 1M-row frame whose dense columns
+    (int8, int32, int64, float16, float32, float64 and an f32 [n, 4] vector)
+    come off the card through ``map_blocks``, beside a string column, bit
+    for bit; and ``read_csv`` of a 1M-row unquoted file through the native
+    parse against numpy's parse of the same bytes."""
+    import os
+
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + 16)
+    n = ROUNDTRIP_ROWS
+    src = {
+        "i8": rng.integers(-128, 128, n).astype(np.int8),
+        "i32": rng.integers(-2**31, 2**31 - 1, n).astype(np.int32),
+        "i64": rng.integers(-2**62, 2**62, n),
+        "f16": rng.standard_normal(n).astype(np.float16),
+        "f32": rng.standard_normal(n).astype(np.float32),
+        "f64": rng.standard_normal(n),
+        "vec": rng.standard_normal((n, 4)).astype(np.float32),
+    }
+    host = tft.frame_from_arrays(dict(src))
+    names = list(src)
+    on_card = tft.map_blocks(
+        lambda i8, i32, i64, f16, f32, f64, vec: {
+            "o_i8": i8.clone(), "o_i32": i32.clone(), "o_i64": i64.clone(),
+            "o_f16": f16.clone(), "o_f32": f32.clone(), "o_f64": f64.clone(),
+            "o_vec": vec.clone()}, host, device=dev)
+    strings = [f"s{i % 1000}" for i in range(n)]
+    frame = tft.frame_from_arrays(
+        {**{c: on_card.column_values(f"o_{c}") for c in names}, "s": strings})
+    path = os.path.join(work, "saved")
+    t0 = time.perf_counter()
+    tft.save_frame(frame, path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = tft.load_frame(path)
+    load_s = time.perf_counter() - t0
+    for c in names:
+        got = back.column_values(c)
+        if got.dtype != src[c].dtype or got.tobytes() != src[c].tobytes():
+            fail(f"data plane: save_frame/load_frame changed column {c!r}")
+    if back.column_values("s").tolist() != strings:
+        fail("data plane: save_frame/load_frame changed the string column")
+
+    k = rng.integers(-10**12, 10**12, n)
+    v = np.round(rng.standard_normal(n) * 1e3, 4)
+    csv = os.path.join(work, "rows.csv")
+    with open(csv, "w") as f:
+        f.write("k,v\n")
+        f.write("\n".join(np.char.add(np.char.add(k.astype(str), ","),
+                                      v.astype(str)).tolist()) + "\n")
+    t0 = time.perf_counter()
+    parsed = tft.read_csv(csv)
+    read_s = time.perf_counter() - t0
+    ref_k = np.loadtxt(csv, delimiter=",", skiprows=1, usecols=0, dtype=np.int64)
+    ref_v = np.loadtxt(csv, delimiter=",", skiprows=1, usecols=1, dtype=np.float64)
+    if not (parsed.column_values("k").tobytes() == ref_k.tobytes()
+            and parsed.column_values("v").tobytes() == ref_v.tobytes()):
+        fail("data plane: read_csv's native parse differs from numpy's")
+    return {"rows": n, "save_s": save_s, "load_s": load_s,
+            "saved_bytes": sum(os.path.getsize(os.path.join(path, x)) for x in os.listdir(path)),
+            "read_csv_s": read_s, "read_csv_rows_per_s": n / read_s,
+            "native_build_s": tft.native.build_seconds,
+            "native_library": tft.native._so_path().name}
+
+
+NATIVE_SITE_ROWS = 200_000
+
+
+def native_sites(tft, work: str) -> dict:
+    """Each call site of the native row pass timed on the host with the pass
+    on and with ``TFS_TPU_DISABLE_NATIVE=1`` (the pure-Python path), the two
+    taking turns twice, the best of each kept; both paths' outputs are
+    compared exactly. Sites: ``read_csv`` of the round-trip drill's 1M-row
+    file, ``part_frame`` of one registered-query part (80,000 rows),
+    ``collect`` and ``frame_from_rows`` of 200,000 rows of int64, float64
+    and int32 scalars, the object-key encode of 1M strings over 1,000 keys,
+    and the ragged stack of 200,000 f32[16] cells."""
+    import os
+
+    import numpy as np
+    from tensorframes_tpu_torch.ops.keys import _unique_inverse
+    from tensorframes_tpu_torch.ops.verbs import _stack_group
+
+    rng = np.random.default_rng(SEED + 17)
+    n = NATIVE_SITE_ROWS
+    frame = tft.frame_from_arrays({"a": rng.integers(-10**12, 10**12, n),
+                                   "b": rng.standard_normal(n),
+                                   "c": rng.integers(-1000, 1000, n).astype(np.int32)})
+    rows = frame.collect()
+    keys = np.empty(ROUNDTRIP_ROWS, object)
+    keys[:] = [f"key-{i}" for i in rng.integers(0, 1000, ROUNDTRIP_ROWS)]
+    cells = list(rng.standard_normal((n, 16)).astype(np.float32))
+    idx = np.arange(n)
+
+    def cols(f):
+        return {c: (str(f.column_values(c).dtype), f.column_values(c).tobytes())
+                for c in f.schema.names}
+
+    sites = {
+        "read_csv_1m": lambda: cols(tft.read_csv(os.path.join(work, "rows.csv"))),
+        "query_part_parse": lambda: cols(tft.io.part_frame(
+            os.path.join(work, "query", "part-0000.csv"))),
+        "collect": frame.collect,
+        "frame_from_rows": lambda: cols(tft.frame_from_rows(rows)),
+        "object_key_encode": lambda: [x.tolist() for x in _unique_inverse(keys)],
+        "ragged_stack": lambda: _stack_group(cells, idx).tobytes(),
+    }
+    prior = os.environ.pop("TFS_TPU_DISABLE_NATIVE", None)
+    out = {}
+    try:
+        for name, fn in sites.items():
+            best = {"native": float("inf"), "pure": float("inf")}
+            got = {}
+            for mode in ("native", "pure", "native", "pure"):
+                if mode == "pure":
+                    os.environ["TFS_TPU_DISABLE_NATIVE"] = "1"
+                t0 = time.perf_counter()
+                got[mode] = fn()
+                best[mode] = min(best[mode], time.perf_counter() - t0)
+                os.environ.pop("TFS_TPU_DISABLE_NATIVE", None)
+            if got["native"] != got["pure"]:
+                fail(f"data plane: the native and pure paths of {name} differ")
+            out[name] = {"native_s": best["native"], "pure_s": best["pure"],
+                         "pure_over_native": best["pure"] / best["native"]}
+    finally:
+        if prior is not None:
+            os.environ["TFS_TPU_DISABLE_NATIVE"] = prior
+    return out
+
+
+def data_plane_leg(tft, dev) -> dict:
+    """The data path on the card: the registered-query drill, the
+    out-of-core stream, the round trips and the native row pass's call
+    sites against their pure paths, in a temporary directory.
+    ``launches`` sums the query's cold execute and refresh and the
+    streamed chain."""
+    import shutil
+
+    if not tft.native.available():
+        fail("data plane: the native row pass is disabled (TFS_TPU_DISABLE_NATIVE=1)")
+    work = tempfile.mkdtemp(prefix="tftorch-data-plane-")
+    try:
+        t0 = time.perf_counter()
+        query = registered_query_drill(tft, work)
+        t1 = time.perf_counter()
+        stream = out_of_core_drill(tft, work)
+        t2 = time.perf_counter()
+        trips = round_trip_drill(tft, dev, work)
+        t3 = time.perf_counter()
+        sites = native_sites(tft, work)
+        t4 = time.perf_counter()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launches = {name: query["cold_launches"][name] + query["refresh_launches"][name]
+                + stream["launches"][name] for name in query["cold_launches"]}
+    return {"query": query, "stream": stream, "round_trips": trips, "native_sites": sites,
+            "launches": launches,
+            "walls_s": {"query": t1 - t0, "stream": t2 - t1, "round_trips": t3 - t2,
+                        "native_sites": t4 - t3}}
 
 
 def copy_profile(fn) -> dict:
@@ -4920,7 +5472,8 @@ def main() -> int:
         "segment_reduce": {**check_segment_reduce(dev, 10_000_000, 4096),
                            "legs": {k: leg["segment_reduce"] for k, leg in legs.items()}},
         "segment_sum": {**check_segment_sum(dev, 10_000_000, 4096),
-                        "legs": {k: leg["segment_sum"] for k, leg in legs.items()}},
+                        "legs": {k: leg["segment_sum"] for k, leg in legs.items()
+                                 if "segment_sum" in leg}},
         "ragged_gather": check_ragged_gather(dev),
         "decode_attention": check_decode_attention(dev),
         "int8_matmul": check_int8_matmul(dev),
@@ -4953,6 +5506,38 @@ def main() -> int:
     plan = plan_leg(tft, dev)
     plan_s = time.perf_counter() - t_plan
     log(f"# plan leg: {plan_s:.1f} s")
+    t_data = time.perf_counter()
+    data = data_plane_leg(tft, dev)
+    log(f"# data plane leg: {time.perf_counter() - t_data:.1f} s "
+        f"({json.dumps({k: round(v, 1) for k, v in data['walls_s'].items()})})")
+    dq, ds, dr = data["query"], data["stream"], data["round_trips"]
+    log(f"# data plane query: {dq['rows']} rows in {QUERY_PARTS + 1} CSV parts; first execute "
+        f"{dq['first_execute_s']:.4f} s, repeat p50 {dq['repeat_p50_s'] * 1e3:.4f} ms "
+        f"({QUERY_REPEATS} hits; beside it, p50 of the listing "
+        f"{dq['hit_split_p50_s']['list_s'] * 1e3:.4f} ms, the manifest "
+        f"{dq['hit_split_p50_s']['manifest_s'] * 1e3:.4f} ms, the digest "
+        f"{dq['hit_split_p50_s']['digest_s'] * 1e3:.4f} ms), refresh after one appended part "
+        f"{dq['refresh_s']:.4f} s, full "
+        f"recompute {dq['full_recompute_s']:.4f} s (refresh / full "
+        f"{dq['refresh_over_full']:.4f}); segment_reduce launches cold "
+        f"{dq['cold_launches']['segment_reduce']}, refresh "
+        f"{dq['refresh_launches']['segment_reduce']}")
+    log(f"# data plane stream: {ds['rows']} rows, {ds['csv_bytes']} CSV bytes in {ds['parts']} "
+        f"parts ({ds['chunks']} chunks, {ds['kept_rows']} rows kept by the filter), budget {ds['budget_bytes']} bytes; streamed {ds['stream_rows_per_s']:.1f} rows/s "
+        f"({ds['stream_s']:.4f} s), in memory {ds['in_memory_rows_per_s']:.1f} rows/s "
+        f"({ds['in_memory_s']:.4f} s); peak RSS growth {ds['rss_growth_bytes']} bytes (cap "
+        f"{ds['rss_cap_bytes']}); resident {ds['resident_bytes']}, spilled "
+        f"{ds['spilled_bytes']} bytes; {ds['groups']} groups; segment_reduce launches "
+        f"{ds['launches']['segment_reduce']}")
+    log(f"# data plane round trips: save_frame {dr['save_s']:.4f} s / load_frame "
+        f"{dr['load_s']:.4f} s of {dr['rows']} rows ({dr['saved_bytes']} bytes), bit for bit; "
+        f"read_csv native {dr['read_csv_rows_per_s']:.1f} rows/s ({dr['read_csv_s']:.4f} s) = "
+        f"numpy's parse; native row pass {dr['native_library']}, built in this process in "
+        + (f"{dr['native_build_s']:.2f} s" if dr["native_build_s"] is not None
+           else "no time (an existing build was loaded)"))
+    for name, r in data["native_sites"].items():
+        log(f"# data plane native site {name}: native {r['native_s']:.4f} s, pure "
+            f"{r['pure_s']:.4f} s (pure / native {r['pure_over_native']:.2f}), outputs equal")
 
     t2 = time.perf_counter()
     serving = serving_path(tft, dev)
@@ -5061,6 +5646,7 @@ def main() -> int:
 
     kernels = []
     paths = ((path, SLICE1_KERNELS), (relational, ("segment_reduce", "segment_sum")),
+             (data, ("segment_reduce", "segment_sum")),
              (serving, SERVING_KERNELS), (kv, SERVING_KERNELS),
              (encoder, ENCODER_KERNELS), (flush, ENCODER_KERNELS),
              (train, TRAINING_KERNELS), (resumable, TRAINING_KERNELS),

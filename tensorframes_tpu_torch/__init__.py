@@ -10,7 +10,9 @@ causal transformer through a decode server (:class:`Server`,
 :class:`DecodeEngine`: continuous batching over a paged int8 KV pool,
 with a prefix cache and KV swap over :class:`BlockStore`) and any
 row program through a flush endpoint (``Server.register``, over HTTP with
-:func:`serve_http`),
+:func:`serve_http`) and a relational pipeline over a growing CSV or
+Parquet directory as a registered query (``Server.register_query``:
+cached results, per-chunk partial folds),
 and train it straight off a frame (:func:`training.train_on_frame` over
 :func:`models.transformer.make_train_step`, batches staged by
 :mod:`.io`), resumably: verified checkpoints (:class:`Checkpointer`,
@@ -19,7 +21,11 @@ retries and fault sites (:mod:`.resilience`), step telemetry and a
 flight recorder (:mod:`.observability`). Frozen TF graphs and SavedModels import as programs
 (:func:`load_graphdef`, :func:`load_saved_model`, :mod:`.graphdef`,
 with no TensorFlow), and programs serialize through ``torch.export``
-(:func:`save_program`, :func:`load_program`).
+(:func:`save_program`, :func:`load_program`). The data plane reads and
+writes CSV, Parquet and Arrow (:func:`read_csv`, :func:`scan_csv`, ...),
+persists frames (:func:`save_frame`, :func:`load_frame`), and streams a
+chain over data larger than memory (:func:`stream_chain`, spilling to a
+:class:`BlockStore`); row ⇄ column passes run in C++ (:mod:`.native`).
 
 Frames are host-resident; verbs run each block on one device, the GPU
 unless the caller asks for the CPU (``device="cpu"`` on a verb, or
@@ -95,9 +101,34 @@ from .ops.verbs import (  # noqa: F401
 from .utils import profiling  # noqa: F401
 from . import observability  # noqa: F401
 from .plan import explain_plan  # noqa: F401  (registers tftpu_plan_* metrics)
-from .serving import DecodeConfig, DecodeEngine, Server, ServingConfig, serve_http  # noqa: F401
-from .blockstore import BlockCorruptionError, BlockStore  # noqa: F401
-from . import io, training  # noqa: F401
+from .serving import (  # noqa: F401
+    DecodeConfig,
+    DecodeEngine,
+    QuerySource,
+    Server,
+    ServingConfig,
+    serve_http,
+)
+from .blockstore import (  # noqa: F401
+    BlockCorruptionError,
+    BlockStore,
+    ResultStore,
+    SpilledFrame,
+    stream_chain,
+)
+from . import io, native, training  # noqa: F401
+from .io import (  # noqa: F401
+    frame_from_arrow,
+    frame_to_arrow,
+    load_frame,
+    read_csv,
+    read_parquet,
+    save_frame,
+    scan_csv,
+    scan_parquet,
+    write_csv,
+    write_parquet,
+)
 from .graphdef import (  # noqa: F401
     load_graphdef,
     load_saved_model,
@@ -144,6 +175,7 @@ __all__ = [
     "profiling",
     "observability",
     "io",
+    "native",
     "training",
     # resumable training
     "Checkpointer",
@@ -159,9 +191,23 @@ __all__ = [
     "DecodeConfig",
     "DecodeEngine",
     "serve_http",
+    "QuerySource",
     # out-of-core data plane
     "BlockStore",
     "BlockCorruptionError",
+    "ResultStore",
+    "SpilledFrame",
+    "stream_chain",
+    "read_csv",
+    "write_csv",
+    "scan_csv",
+    "read_parquet",
+    "write_parquet",
+    "scan_parquet",
+    "frame_from_arrow",
+    "frame_to_arrow",
+    "save_frame",
+    "load_frame",
     # dsl / placeholder helpers
     "Node",
     "block",

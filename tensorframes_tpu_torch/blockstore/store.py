@@ -2,12 +2,12 @@
 data plane, and the KV pool's host-swap tier.
 
 A :class:`BlockStore` holds frame blocks (``{column: ndarray | tensor |
-list}``) under a resident-bytes budget (the ``budget_bytes`` argument;
-0, the default, is the disk-only store the KV swap tier uses). Blocks
-past the budget spill to disk least-recently-used; spilled segments
-reload on demand — CRC-checked by
-default, or as zero-read ``np.memmap`` views where the OS page cache owns
-residency.
+list}``) under a resident-bytes budget (the ``budget_bytes`` argument,
+by default ``config.block_budget_bytes``, ``TFTPU_BLOCK_BUDGET_MB``; 0 is
+the disk-only store the KV swap tier uses). Blocks past the budget spill
+to disk least-recently-used; spilled segments reload on demand —
+CRC-checked by default, or as zero-read ``np.memmap`` views where the OS
+page cache owns residency.
 
 Durability, as in the reference package:
 
@@ -22,9 +22,11 @@ Durability, as in the reference package:
 Dense columns are stored as their raw bytes with the dtype and shape in
 the manifest (``utils/npz``'s codec), so a block of numpy arrays or of
 CPU/CUDA tensors spills alike; a reload returns numpy arrays (a dtype
-numpy lacks, ``bfloat16``, comes back as a CPU tensor). The consumer here
-is ``serving.kvpool.PagedKVPool`` (``spill``/``restore`` and the
-per-sequence ``swap_out_seq``/``swap_in_seq``). Fault site
+numpy lacks, ``bfloat16``, comes back as a CPU tensor). Consumers:
+``TensorFrame.spill_to``, the chunked ``read_csv``/``read_parquet`` ingest
+(io.py), the streaming partitioner (partitioner.py), and
+``serving.kvpool.PagedKVPool`` (``spill``/``restore`` and the per-sequence
+``swap_out_seq``/``swap_in_seq``). Fault site
 ``blockstore.spill`` (delay semantics too) rides the resilience registry;
 ``blockstore.*`` flight records land in the crash black box.
 """
@@ -174,11 +176,13 @@ class BlockStore:
 
     ``root`` is the spill directory (created; a private temp dir under
     ``config.blockstore_dir`` by default, deleted at :meth:`close`).
-    ``budget_bytes`` bounds the bytes held in RAM across resident blocks;
+    ``budget_bytes`` bounds the bytes held in RAM across resident blocks
+    (default ``config.block_budget_bytes``, ``TFTPU_BLOCK_BUDGET_MB``);
     ``put`` spills the least-recently-used residents past it (0: every
     block spills on arrival). Thread-safe."""
 
-    def __init__(self, root: Optional[str] = None, budget_bytes: int = 0):
+    def __init__(self, root: Optional[str] = None,
+                 budget_bytes: Optional[int] = None):
         cfg = get_config()
         if root is None:
             # a private spill dir per store (segment ids are store-local,
@@ -192,7 +196,8 @@ class BlockStore:
             os.makedirs(root, exist_ok=True)
             self._owns_root = False
         self.root = root
-        self.budget_bytes = int(budget_bytes)
+        self.budget_bytes = int(
+            cfg.block_budget_bytes if budget_bytes is None else budget_bytes)
         self._lock = threading.RLock()
         self._entries: "OrderedDict[int, _Entry]" = OrderedDict()
         self._next_id = 0

@@ -1,4 +1,5 @@
-"""The serving bucket ladders, stated once.
+"""The serving bucket ladders, stated once, and (in :mod:`.fingerprint`)
+the content digests a registered query's result cache keys on.
 
 The reference package's ``compilecache/warmup.py:138-214``: the
 power-of-two lead-dim buckets a serving flush, a decode step's slot count
@@ -16,7 +17,7 @@ from __future__ import annotations
 
 from typing import Dict, List
 
-from .ops.executor import bucket_rows, bucket_table
+from ..ops.executor import bucket_rows, bucket_table
 
 
 def serving_row_buckets(max_rows: int) -> List[int]:

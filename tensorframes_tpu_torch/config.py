@@ -2,8 +2,8 @@
 
 The knobs the ported verbs read — row-bucketing ladder, the default
 partition count, the verbs' block pipeline, the generic aggregate's
-buffer, the plan layer's fusion and re-optimization switches and the
-stats sidecar's directory — plus the execution ``device``. Every knob but the device can
+buffer, the plan layer's fusion and re-optimization switches, the
+stats sidecar's directory and the block store's budget — plus the execution ``device``. Every knob but the device can
 be overridden via environment variables (``TFTPU_*``, the reference's
 names and defaults);
 every field can be set programmatically via :func:`configure`. The device
@@ -69,6 +69,10 @@ class Config:
     # Root directory of persistent caches; the plan-stats sidecar lives
     # in <dir>/planstats. Empty: stats stay in memory.
     compilation_cache_dir: str = os.environ.get("TFTPU_COMPILE_CACHE", "")
+    # Resident-bytes budget of a BlockStore built without one (the
+    # chunked readers' ingest, the streaming partitioner): blocks past it
+    # spill to disk least-recently-used.
+    block_budget_bytes: int = _env_int("TFTPU_BLOCK_BUDGET_MB", 512) * (1 << 20)
     # Parent directory of block stores' private spill directories (empty:
     # the system temp dir). Point at fast local disk in production.
     blockstore_dir: str = os.environ.get("TFTPU_BLOCKSTORE_DIR", "")

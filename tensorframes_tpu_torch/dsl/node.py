@@ -104,7 +104,22 @@ def _inexact(dtype: torch.dtype) -> torch.dtype:
     return torch.float64 if dtype == torch.int64 else torch.float32
 
 
+def _np_name(dtype: torch.dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def _bool_weak_int(x, y):
+    """A bool tensor beside a Python int computes in int64, as the
+    reference's bool with a weakly typed int does."""
+    if torch.is_tensor(x) and x.dtype == torch.bool and type(y) is int:
+        return x.to(torch.int64), y
+    if torch.is_tensor(y) and y.dtype == torch.bool and type(x) is int:
+        return x, y.to(torch.int64)
+    return x, y
+
+
 def _promote(x, y):
+    x, y = _bool_weak_int(x, y)
     tx, ty = torch.is_tensor(x), torch.is_tensor(y)
     if tx and ty:
         common = torch.promote_types(x.dtype, y.dtype)
@@ -121,6 +136,23 @@ def _binop(fn: Callable) -> Callable:
         return fn(*_promote(x, y))
 
     return op
+
+
+def _sub(x, y):
+    x, y = _promote(x, y)
+    t = x if torch.is_tensor(x) else y
+    if t.dtype == torch.bool:
+        raise TypeError(
+            "sub does not accept dtype bool at position 0. Accepted dtypes at "
+            "position 0 are subtypes of integer, floating, complexfloating.")
+    return x - y
+
+
+def _neg(v):
+    if v.dtype == torch.bool:
+        raise TypeError("neg does not accept dtype bool. Accepted dtypes are "
+                        "subtypes of integer, floating, complexfloating.")
+    return -v
 
 
 def _true_div(x, y):
@@ -143,6 +175,25 @@ def _float_fn(fn: Callable) -> Callable:
         return fn(v)
 
     return op
+
+
+def _sigmoid(v):
+    if not v.is_floating_point():
+        raise TypeError(f"logistic does not accept dtype {_np_name(v.dtype)}. "
+                        "Accepted dtypes are subtypes of floating, complexfloating.")
+    return torch.sigmoid(v)
+
+
+def _abs(v):
+    return v if v.dtype == torch.bool else torch.abs(v)
+
+
+def _square(v):
+    return torch.square(v.to(torch.int32) if v.dtype == torch.bool else v)
+
+
+def _relu(v):
+    return torch.relu(v.to(torch.int64) if v.dtype == torch.bool else v)
 
 
 class Node:
@@ -215,7 +266,7 @@ class Node:
         return div(self._lift(other), self)
 
     def __neg__(self):
-        return unary("neg", operator.neg, self)
+        return unary("neg", _neg, self)
 
     def __pow__(self, other):
         return binary("pow", _binop(operator.pow), self, self._lift(other))
@@ -340,7 +391,7 @@ def add(x: Node, y, name=None) -> Node:
 
 
 def sub(x: Node, y, name=None) -> Node:
-    return binary("sub", _binop(operator.sub), x, x._lift(y) if not isinstance(y, Node) else y, name=name)
+    return binary("sub", _sub, x, x._lift(y) if not isinstance(y, Node) else y, name=name)
 
 
 def mul(x: Node, y, name=None) -> Node:
@@ -439,19 +490,19 @@ def sqrt(x: Node, name=None) -> Node:
 
 
 def abs_(x: Node, name=None) -> Node:
-    return unary("abs", torch.abs, x, name)
+    return unary("abs", _abs, x, name)
 
 
 def square(x: Node, name=None) -> Node:
-    return unary("square", torch.square, x, name)
+    return unary("square", _square, x, name)
 
 
 def sigmoid(x: Node, name=None) -> Node:
-    return unary("sigmoid", _float_fn(torch.sigmoid), x, name)
+    return unary("sigmoid", _sigmoid, x, name)
 
 
 def relu(x: Node, name=None) -> Node:
-    return unary("relu", torch.relu, x, name)
+    return unary("relu", _relu, x, name)
 
 
 # ---------------------------------------------------------------------------

@@ -150,8 +150,9 @@ def from_torch(dtype: torch.dtype) -> ScalarType:
     name = _BY_TORCH.get(dtype)
     if name is None or name not in _BY_NAME:
         raise UnsupportedTypeError(
-            f"Unsupported dtype {dtype}. Supported device types: "
-            f"{[t.name for t in _DEVICE_TYPES]}"
+            f"Unsupported dtype {str(dtype).replace('torch.', '')}. Supported "
+            f"device types: {[t.name for t in _DEVICE_TYPES]}; host types: "
+            "['string', 'binary']"
         )
     return _BY_NAME[name]
 

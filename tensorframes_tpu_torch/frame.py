@@ -419,10 +419,27 @@ class TensorFrame:
 
         Vector cells come back as numpy arrays; scalars as Python scalars.
         """
+        from . import native
+
         rows: List[Dict[str, object]] = []
         for b in self.blocks():
             n = _block_num_rows(b)
             cols = {name: b[name] for name in self.schema.names}
+            if all(
+                isinstance(v, np.ndarray)
+                and v.ndim == 1
+                and native.supported_dtype(v.dtype)
+                for v in cols.values()
+            ):
+                # all-scalar blocks of the native pass's dtypes materialize
+                # as row dicts in one C++ pass (≙ convertBackFast0,
+                # DataOps.scala:20-61)
+                native_rows = native.columns_to_rows(
+                    list(cols.keys()), list(cols.values())
+                )
+                if native_rows is not None:
+                    rows.extend(native_rows)
+                    continue
             for i in range(n):
                 row = {}
                 for name, v in cols.items():
@@ -853,6 +870,29 @@ class TensorFrame:
         self.blocks()
         return self
 
+    def save(self, path: str) -> "TensorFrame":
+        """Persist to ``path`` (see ``io.save_frame``); returns self."""
+        from .io import save_frame
+
+        save_frame(self, path)
+        return self
+
+    def spill_to(self, store) -> "object":
+        """Spill this frame's blocks into a
+        :class:`~tensorframes_tpu_torch.blockstore.BlockStore` and return
+        the :class:`~tensorframes_tpu_torch.blockstore.SpilledFrame` handle
+        (blocks past the store's budget land on disk; ``to_frame`` rebuilds
+        over memmap views). Forces a lazy chain."""
+        from .blockstore.partitioner import SpilledFrame
+
+        refs = []
+        for b in self.blocks():
+            refs.append(store.put({
+                name: v if isinstance(v, list) else np.asarray(v)
+                for name, v in b.items()
+            }))
+        return SpilledFrame(store, refs, self.schema)
+
     # -- verb methods (≙ Implicits.RichDataFrame, dsl/Implicits.scala:25-100)
     def map_blocks(self, fetches, feed_dict=None, trim: bool = False,
                    device=None):
@@ -860,6 +900,11 @@ class TensorFrame:
 
         return map_blocks(fetches, self, feed_dict=feed_dict, trim=trim,
                           device=device)
+
+    def map_blocks_trimmed(self, fetches, feed_dict=None, device=None):
+        """≙ ``mapBlocksTrimmed`` (dsl/Implicits.scala:49-55)."""
+        return self.map_blocks(fetches, feed_dict=feed_dict, trim=True,
+                               device=device)
 
     def map_rows(self, fetches, feed_dict=None, device=None):
         from .ops.verbs import map_rows
@@ -999,22 +1044,54 @@ def frame_from_rows(
     with ``Row`` objects, README.md:67-68)."""
     if not rows:
         raise ValueError("Cannot build a frame from zero rows without a schema")
+    from . import native
+
     names = list(rows[0].keys())
     num_blocks = num_blocks or min(get_config().default_num_blocks, len(rows))
-    cols: Dict[str, list] = {}
+    cols: Dict[str, object] = {}
     infos: List[ColumnInfo] = []
+    use_native = native.available()
     for n in names:
-        cells = [r[n] for r in rows]
-        cols[n] = cells
-        infos.append(_infer_column_info(n, cells))
+        arr = None
+        if use_native:
+            # scalar numeric columns of the native pass's dtypes gather in
+            # one C++ pass (≙ convertFast0, DataOps.scala:63-81); a column
+            # it does not take — vectors, strings, mixed or missing cells —
+            # takes the per-cell path below
+            try:
+                dtype = dt.from_python_value(rows[0][n])
+            except dt.UnsupportedTypeError:
+                dtype = None
+            if (
+                dtype is not None
+                and dtype.device
+                and dtype.np_dtype is not None
+                and native.supported_dtype(dtype.np_dtype)
+                and not isinstance(rows[0][n], (list, tuple, np.ndarray))
+            ):
+                try:
+                    arr = native.gather_column(rows, n, dtype.np_dtype)
+                except (TypeError, KeyError, OverflowError, ValueError):
+                    arr = None
+        if arr is not None:
+            cols[n] = arr
+            infos.append(ColumnInfo(n, dt.from_numpy(arr.dtype), Shape((Unknown,))))
+        else:
+            cells = [r[n] for r in rows]
+            cols[n] = cells
+            infos.append(_infer_column_info(n, cells))
     schema = Schema(infos)
     bounds = _partition_bounds(len(rows), num_blocks)
     blocks: List[Block] = []
     for lo, hi in bounds:
-        blocks.append({
-            info.name: _cells_to_storage(cols[info.name][lo:hi], info)
-            for info in infos
-        })
+        block: Block = {}
+        for info in infos:
+            c = cols[info.name]
+            if isinstance(c, np.ndarray):
+                block[info.name] = c[lo:hi]
+            else:
+                block[info.name] = _cells_to_storage(c[lo:hi], info)
+        blocks.append(block)
     return TensorFrame(blocks, schema)
 
 

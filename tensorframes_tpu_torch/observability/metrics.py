@@ -260,6 +260,11 @@ class MetricsRegistry:
             Histogram, name, help, labels, buckets=buckets
         )
 
+    def collect(self) -> List[_Metric]:
+        """Every registered instrument."""
+        with self._lock:
+            return list(self._metrics.values())
+
     def reset(self) -> None:
         """Zero every instrument, keep registrations (instrumented modules
         hold references; removing them would orphan live instruments)."""

@@ -31,6 +31,7 @@ from .. import dtypes as dt
 from ..config import get_config
 from ..observability import events as _events
 from ..observability import flight as _flight
+from ..observability import latency as _latency
 from ..observability.metrics import counter as _counter
 from ..program import Program
 from ..resilience.faults import delay_point, fault_point, register_site
@@ -173,6 +174,7 @@ class CompiledProgram:
             _flight.record("dispatch.error", error=type(e).__name__, message=str(e), **summary)
             raise
         # host time of the dispatch (the device runs on asynchronously)
+        _latency.dispatch_histogram(kind).observe(wall)
         _flight.record("dispatch", seconds=round(wall, 6), compiled=fresh, **summary)
         if _events.TRACER.enabled:
             _events.TRACER.emit_complete(site, t0, wall, args={"compiled": fresh},

@@ -91,8 +91,9 @@ def _unique_inverse(a: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     hash encode for string/object columns: codes remap through an
     argsort of the K uniques (tiny) so the lexicographic-order contract
     holds. Float columns keep numpy for its NaN-collapse convention.
-    This is the pure-Python branch of the reference's encode, which has
-    the same semantics as its native hash pass."""
+    Object columns encode in the native hash pass (``native.dict_encode``)
+    unless ``TFS_TPU_DISABLE_NATIVE=1``; the pure-Python branch has the
+    same semantics."""
     if a.dtype == object or a.dtype.kind in ("U", "S"):
         if a.dtype != object:
             # U/S fixed-width strings have no NaN/mixed-type hazards —
@@ -106,19 +107,27 @@ def _unique_inverse(a: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         if np.any(mask):
             a = a.copy()
             a[mask] = math.nan
-        # first-appearance encode (np.unique is no substitute here:
-        # object-dtype unique compares by == so NaNs never collapse, and
-        # mixed-type keys raise on '<')
-        table: Dict[object, int] = {}
-        codes = np.empty(len(a), np.int64)
-        uniques = []
-        for i, v in enumerate(a.tolist()):
-            code = table.get(v)
-            if code is None:
-                code = len(uniques)
-                table[v] = code
-                uniques.append(v)
-            codes[i] = code
+        from .. import native
+
+        cells = a.tolist()
+        enc = native.dict_encode(cells)
+        if enc is not None:
+            # one native hash pass, the same first-appearance semantics
+            codes, uniques = enc
+        else:
+            # first-appearance encode (np.unique is no substitute here:
+            # object-dtype unique compares by == so NaNs never collapse,
+            # and mixed-type keys raise on '<')
+            table: Dict[object, int] = {}
+            codes = np.empty(len(cells), np.int64)
+            uniques = []
+            for i, v in enumerate(cells):
+                code = table.get(v)
+                if code is None:
+                    code = len(uniques)
+                    table[v] = code
+                    uniques.append(v)
+                codes[i] = code
         k = len(uniques)
         uniq_arr = np.empty(k, dtype=object)
         uniq_arr[:] = uniques

@@ -367,6 +367,24 @@ def map_blocks(
 # map_rows
 # ---------------------------------------------------------------------------
 
+def _stack_group(col, idx) -> np.ndarray:
+    """Stack the cells ``col[i] for i in idx`` (one shape by grouping)
+    into ``[len(idx), *cell]``: one native memcpy pass
+    (``native.stack_cells``), ``np.stack`` where the pass does not take
+    the cells (disabled, a non-contiguous or object cell, mixed dtypes,
+    which ``np.stack`` promotes)."""
+    from .. import native
+
+    cells = [col[i] for i in idx]
+    try:
+        stacked = native.stack_cells(cells)
+    except (ValueError, TypeError, BufferError):
+        stacked = None
+    if stacked is not None:
+        return stacked
+    return np.stack([np.asarray(c) for c in cells])
+
+
 def _group_rows_by_shape(
     b: Dict[str, object], input_names: Sequence[str], n: int
 ) -> List[np.ndarray]:
@@ -510,10 +528,7 @@ def _ragged_rows_outs(
 
     def group_feeds(idx):
         g = len(idx)
-        feeds = {
-            name: np.stack([np.asarray(cols[name][i]) for i in idx])
-            for name in input_names
-        }
+        feeds = {name: _stack_group(cols[name], idx) for name in input_names}
         return pad_lead_dim(feeds, g, bucket_rows(g))
 
     def host_wave(wave):
@@ -880,7 +895,9 @@ def _reject_bool_sum_mean(ops_key, vals) -> None:
     for out_name, op in ops_key:
         if op in ("reduce_sum", "reduce_mean") and (
                 str(vals[out_name].dtype).removeprefix("torch.") == "bool"):
-            raise TypeError("add does not accept dtype bool")
+            raise TypeError(
+                "add does not accept dtype bool at position 0. Accepted dtypes "
+                "at position 0 are subtypes of integer, floating, complexfloating.")
 
 
 def run_segment_fast(ops_key, num_groups, vals, sids) -> Dict[str, torch.Tensor]:

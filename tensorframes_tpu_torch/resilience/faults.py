@@ -54,6 +54,8 @@ SITES: Tuple[str, ...] = (
     "executor.run_block",
     "executor.run_rows",
     "io.prefetch.device_put",
+    "io.save_frame",
+    "io.load_frame",
     "checkpoint.save",
     "checkpoint.restore",
 )
@@ -153,6 +155,8 @@ _CORE_SITE_DOCS: Dict[str, str] = {
     "executor.run_block": "CompiledProgram.run_block (block execution)",
     "executor.run_rows": "CompiledProgram.run_rows (vmapped execution)",
     "io.prefetch.device_put": "prefetch_to_device worker (host→HBM transfer)",
+    "io.save_frame": "io.save_frame (frame persistence write)",
+    "io.load_frame": "io.load_frame (frame persistence read)",
     "checkpoint.save": "Checkpointer.save (inside the retry scope)",
     "checkpoint.restore": "Checkpointer restore of one step directory",
 }

@@ -14,7 +14,11 @@ an in-process server, with an HTTP adapter.
   batch every step, the pool preempts (evict, requeue, bit-identical
   replay, or restore from a swap segment with ``kv_swap=True``) when it
   runs out of pages, and ``prefix_cache=True`` shares prompt-prefix pages
-  across requests.
+  across requests;
+* :meth:`Server.register_query` — a lazy relational pipeline over a
+  :class:`QuerySource` (a growing CSV/Parquet directory or a frame),
+  answered from a result cache and refreshed by folding per-chunk
+  aggregate partials (:mod:`.query`).
 
 :func:`serve_http` serves a :class:`Server` over HTTP (``POST
 /v1/<endpoint>``, ``GET /healthz``, ``POST /admin/drain``).
@@ -24,8 +28,8 @@ its solo dispatch exactly, and a batched, prefix-hit or swap-resumed
 sequence's tokens equal its solo cold run exactly; admission is bounded
 (counted ``queue_full`` rejections), deadlines are total elapsed
 wall-clock, shutdown drains, and an idempotency key joins a request
-already admitted instead of running it twice. The router, the fleet, the
-replica process and registered queries wait in ROADMAP queue 1.
+already admitted instead of running it twice. The router, the fleet and
+the replica process wait in ROADMAP queue 1.
 """
 
 from __future__ import annotations
@@ -41,6 +45,12 @@ from .batcher import (  # noqa: F401
 from .decode import DecodeConfig, DecodeEngine, prefix_cache_events  # noqa: F401
 from .http import serve_http  # noqa: F401
 from .kvpool import PagedKVPool, PoolAccountingError, PoolExhaustedError  # noqa: F401
+from .query import (  # noqa: F401
+    QUERY_DECLINE_REASONS,
+    QueryEndpoint,
+    QuerySource,
+    query_cache_events,
+)
 from .server import Endpoint, Server, ServingConfig, UnknownEndpointError  # noqa: F401
 
 __all__ = [
@@ -56,6 +66,10 @@ __all__ = [
     "DecodeConfig",
     "DecodeEngine",
     "prefix_cache_events",
+    "QuerySource",
+    "QueryEndpoint",
+    "query_cache_events",
+    "QUERY_DECLINE_REASONS",
     "PagedKVPool",
     "PoolAccountingError",
     "PoolExhaustedError",

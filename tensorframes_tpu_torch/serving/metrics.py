@@ -1,5 +1,6 @@
 """Serving-layer instruments (``tftpu_serving_*``, ``tftpu_decode_*``,
-``tftpu_kvswap_*``, ``tftpu_prefix_cache_*``), registered at import under
+``tftpu_kvswap_*``, ``tftpu_prefix_cache_*``, ``tftpu_result_cache_*``),
+registered at import under
 the reference package's names, so one dashboard reads both. Label value sets are closed and every series is
 pre-registered: a server that never shed load still exports
 ``rejected_total{reason=...} = 0``."""
@@ -8,18 +9,12 @@ from __future__ import annotations
 
 from typing import Dict, Tuple
 
+from ..observability.latency import LATENCY_BUCKETS
 from ..observability.metrics import Counter
 from ..observability.metrics import counter as _counter
 from ..observability.metrics import gauge as _gauge
 from ..observability.metrics import histogram as _histogram
 
-#: Latency histogram bounds, in seconds (the reference's
-#: ``observability/latency.py`` ladder).
-LATENCY_BUCKETS: Tuple[float, ...] = (
-    1e-5, 2.5e-5, 5e-5, 1e-4, 2.5e-4, 5e-4,
-    0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
-    0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
-)
 
 #: Why an admission was refused (closed set).
 REJECT_REASONS: Tuple[str, ...] = ("queue_full", "closed", "too_large")
@@ -232,3 +227,62 @@ IDEMPOTENT_DEDUP = _counter(
 def http_rejected(reason: str) -> Counter:
     """The pre-registered ingress rejection counter for ``reason``."""
     return HTTP_REJECTIONS[reason]
+
+
+# -- registered-query result cache (``tftpu_result_cache_*``) ---------------
+# Process-wide series; Server.stats() carries the per-endpoint rows.
+
+#: Why a registered query ran a counted full recompute (closed set):
+#: cold = first sight of this input partition; invalidated = a seen part
+#: changed or disappeared; ineligible = the plan declined caching or
+#: incremental maintenance; corrupt_partial = a cached chunk partial
+#: failed its CRC and that chunk re-executed.
+RECOMPUTE_REASONS: Tuple[str, ...] = (
+    "cold", "invalidated", "ineligible", "corrupt_partial",
+)
+
+RESULT_CACHE_HITS = _counter(
+    "tftpu_result_cache_hits_total",
+    "Registered-query requests served from the result cache (memo or "
+    "persistent store) — no plan execution, no chunk read",
+)
+RESULT_CACHE_MISSES = _counter(
+    "tftpu_result_cache_misses_total",
+    "Registered-query requests whose (plan fingerprint, content "
+    "digest) key was absent from the result cache",
+)
+RESULT_CACHE_INVALIDATIONS = _counter(
+    "tftpu_result_cache_invalidations_total",
+    "Input-partition digest changes observed by registered queries "
+    "(the previous cached result can no longer serve; appends refresh "
+    "incrementally, rewrites/removals force full recompute)",
+)
+RESULT_CACHE_BYTES = _counter(
+    "tftpu_result_cache_bytes_total",
+    "Bytes of result/partial tables published into the persistent "
+    "result store by registered queries",
+)
+RESULT_CACHE_CHUNKS_FOLDED = _counter(
+    "tftpu_result_cache_chunks_folded_total",
+    "Scan chunks whose CACHED aggregate partials were folded into a "
+    "registered query's refresh instead of being re-read and "
+    "re-executed (the incremental-maintenance payoff counter)",
+)
+RESULT_CACHE_RECOMPUTES: Dict[str, Counter] = {
+    r: _counter(
+        "tftpu_result_cache_recomputes_total",
+        "Registered-query executions that could not serve from cached "
+        "results/partials, by reason (cold = first sight of the input "
+        "partition, invalidated = a seen part changed/disappeared, "
+        "ineligible = the plan declined caching/incremental [TFG114 "
+        "names the stage], corrupt_partial = a damaged cached partial "
+        "was quarantined and its chunk re-executed)",
+        labels={"reason": r},
+    )
+    for r in RECOMPUTE_REASONS
+}
+
+
+def result_recompute(reason: str) -> Counter:
+    """The pre-registered recompute counter for ``reason``."""
+    return RESULT_CACHE_RECOMPUTES[reason]

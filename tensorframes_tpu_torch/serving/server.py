@@ -30,8 +30,16 @@ transient dispatch failures (a program is pure, so a retry is safe);
 the same key instead of running it twice. The server runs on ``device``
 (default ``config.device``, ``"cuda"``; asking for CUDA with no GPU
 raises). :func:`~tensorframes_tpu_torch.serving.serve_http` puts it on
-HTTP. Registered queries, the router and the fleet wait in ROADMAP
-queue 1.
+HTTP.
+
+A third kind, **registered queries** (:meth:`Server.register_query`): a
+lazy relational pipeline over a :class:`~.query.QuerySource` (a growing
+CSV or Parquet directory, or a frame), answered from a result cache keyed
+by (plan fingerprint, content digest), refreshed by folding per-chunk
+aggregate partials when the plan allows it (:mod:`.query`). ``start()``
+warms each query by executing it once; a restarted server over the same
+``compilation_cache_dir`` warms from the persistent result store. The
+router and the fleet wait in ROADMAP queue 1.
 """
 
 from __future__ import annotations
@@ -237,6 +245,7 @@ class Server:
         self._endpoints: Dict[str, Endpoint] = {}
         self._batchers: Dict[str, ContinuousBatcher] = {}
         self._decode: Dict[str, object] = {}  # name -> DecodeEngine
+        self._queries: Dict[str, object] = {}  # name -> QueryEndpoint
         self._lock = threading.Lock()
         self._running = False
         self._starting = False
@@ -285,7 +294,7 @@ class Server:
                 )
         ep = Endpoint(name, program, self._retry, self.device)
         with self._lock:
-            if name in self._endpoints or name in self._decode:
+            if self._taken_locked(name):
                 raise ValueError(f"endpoint {name!r} already registered")
             self._endpoints[name] = ep
             batcher = ContinuousBatcher(
@@ -329,7 +338,7 @@ class Server:
         cfg = dataclasses.replace(cfg, warmup=cfg.warmup and self.config.warmup)
         engine = DecodeEngine(name, model_cfg, params, cfg, device=self.device)
         with self._lock:
-            if name in self._endpoints or name in self._decode:
+            if self._taken_locked(name):
                 raise ValueError(f"endpoint {name!r} already registered")
             self._decode[name] = engine
             live = self._running or self._starting
@@ -343,18 +352,57 @@ class Server:
                 raise
         return engine
 
+    def _taken_locked(self, name: str) -> bool:
+        return name in self._endpoints or name in self._decode or name in self._queries
+
     def register_query(self, name: str, source, build):
-        """Registered relational queries are not ported yet: they need the
-        block store's result store and the readers of ``io.py``."""
-        raise NotImplementedError(
-            "Server.register_query is not ported yet: it waits with "
-            "blockstore/resultstore.py and io.py's readers in ROADMAP queue 1 "
-            "(items 6 and 7)"
-        )
+        """Register a relational pipeline as endpoint ``name``: ``source``
+        is a :class:`~.query.QuerySource` (a scan directory or a frame),
+        ``build`` maps the source frame to a lazy verb chain.
+        ``submit(name, {})`` answers with the pipeline's result over the
+        source's current contents, fronted by the result cache with
+        counted invalidation; algebraic scan-rooted aggregates refresh
+        incrementally (only new chunks re-read and re-executed,
+        bit-identical to full recompute). Registration probes the plan at
+        once, so a broken build or an empty source fails here, and records
+        a decline row (:func:`~.query.query_cache_events`) when the plan
+        declines either cache level. On a live server the query warms and
+        opens at once; a failed warm leaves no trace of it."""
+        from .query import QueryEndpoint, QuerySource, _withdraw_events
+
+        self._check_name(name)
+        if not isinstance(source, QuerySource):
+            raise ValueError(
+                f"register_query() needs a QuerySource, got {type(source).__name__}"
+            )
+        with self._lock:
+            if self._taken_locked(name):
+                raise ValueError(f"endpoint {name!r} already registered")
+        # the probe reads a chunk and records the plan: outside the lock,
+        # with a concurrent duplicate caught again on insert
+        q = QueryEndpoint(name, source, build)
+        with self._lock:
+            if self._taken_locked(name):
+                raise ValueError(f"endpoint {name!r} already registered")
+            self._queries[name] = q
+            live = self._running or self._starting
+        if live:
+            if self.config.warmup:
+                try:
+                    self.warmup_reports[name] = q.warm()
+                except BaseException:
+                    with self._lock:
+                        self._queries.pop(name, None)
+                    _withdraw_events(name)
+                    raise
+            with self._lock:
+                if self._running:
+                    q.open()
+        return q
 
     def endpoints(self) -> List[str]:
         with self._lock:
-            return sorted(set(self._endpoints) | set(self._decode))
+            return sorted(set(self._endpoints) | set(self._decode) | set(self._queries))
 
     def _warm(self, ep: Endpoint) -> Dict[str, object]:
         """Dispatch the endpoint at every bucket of the serving ladder, so
@@ -376,11 +424,17 @@ class Server:
             self._starting = True
             eps = list(self._endpoints.values())
             engines = list(self._decode.values())
+            queries = list(self._queries.values())
         t0 = time.perf_counter()
         try:
             if self.config.warmup:
                 for ep in eps:
                     self.warmup_reports[ep.name] = self._warm(ep)
+                # a query warms by executing once, so the first request is
+                # a cache hit; with the persistent result store armed a
+                # restarted server warms from the store without a chunk read
+                for q in queries:
+                    self.warmup_reports[q.name] = q.warm()
             for eng in engines:
                 eng.start()
         finally:
@@ -398,6 +452,8 @@ class Server:
             # says running while submits would shed as 'closed'
             for b in self._batchers.values():
                 b.start()
+            for q in self._queries.values():
+                q.open()
             self._running = True
         _flight.record("serving.start", endpoints=self.endpoints(),
                        warmup_s=round(time.perf_counter() - t0, 6),
@@ -416,13 +472,19 @@ class Server:
             with self._lock:
                 if self._starting:
                     self._stop_requested = True
-                if not self._running and not self._batchers and not self._decode:
+                if (not self._running and not self._batchers and not self._decode
+                        and not self._queries):
                     return
                 self._running = False
                 if drain:
                     self._draining = True
                 batchers = list(self._batchers.values())
                 engines = list(self._decode.values())
+                queries = list(self._queries.values())
+            # queries execute in the submitting thread: closing admission
+            # is their whole drain
+            for q in queries:
+                q.close()
             pending = sum(b.queued_rows for b in batchers)
             _flight.record("serving.drain" if drain else "serving.stop",
                            endpoints=self.endpoints(), queued_rows=pending)
@@ -536,6 +598,12 @@ class Server:
         if eng is not None:
             with _context.request_scope(trace_id):
                 return eng.submit(feeds, deadline_s=deadline_s)
+        q = self._queries.get(endpoint)
+        if q is not None:
+            # a query executes in this thread under its endpoint lock: a
+            # cache hit's latency is the lookup
+            with _context.request_scope(trace_id):
+                return q.submit(feeds, deadline_s=deadline_s, trace_id=trace_id)
         try:
             ep = self._endpoints[endpoint]
         except KeyError:
@@ -571,6 +639,7 @@ class Server:
         with self._lock:
             batchers = dict(self._batchers)
             engines = dict(self._decode)
+            queries = dict(self._queries)
             running = self._running
             state = self._state_locked()
             # healthz is scraped continuously: expiry of the dedup cache
@@ -598,6 +667,12 @@ class Server:
 
         for name, b in batchers.items():
             _tally(name, b.counters())
+        # registered queries tally like any endpoint; their result-cache
+        # rows ride a section of their own
+        query_rows: Dict[str, Dict[str, object]] = {}
+        for name, q in queries.items():
+            _tally(name, q.counters())
+            query_rows[name] = q.cache_stats()
         for name, eng in engines.items():
             snap = eng.counters()
             _tally(name, snap)
@@ -620,6 +695,8 @@ class Server:
         }
         if decode:
             out["decode"] = decode
+        if query_rows:
+            out["queries"] = query_rows
         return out
 
 

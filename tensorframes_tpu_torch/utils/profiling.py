@@ -79,6 +79,21 @@ def _accumulate(name: str, seconds: float, rows: int) -> None:
         s.calls += 1
         s.seconds += seconds
         s.rows += rows
+    _latency_mod().observe_verb(name, seconds)
+
+
+_latency = None
+
+
+def _latency_mod():
+    """The verb-latency histograms (observability/latency.py), imported
+    on first use like the tracer."""
+    global _latency
+    if _latency is None:
+        from ..observability import latency
+
+        _latency = latency
+    return _latency
 
 
 def record(name: str, seconds: float, rows: int = 0) -> None:

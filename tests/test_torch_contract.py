@@ -148,6 +148,63 @@ def test_plan_layer_imports_no_jax_and_fuses_without_pandas():
     ], out.stdout
 
 
+def test_data_path_runs_without_pyarrow_or_pandas(tmp_path, monkeypatch):
+    """With ``pyarrow`` and ``pandas`` blocked, every module of the port and
+    ``chip_smoke`` import, and the CSV readers, ``save_frame``/
+    ``load_frame``, ``stream_chain`` and a registered query run (the card's
+    machine has neither); ``scan_parquet`` then raises the reference's
+    ``ImportError`` text. No JAX is loaded."""
+    from tensorframes_tpu import io as jio
+
+    monkeypatch.setitem(sys.modules, "pyarrow", None)
+    with pytest.raises(ImportError) as ref:
+        list(jio.scan_parquet(str(tmp_path)))
+    monkeypatch.undo()
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['pyarrow'] = None\n"
+        "sys.modules['pandas'] = None\n"
+        f"for m in {_port_modules()!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "import numpy as np, os\n"
+        "import tensorframes_tpu_torch as t\n"
+        "t.configure(device='cpu')\n"
+        f"d = {str(tmp_path)!r}\n"
+        "os.makedirs(d + '/parts')\n"
+        "for i in range(2):\n"
+        "    open(f'{d}/parts/part-{i}.csv', 'w').write('k,v\\n' + ''.join(\n"
+        "        f'{j % 3},{j}\\n' for j in range(10)))\n"
+        "f = t.read_csv(d + '/parts')\n"
+        "t.save_frame(f, d + '/saved')\n"
+        "g = t.load_frame(d + '/saved')\n"
+        "def agg(fr):\n"
+        "    with t.with_graph():\n"
+        "        return t.aggregate(t.reduce_sum(t.block(fr, 'v', tf_name='v_input'),\n"
+        "                                        name='v'), fr.group_by('k'))\n"
+        "s = t.stream_chain(t.scan_csv(d + '/parts', rows_per_chunk=4), chain_fn=agg,\n"
+        "                   fold_fn=agg)\n"
+        "srv = t.Server()\n"
+        "srv.register_query('q', t.QuerySource(path=d + '/parts'), agg)\n"
+        "srv.start()\n"
+        "out = srv.call('q', None)\n"
+        "srv.stop()\n"
+        "print(g.column_values('v').sum(), s.column_values('v').tolist(), out['v'].tolist())\n"
+        "try:\n"
+        "    list(t.scan_parquet(d))\n"
+        "except ImportError as e:\n"
+        "    print(e)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'tensorframes_tpu')\n"
+        "             and sys.modules[m] is not None)\n"
+        "print(bad)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.splitlines() == [
+        "90 [36, 24, 30] [36, 24, 30]", str(ref.value), "[]"], out.stdout
+
+
 def test_importer_modules_import_neither_tensorflow_nor_jax():
     """The GraphDef/SavedModel importer, its bundle reader and VGG-16 are
     among the modules checked above, and importing them (with the

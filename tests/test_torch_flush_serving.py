@@ -411,8 +411,16 @@ def test_donate_is_accepted_and_warns_once(monkeypatch, caplog):
 
 
 def test_register_query_names_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        _tserver(warmup=False).register_query("q", None, None)
+    """``register_query`` is ported (it raised, naming ROADMAP queue 1,
+    before): without a ``QuerySource`` it raises the reference's
+    ``ValueError``, whole; the query tests are in
+    ``test_torch_registered_query.py``."""
+    errs = []
+    for srv in (_tserver(warmup=False), _jserver(warmup=False)):
+        with pytest.raises(ValueError) as info:
+            srv.register_query("q", None, None)
+        errs.append(str(info.value))
+    assert errs[0] == errs[1] == "register_query() needs a QuerySource, got NoneType"
 
 
 # ---------------------------------------------------------------------------

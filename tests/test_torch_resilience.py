@@ -177,7 +177,8 @@ def test_fault_sites_registered_and_documented():
     ref = jfaults.list_sites()
     assert {s: ref[s] for s in registered} == faults_mod.list_sites()
     assert registered == {"executor.run_block", "executor.run_rows", "executor.dispatch",
-                          "io.prefetch.device_put", "checkpoint.save", "checkpoint.restore",
+                          "io.prefetch.device_put", "io.save_frame", "io.load_frame",
+                          "checkpoint.save", "checkpoint.restore",
                           "fleet.rank.kill", "serving.flush", "blockstore.spill"}
     with pytest.raises(ValueError):
         faults_mod.register_site("", "nowhere")

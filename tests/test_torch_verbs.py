@@ -90,24 +90,78 @@ _GRAPHS = {
     "mul_const_array": lambda pkg, c: pkg.mul(c, pkg.constant(np.float32(1.5)), name="o"),
     "exp": lambda pkg, c: pkg.exp(c, name="o"),
     "square_minus": lambda pkg, c: pkg.sub(pkg.square(c), 1, name="o"),
+    "neg": lambda pkg, c: pkg.identity(-c, name="o"),
 }
+for _op in ("identity", "exp", "log", "tanh", "sqrt", "abs_", "square",
+            "sigmoid", "relu"):
+    _GRAPHS[_op] = (lambda op: lambda pkg, c: getattr(pkg, op)(c, name="o"))(_op)
+for _op in ("add", "sub", "mul", "div"):
+    for _arg, _other in (("col", None), ("int", 2), ("float", 2.5), ("bool", True)):
+        _GRAPHS[f"{_op}_{_arg}"] = (lambda op, other: lambda pkg, c: getattr(pkg, op)(
+            c, c if other is None else other, name="o"))(_op, _other)
+
+_FRAME_DTYPES = ["int8", "uint8", "int32", "int64", "float16", "float32",
+                 "float64", "bool"]
+
+
+def _dsl_column(dtype):
+    if dtype == "bool":
+        return (np.arange(1, 9) % 3 > 0)
+    return (np.arange(1, 9) % 5 + 1).astype(dtype)
 
 
 @pytest.mark.parametrize("graph", sorted(_GRAPHS))
-@pytest.mark.parametrize("dtype", ["int64", "int32", "float32"])
+@pytest.mark.parametrize("dtype", _FRAME_DTYPES)
 def test_dsl_dtype_promotion_matches(graph, dtype):
-    """Result dtypes of the same DSL graph agree between the packages
-    (the port follows the reference's promotion with 64-bit types on)."""
-    col = (np.arange(1, 9) % 5 + 1).astype(dtype)
+    """Every unary and binary DSL op over every frame dtype gives the
+    reference's result dtype and values, or raises its error type with its
+    whole text (the port follows the reference's promotion with 64-bit
+    types on). Values: exact for integers and bool; rtol 1e-6 for float32
+    and float64; one float16 step (rtol 2**-10) for float16, where XLA
+    turns x / c into x * (1/c) and rounds ``sigmoid`` otherwise."""
+    col = _dsl_column(dtype)
     outs = []
     for pkg in (tfs, tft):
         df = pkg.frame_from_arrays({"c": col})
-        with pkg.with_graph():
-            outs.append(pkg.map_blocks(_GRAPHS[graph](pkg, pkg.block(df, "c")), df,
-                                       **_kw(pkg)))
-    j, t = outs[0].column_values("o"), outs[1].column_values("o")
+        try:
+            with pkg.with_graph():
+                out = pkg.map_blocks(_GRAPHS[graph](pkg, pkg.block(df, "c")), df,
+                                     **_kw(pkg))
+            outs.append(out.column_values("o"))
+        except Exception as e:  # noqa: BLE001 - compared whole below
+            # the text only: a kept exception's traceback would pin the
+            # reference's prefetch worker of a multi-block frame
+            outs.append((type(e).__name__, str(e)))
+    j, t = outs
+    if isinstance(j, tuple):
+        assert t == j
+        return
+    assert not isinstance(t, tuple), (j, t)
     assert t.dtype == j.dtype, (t.dtype, j.dtype)
-    np.testing.assert_allclose(t, j, rtol=1e-6)
+    if t.dtype.kind in "biu":
+        np.testing.assert_array_equal(t, j)
+    else:
+        rtol = 2.0 ** -10 if t.dtype == np.float16 else 1e-6
+        np.testing.assert_allclose(t.astype(np.float64), j.astype(np.float64),
+                                   rtol=rtol)
+
+
+def test_unsupported_output_dtype_message_matches():
+    """A program output of a dtype the frame cannot hold (uint8 + int8
+    promotes to int16 in both packages) raises the reference's error type
+    with its whole text."""
+    errs = []
+    for pkg in (tfs, tft):
+        df = pkg.frame_from_arrays({"a": np.arange(4, dtype=np.uint8),
+                                    "b": np.arange(4, dtype=np.int8)})
+        with pytest.raises(Exception) as info:
+            with pkg.with_graph():
+                pkg.map_blocks(pkg.add(pkg.block(df, "a"), pkg.block(df, "b"),
+                                       name="o"), df, **_kw(pkg))
+        errs.append((type(info.value).__name__, str(info.value)))
+        del info
+    assert "int16" in errs[0][1]
+    assert errs[1] == errs[0]
 
 
 # ---------------------------------------------------------------------------
@@ -422,3 +476,24 @@ def test_params_from_jax_rejects_wrong_layouts():
     with pytest.raises(ValueError, match="keys"):
         tlogreg.params_from_jax({"w": w})
 
+
+
+def test_map_blocks_trimmed_and_ops_exports():
+    """``TensorFrame.map_blocks_trimmed`` (≙ ``mapBlocksTrimmed``) equals the
+    reference's trimmed map, and the port's ``ops`` package re-exports the
+    reference's ``ops`` names."""
+    import tensorframes_tpu.ops as jops
+    import tensorframes_tpu_torch.ops as tops
+
+    assert sorted(tops.__all__) == sorted(jops.__all__)
+    for name in jops.__all__:
+        assert callable(getattr(tops, name)), name
+    x = np.arange(10, dtype=np.float64)
+    outs = []
+    for pkg in (tfs, tft):
+        df = pkg.frame_from_arrays({"x": x, "y": x * 2}, num_blocks=3)
+        with pkg.with_graph():
+            z = pkg.add(pkg.block(df, "x"), 1.0, name="z")
+            outs.append(df.map_blocks_trimmed(z, **_kw(pkg)))
+    assert outs[1].columns == outs[0].columns == ["z"]
+    np.testing.assert_array_equal(outs[1].column_values("z"), outs[0].column_values("z"))
