@@ -162,7 +162,21 @@ Phases:
    counted), no new dispatch key, 12 flash launches a flush, a repeated
    idempotent POST run once, ``POST /admin/drain`` through ``draining``
    to ``stopped``; rows/s and latency p50/p99 of each half, the server
-   process's CPU share and its flushes' wall against their CPU time. Then gpt_small training with
+   process's CPU share and its flushes' wall against their CPU time.
+   Then the same endpoint as a fleet (``fleet_serving_leg``): a
+   ``ServingFleet`` of 2 replica processes on the card (this script with
+   ``--fleet-replica``, each ``serve_replica`` over the endpoint, its
+   output in a log file) behind the router's ingress; two bursts of 256
+   requests at 400 requests/s from a child process, replica 1 SIGKILLed
+   a third into the first and replica 0 rolled by ``POST /admin/drain`` a
+   third into the second: every request one 200, every row within
+   2e-2·max|embedding| of one ``map_rows`` call, one crash restart and
+   none for the drain, the restarted replica with no kernel build and
+   its warm-up's 4 dispatch keys, 12 flash launches a flush on the
+   tensor cores in every replica that exited cleanly, the replicas' and
+   the router's trace shards merged into one timeline, the leg within
+   120 s; each burst's rows/s and latency p50/p99, ``recovery_s`` and the
+   router's redrives. Then gpt_small training with
    flash attention (f32 weights from seed 0, AdamW at lr 1e-3):
    ``training.train_on_frame`` takes 10 steps of 8 x 1024 tokens off a
    16-row frame, counts reset first; every step must launch the flash
@@ -3076,6 +3090,20 @@ def listen_overflows():
     return None
 
 
+def bert_flush_server(tft, dev, cfg, params):
+    """BERT-base's flush endpoint ``bert`` over int32 [128] token cells,
+    as the flush and fleet legs serve it: ``ServingConfig(max_batch_rows=64,
+    max_latency_s=0.002)`` on ``dev``, not started."""
+    from tensorframes_tpu_torch.models import transformer as tr
+    from tensorframes_tpu_torch.serving import Server, ServingConfig
+
+    schema = tft.Schema([tft.ColumnInfo("tokens", tft.dtypes.int32,
+                                        tft.Shape((tft.Unknown, ENC_SEQ)))])
+    srv = Server(ServingConfig(max_batch_rows=64, max_latency_s=0.002), device=dev)
+    srv.register("bert", tr.embed_row_program(cfg, params), schema)
+    return srv
+
+
 def flush_serving_leg(tft, dev, encoder) -> dict:
     """BERT-base (flash attention, the encoder path's weights) as a flush
     endpoint: ``Server.register("bert", embed_row_program, schema)`` over
@@ -3097,7 +3125,7 @@ def flush_serving_leg(tft, dev, encoder) -> dict:
     import numpy as np
     from tensorframes_tpu_torch.models import transformer as tr
     from tensorframes_tpu_torch.ops.executor import _JIT_MISSES
-    from tensorframes_tpu_torch.serving import Server, ServingConfig, serve_http
+    from tensorframes_tpu_torch.serving import serve_http
     from tensorframes_tpu_torch.serving import metrics as sm
 
     t0 = time.perf_counter()
@@ -3105,12 +3133,9 @@ def flush_serving_leg(tft, dev, encoder) -> dict:
     sizes = [FLUSH_ROWS[i % len(FLUSH_ROWS)] for i in range(FLUSH_REQUESTS)]
     offs = np.concatenate([[0], np.cumsum(sizes)])
     tokens, _ = tr.synthetic_batch(cfg, int(offs[-1]), ENC_SEQ, seed=SEED + 15)
-    schema = tft.Schema([tft.ColumnInfo("tokens", tft.dtypes.int32,
-                                        tft.Shape((tft.Unknown, ENC_SEQ)))])
     frame = tft.frame_from_arrays({"tokens": tokens}, num_blocks=1)
     ref, _ = embed_rows(tft, cfg, params, frame, dev, "map_rows")
-    srv = Server(ServingConfig(max_batch_rows=64, max_latency_s=0.002), device=dev)
-    srv.register("bert", tr.embed_row_program(cfg, params), schema)
+    srv = bert_flush_server(tft, dev, cfg, params)
     srv.start()  # warms the 8/16/32/64-row ladder
     ep = srv._endpoints["bert"]
     alone_ms, alone_cpu_ms = {}, {}
@@ -3290,6 +3315,298 @@ def flush_serving_leg(tft, dev, encoder) -> dict:
            "setup_s": setup_s, "leg_s": time.perf_counter() - t0}
     log(f"# flush serving: {json.dumps({k: v for k, v in out.items() if k not in ('launches', 'http_latency_s_sorted')})}; "
         f"launches {json.dumps(launches)}")
+    return out
+
+
+FLEET_REPLICAS = 2   # replica processes on the one card (a CUDA context each)
+FLEET_REQUESTS = 256  # a burst, at FLUSH_RATE; two bursts
+FLEET_LEG_LIMIT_S = 120.0
+FLEET_HEARTBEAT_TIMEOUT_S = 10.0  # longer than a replica's warm-up stall
+# the replica processes: this script in its replica mode (a test may point
+# it at a CPU stand-in)
+FLEET_REPLICA_CMD = [sys.executable, str(ROOT / "chip_smoke.py"), "--fleet-replica"]
+
+
+def fleet_replica(tft, dev, cfg, params) -> int:
+    """One fleet replica's body: BERT-base's flush endpoint
+    (:func:`bert_flush_server`) under ``serve_replica`` with the tracer
+    on. The launch counts are set to 0 once ``start()`` has warmed the
+    ladder; on a clean exit the replica writes them, its builds' counts,
+    its flushes since then, ``kernel_builds`` and its dispatch keys to
+    ``launches_p<rank>_a<attempt>.json`` in the rendezvous dir, and its
+    trace shard to ``traces/`` there, under the track index ``1 + rank +
+    FLEET_REPLICAS * attempt`` (the router's process is track 0), so every
+    incarnation gets a track of its own. Returns the exit code."""
+    import os
+
+    from tensorframes_tpu_torch.observability import context, events
+    from tensorframes_tpu_torch.ops.executor import _JIT_MISSES
+    from tensorframes_tpu_torch.serving import metrics as sm
+    from tensorframes_tpu_torch.serving import serve_replica
+
+    fleet_dir = Path(os.environ["TFTPU_FLEET_DIR"])
+    rank = context.process_index()
+    attempt = int(os.environ.get("TFTPU_FLEET_ATTEMPT", "0"))
+    events.enable()
+    srv = bert_flush_server(tft, dev, cfg, params)
+    warm = {}
+    start = srv.start
+
+    def start_then_count():
+        start()
+        tft.kernels.LAUNCHES.reset()
+        warm["flushes"] = sum(c.value for c in sm.FLUSHES.values())
+        warm["keys"] = int(_JIT_MISSES.value)
+
+    srv.start = start_then_count
+    rc = serve_replica(srv)
+    if rc == 0:
+        report = {"rank": rank, "attempt": attempt, "launches": launch_counts(tft),
+                  "flushes": int(sum(c.value for c in sm.FLUSHES.values()) - warm["flushes"]),
+                  "kernel_builds": int(tft.kernels.KERNEL_BUILDS.value),
+                  "warmup_keys": warm["keys"], "dispatch_keys": int(_JIT_MISSES.value)}
+        (fleet_dir / f"launches_p{rank}_a{attempt}.json").write_text(json.dumps(report))
+        context.bind(process_index=1 + rank + FLEET_REPLICAS * attempt)
+        events.save_shard(str(fleet_dir / "traces"))
+    return rc
+
+
+def fleet_replica_main() -> int:
+    """``python3 chip_smoke.py --fleet-replica``: one replica of
+    ``fleet_serving_leg``'s fleet, on the card, its stdout and stderr sent
+    to ``replica_p<rank>_a<attempt>.log`` in the rendezvous dir. It builds
+    the encoder's weights as ``encoder_path`` does (seed 0, drawn on the
+    CPU, then moved), so every replica holds the bits the script's own
+    reference uses. A library that fails to load or a kernel that fails to
+    launch ends the process nonzero: the fleet counts a crash."""
+    import os
+
+    import torch
+
+    why = refusal(torch)
+    if why:
+        print(f"chip_smoke: {why}", file=sys.stderr)
+        return 2
+    fleet_dir = os.environ.get("TFTPU_FLEET_DIR")
+    if not fleet_dir:
+        print("chip_smoke: --fleet-replica runs under a ServingFleet (no TFTPU_FLEET_DIR)",
+              file=sys.stderr)
+        return 2
+    name = (f"replica_p{os.environ.get('TFTPU_PROCESS_INDEX', '0')}"
+            f"_a{os.environ.get('TFTPU_FLEET_ATTEMPT', '0')}.log")
+    log_fd = os.open(str(Path(fleet_dir) / name), os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os.dup2(log_fd, 1)
+    os.dup2(log_fd, 2)
+    os.close(log_fd)
+    sys.path.insert(0, str(ROOT))
+    import tensorframes_tpu_torch as tft
+    from tensorframes_tpu_torch.models import transformer as tr
+
+    dev = torch.device("cuda", 0)
+    tft.kernels.library()
+    cfg = tr.bert_base(attention_impl="flash")
+    return fleet_replica(tft, dev, cfg, tr.init_params(cfg, seed=SEED, device=dev))
+
+
+def fleet_log_tails(fleet_dir: Path, n: int = 1500) -> str:
+    return "\n".join(f"== {p.name}\n{p.read_text(errors='replace')[-n:]}"
+                     for p in sorted(fleet_dir.glob("replica_*.log")))
+
+
+def fleet_serving_leg(tft, dev, encoder) -> dict:
+    """BERT-base served by a fleet: ``ServingFleet`` of ``FLEET_REPLICAS``
+    replica processes on the card (``FLEET_REPLICA_CMD``, each
+    ``serve_replica`` over :func:`bert_flush_server`) behind the router's
+    ingress. Two bursts of ``FLEET_REQUESTS`` requests of 1, 2 and 4 rows
+    x 128 tokens, open loop at 400 requests/s from a child process over
+    keep-alive connections (``FLUSH_HTTP_CLIENT``). A third of the way
+    into the first, replica 1 is SIGKILLed; once it is back, replica 0 is
+    rolled by ``POST /admin/drain`` a third of the way into the second.
+    Gates: every request answered once with 200; every row within
+    EMB_RTOL·max|embedding| of one in-process ``map_rows`` call; one crash
+    restart, none for the drain; the restarted replica ran no kernel build
+    and dispatched at its warm-up's keys alone; every replica that exited
+    cleanly launched flash 12 times a flush, all on the tensor-core build
+    (the survivor and the restarted replica served flushes); the
+    replicas' trace shards and the router's merge into one timeline, a
+    track a process, with request ids joining ingress and replica spans;
+    the leg within ``FLEET_LEG_LIMIT_S``. Reports each burst's ingress
+    rows/s and latency p50/p99, ``recovery_s``, the router's redrives and
+    the leg's wall."""
+    import signal
+
+    import numpy as np
+    import torch
+    from tensorframes_tpu_torch.compilecache import serving_row_buckets
+    from tensorframes_tpu_torch.models import transformer as tr
+    from tensorframes_tpu_torch.observability import events, merge
+    from tensorframes_tpu_torch.serving import ServingFleet
+    from tensorframes_tpu_torch.serving import metrics as sm
+    from tensorframes_tpu_torch.serving.replica import card_addr, read_cards
+    from tensorframes_tpu_torch.serving.router import http_json
+
+    t0 = time.perf_counter()
+    cfg, params = encoder["cfg"], encoder["params"]
+    sizes = [FLUSH_ROWS[i % len(FLUSH_ROWS)] for i in range(FLEET_REQUESTS)]
+    offs = np.concatenate([[0], np.cumsum(sizes)])
+    per_burst = int(offs[-1])
+    tokens, _ = tr.synthetic_batch(cfg, 2 * per_burst, ENC_SEQ, seed=SEED + 17)
+    ref, _ = embed_rows(tft, cfg, params, tft.frame_from_arrays({"tokens": tokens},
+                                                                num_blocks=1), dev, "map_rows")
+    tol = EMB_RTOL * float(np.abs(ref).max())
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_fleet_"))
+    for b in range(2):
+        np.savez(work / f"feed{b}.npz", tokens=tokens[b * per_burst:(b + 1) * per_burst],
+                 offs=offs, idx=np.arange(FLEET_REQUESTS))
+    fleet_dir = work / "fleet"
+    torch.cuda.empty_cache()  # the earlier legs' cached blocks: the replicas share the card
+    events.clear()
+    events.enable()
+    redrives0 = sm.ROUTER_REDRIVES.value
+    fleet = ServingFleet(FLEET_REPLICA_CMD, FLEET_REPLICAS, rendezvous_dir=str(fleet_dir),
+                         heartbeat_timeout_s=FLEET_HEARTBEAT_TIMEOUT_S, max_restarts=2,
+                         ready_timeout_s=90.0, grace_s=30.0)
+    bursts, client = [], None
+
+    def burst(b, action):
+        """One burst through the ingress; ``action`` runs a third of the
+        way into its schedule."""
+        nonlocal client
+        out = work / f"out{b}.npz"
+        client = subprocess.Popen(
+            [sys.executable, "-c", FLUSH_HTTP_CLIENT, fleet.url, repr(FLUSH_RATE),
+             str(FLUSH_HTTP_CONNECTIONS), str(work / f"feed{b}.npz"), str(out)],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if client.stdout.readline().strip() != "ready":
+            fail(f"fleet leg: the HTTP client did not start: {client.communicate(timeout=60)[0]}")
+        t_start = time.time() + 0.2
+        client.stdin.write(f"{t_start!r}\n")
+        client.stdin.flush()
+        while time.time() < t_start + FLEET_REQUESTS / 3 / FLUSH_RATE:
+            time.sleep(0.001)
+        action()
+        said, _ = client.communicate(timeout=300)
+        if client.returncode != 0:
+            fail(f"fleet leg: burst {b}: requests failed or went unanswered "
+                 f"(client exit {client.returncode}): {said[-2000:]}")
+        with np.load(out) as got:
+            emb, done = got["emb"], got["done"]
+        if emb.shape != (per_burst, cfg.hidden) or not np.isfinite(emb).all():
+            fail(f"fleet leg: burst {b}: embeddings of shape {emb.shape} or not finite")
+        lat = done - np.arange(FLEET_REQUESTS) / FLUSH_RATE
+        gap = float(np.abs(emb - ref[b * per_burst:(b + 1) * per_burst]).max())
+        bursts.append({"rows": per_burst, "wall_s": float(done.max()),
+                       "rows_per_s": per_burst / float(done.max()),
+                       "latency_s": {"p50": float(np.percentile(lat, 50)),
+                                     "p99": float(np.percentile(lat, 99))},
+                       "max_abs_gap": gap})
+        if gap > tol:
+            fail(f"fleet leg: burst {b}: embeddings off map_rows' by {gap} (tolerance {tol})")
+
+    def wait_for(cond, what, timeout=90.0):
+        deadline = time.monotonic() + timeout
+        while not cond():
+            if time.monotonic() > deadline:
+                fail(f"fleet leg: {what} within {timeout:g} s; status "
+                     f"{json.dumps(fleet.status(), default=str)}\n{fleet_log_tails(fleet_dir)}")
+            time.sleep(0.05)
+
+    try:
+        t_fleet = time.perf_counter()
+        try:
+            fleet.start()
+        except (TimeoutError, RuntimeError) as e:
+            fail(f"fleet leg: the fleet did not start: {e}\n{fleet_log_tails(fleet_dir)}")
+        start_s = time.perf_counter() - t_fleet
+        killed = []
+        burst(0, lambda: killed.append(fleet.kill_replica(1, signal.SIGKILL)))
+        if killed[0] is None:
+            fail("fleet leg: replica 1 was not running when the kill came")
+        wait_for(lambda: 1 in fleet.restart_reports, "replica 1 did not come back")
+        wait_for(lambda: fleet.router.live_count() == FLEET_REPLICAS, "the fleet did not recover")
+        restarts_after_kill = fleet.restarts
+        card = read_cards(str(fleet_dir), fleet.run_id)[0]
+        drained = []
+        burst(1, lambda: drained.append(http_json(card_addr(card), "POST", "/admin/drain",
+                                                  {}, 10.0)[0]))
+        wait_for(lambda: fleet.restart_reports.get(0, {}).get("attempt") == 1,
+                 "replica 0 was not respawned after its drain")
+        restarts_after_drain = fleet.restarts
+        router = fleet.router.counters()
+        reports = dict(fleet.restart_reports)
+    finally:
+        if client is not None and client.poll() is None:
+            client.kill()
+            client.wait()
+        fleet.stop(drain=True)
+    redrives = sm.ROUTER_REDRIVES.value - redrives0
+    events.save_shard(str(fleet_dir / "traces"))
+    events.disable()
+    trace_events = 0
+    try:
+        if drained != [202]:
+            fail(f"fleet leg: POST /admin/drain answered {drained} (want 202)")
+        if (restarts_after_kill, restarts_after_drain) != (1, 1):
+            fail(f"fleet leg: restarts {restarts_after_kill} after the kill and "
+                 f"{restarts_after_drain} after the drain (want 1 and 1)")
+        if router["requests"] != 2 * FLEET_REQUESTS or any(router["rejected"].values()):
+            fail(f"fleet leg: the router counted {router} (want {2 * FLEET_REQUESTS} "
+                 "requests, none refused)")
+        back = reports[1]
+        if back.get("kernel_builds") != 0 or back.get("xla_compiles") != len(
+                serving_row_buckets(64)):
+            fail(f"fleet leg: the restarted replica reported {back} (want kernel_builds 0 "
+                 "and its warm-up's 4 dispatch keys)")
+        files = {p.stem: json.loads(p.read_text())
+                 for p in sorted(fleet_dir.glob("launches_p*_a*.json"))}
+        want = {f"launches_p{r}_a{a}" for r, a in ((0, 0), (1, 1), (0, 1))}
+        if set(files) != want:
+            fail(f"fleet leg: launch files {sorted(files)} (want {sorted(want)}: every "
+                 f"replica that exited cleanly)\n{fleet_log_tails(fleet_dir)}")
+        for name, r in files.items():
+            n = r["launches"]
+            if (n["flash_attention"] != cfg.num_layers * r["flushes"]
+                    or n["flash_attention_mma"] != n["flash_attention"]
+                    or r["kernel_builds"] != 0 or r["dispatch_keys"] != r["warmup_keys"]):
+                fail(f"fleet leg: {name}: {r} (want {cfg.num_layers} flash launches a flush, "
+                     "all on the tensor cores, no kernel build, no new dispatch key)")
+        if not (files["launches_p0_a0"]["flushes"] > 0 and files["launches_p1_a1"]["flushes"] > 0):
+            fail(f"fleet leg: the survivor or the restarted replica served no flush: {files}")
+        shards = merge.find_shards(str(fleet_dir / "traces"))
+        merged = merge.merge_traces(shards)
+        trace_events = len(merged["traceEvents"])
+        tracks = {p["process_index"] for p in merged["otherData"]["processes"]}
+        want_tracks = {0} | {1 + r["rank"] + FLEET_REPLICAS * r["attempt"]
+                             for r in files.values()}
+        ingress = {e["args"]["request_id"] for e in merged["traceEvents"]
+                   if e.get("name") == "router.request" and e["pid"] == 0}
+        served = {e["args"].get("request_id"): e["pid"] for e in merged["traceEvents"]
+                  if e.get("name") == "serving.request"}
+        joined = sum(1 for rid in ingress if served.get(rid, 0) != 0)
+        if (tracks != want_tracks or len(shards) != len(want_tracks)
+                or len(ingress) != 2 * FLEET_REQUESTS or joined < FLEET_REQUESTS):
+            fail(f"fleet leg: the merged timeline holds tracks {sorted(tracks)} from "
+                 f"{len(shards)} shards (want {sorted(want_tracks)}), {len(ingress)} ingress "
+                 f"spans, {joined} joined to a replica's request span (want at least "
+                 f"{FLEET_REQUESTS})")
+        launches = {k: sum(r["launches"][k] for r in files.values())
+                    for k in ("flash_attention", "flash_attention_mma")}
+    finally:
+        events.clear()
+        shutil.rmtree(work, ignore_errors=True)
+    leg_s = time.perf_counter() - t0
+    if leg_s > FLEET_LEG_LIMIT_S:
+        fail(f"fleet leg: took {leg_s:.1f} s (limit {FLEET_LEG_LIMIT_S:g} s)")
+    out = {"replicas": FLEET_REPLICAS, "requests": 2 * FLEET_REQUESTS, "bursts": bursts,
+           "recovery_s": reports[1]["recovery_s"], "drain_recovery_s": reports[0]["recovery_s"],
+           "restart_report": reports[1], "redrives": int(redrives),
+           "router": router, "replica_reports": files, "launches": launches,
+           "merged_trace": {"tracks": sorted(tracks), "events": trace_events,
+                            "joined_request_ids": joined},
+           "start_s": start_s, "leg_s": leg_s}
+    log(f"# fleet serving: {json.dumps({k: v for k, v in out.items() if k != 'replica_reports'})}")
     return out
 
 
@@ -5421,6 +5738,16 @@ def ptxas_report(text: str, needle: str = "flash_attention_fwd") -> dict:
     return out
 
 
+def refusal(torch):
+    """Why this script cannot run here (no card; the port not beside it),
+    or None."""
+    if not torch.cuda.is_available():
+        return "no CUDA device (torch.cuda.is_available() is False)"
+    if not (ROOT / "tensorframes_tpu_torch" / "csrc").is_dir():
+        return "tensorframes_tpu_torch is not beside this script"
+    return None
+
+
 def gpu_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5437,12 +5764,9 @@ def main() -> int:
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
-              file=sys.stderr)
-        return 2
-    if not (ROOT / "tensorframes_tpu_torch" / "csrc").is_dir():
-        print("chip_smoke: tensorframes_tpu_torch is not beside this script", file=sys.stderr)
+    why = refusal(torch)
+    if why:
+        print(f"chip_smoke: {why}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
     import tensorframes_tpu_torch as tft
@@ -5567,6 +5891,11 @@ def main() -> int:
     log(f"# flush serving leg: {time.perf_counter() - t_flush:.1f} s")
     if flush["launches"]["flash_attention"] <= 0:
         fail("flash_attention never launched on the flush endpoint's path")
+    t_fleet = time.perf_counter()
+    fleet = fleet_serving_leg(tft, dev, encoder)
+    log(f"# fleet serving leg: {time.perf_counter() - t_fleet:.1f} s")
+    if fleet["launches"]["flash_attention"] <= 0:
+        fail("flash_attention never launched in the fleet's replicas")
 
     t4 = time.perf_counter()
     train = training_path(tft, dev)
@@ -5648,7 +5977,7 @@ def main() -> int:
     paths = ((path, SLICE1_KERNELS), (relational, ("segment_reduce", "segment_sum")),
              (data, ("segment_reduce", "segment_sum")),
              (serving, SERVING_KERNELS), (kv, SERVING_KERNELS),
-             (encoder, ENCODER_KERNELS), (flush, ENCODER_KERNELS),
+             (encoder, ENCODER_KERNELS), (flush, ENCODER_KERNELS), (fleet, ENCODER_KERNELS),
              (train, TRAINING_KERNELS), (resumable, TRAINING_KERNELS),
              (imported["int8"], ("int8_matmul",)),
              (vggr["int8"], ("int8_matmul",)))
@@ -5681,6 +6010,14 @@ def main() -> int:
         f"{flush['flush_wall_ms']['median']:.2f} ms against {flush['flush_cpu_ms']['median']:.2f} "
         f"ms of the worker's CPU; {flush['bit_identical_rows']} of "
         f"{flush['rows']} rows bit-identical to map_rows")
+    log(f"# fleet serving BERT-base, {FLEET_REPLICAS} replicas behind the router: "
+        + "; ".join(f"burst {b} {v['rows_per_s']:.1f} rows/s ({v['rows']} rows in "
+                    f"{v['wall_s']:.3f} s), p50 {v['latency_s']['p50']:.4f} s, p99 "
+                    f"{v['latency_s']['p99']:.4f} s" for b, v in enumerate(fleet["bursts"]))
+        + f" (replica 1 SIGKILLed in burst 0, replica 0 drained in burst 1); recovery "
+        f"{fleet['recovery_s']:.3f} s after the kill, {fleet['drain_recovery_s']:.3f} s after "
+        f"the drain; router redrives {fleet['redrives']}; fleet start {fleet['start_s']:.1f} s, "
+        f"leg {fleet['leg_s']:.1f} s")
     log(f"# total: {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(gpu_line())
@@ -5692,4 +6029,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(fleet_replica_main() if sys.argv[1:] == ["--fleet-replica"] else main())

@@ -10,7 +10,8 @@ causal transformer through a decode server (:class:`Server`,
 :class:`DecodeEngine`: continuous batching over a paged int8 KV pool,
 with a prefix cache and KV swap over :class:`BlockStore`) and any
 row program through a flush endpoint (``Server.register``, over HTTP with
-:func:`serve_http`) and a relational pipeline over a growing CSV or
+:func:`serve_http`, and as a supervised fleet of replica processes
+behind one :class:`Router` ingress: :class:`ServingFleet`) and a relational pipeline over a growing CSV or
 Parquet directory as a registered query (``Server.register_query``:
 cached results, per-chunk partial folds),
 and train it straight off a frame (:func:`training.train_on_frame` over
@@ -104,10 +105,15 @@ from .plan import explain_plan  # noqa: F401  (registers tftpu_plan_* metrics)
 from .serving import (  # noqa: F401
     DecodeConfig,
     DecodeEngine,
+    FleetDegradedError,
     QuerySource,
+    Router,
+    RouterConfig,
     Server,
     ServingConfig,
+    ServingFleet,
     serve_http,
+    serve_replica,
 )
 from .blockstore import (  # noqa: F401
     BlockCorruptionError,
@@ -192,6 +198,11 @@ __all__ = [
     "DecodeEngine",
     "serve_http",
     "QuerySource",
+    "ServingFleet",
+    "FleetDegradedError",
+    "serve_replica",
+    "Router",
+    "RouterConfig",
     # out-of-core data plane
     "BlockStore",
     "BlockCorruptionError",

@@ -3,7 +3,8 @@
 The knobs the ported verbs read — row-bucketing ladder, the default
 partition count, the verbs' block pipeline, the generic aggregate's
 buffer, the plan layer's fusion and re-optimization switches, the
-stats sidecar's directory and the block store's budget — plus the execution ``device``. Every knob but the device can
+stats sidecar's directory, the block store's budget and the fleet's
+heartbeat cadence and timeout — plus the execution ``device``. Every knob but the device can
 be overridden via environment variables (``TFTPU_*``, the reference's
 names and defaults);
 every field can be set programmatically via :func:`configure`. The device
@@ -24,6 +25,11 @@ import torch
 def _env_int(name: str, default: int) -> int:
     v = os.environ.get(name)
     return default if v is None else int(v)
+
+
+def _env_float(name: str, default: float) -> float:
+    v = os.environ.get(name)
+    return default if v in (None, "") else float(v)
 
 
 def _env_bool(name: str, default: bool) -> bool:
@@ -76,6 +82,14 @@ class Config:
     # Parent directory of block stores' private spill directories (empty:
     # the system temp dir). Point at fast local disk in production.
     blockstore_dir: str = os.environ.get("TFTPU_BLOCKSTORE_DIR", "")
+    # Fleet heartbeat cadence: a serving replica in a rendezvous dir
+    # (TFTPU_FLEET_DIR; ServingFleet arms it for its children) publishes
+    # a beat this often ...
+    heartbeat_interval_s: float = _env_float("TFTPU_HEARTBEAT_INTERVAL_S", 0.25)
+    # ... and one whose newest beat is older than this is declared dead.
+    # Must comfortably exceed the longest host-side stall a healthy
+    # process can hit (GC, a kernel build, a model's warm-up).
+    heartbeat_timeout_s: float = _env_float("TFTPU_HEARTBEAT_TIMEOUT_S", 5.0)
     # Where verbs execute: "cuda" (the default) or "cpu". With no GPU
     # present, "cuda" raises at the verb call instead of running on the
     # CPU; the CPU is used only when asked for.

@@ -83,6 +83,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import fcntl
 import hashlib
 import os
 import shutil
@@ -224,6 +225,29 @@ class LaunchCounts:
 
 LAUNCHES = LaunchCounts()
 
+
+class BuildCount:
+    """Builds of the kernel library (one ``nvcc`` per source and the link)
+    this process ran; a process that loads an existing library adds none.
+    A plain integer, like :data:`LAUNCHES`: the registry keeps the
+    reference package's metric names alone."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._n = 0
+
+    def inc(self) -> None:
+        with self._lock:
+            self._n += 1
+
+    @property
+    def value(self) -> int:
+        with self._lock:
+            return self._n
+
+
+KERNEL_BUILDS = BuildCount()
+
 _lib_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 BUILD_LOG = BUILD_DIR / "nvcc.log"
@@ -243,7 +267,13 @@ def _build() -> Path:
     """Compile every source into an object with one ``nvcc`` each, all
     started together, link them into one shared library, then move it
     into place; reuse it while the sources and flags are unchanged. The
-    compilers' output goes to :data:`BUILD_LOG`, in source order."""
+    compilers' output goes to :data:`BUILD_LOG`, in source order.
+
+    Processes that start together on a cold :data:`BUILD_DIR` (a fleet's
+    replicas) build once: the build runs under an exclusive ``flock`` on
+    ``BUILD_DIR/build.lock``, and a process that waited there finds the
+    library its peer built. Each build this process runs adds one to
+    :data:`KERNEL_BUILDS`."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in (*_SOURCES, *_HEADERS):
         h.update((CSRC / s).read_bytes())
@@ -251,26 +281,34 @@ def _build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    objs = [tmp.with_name(f"{tmp.name}.{Path(s).stem}.o") for s in _SOURCES]
-    cmds = [[_nvcc(), *NVCC_FLAGS, "-c", str(CSRC / s), "-o", str(o)]
-            for s, o in zip(_SOURCES, objs)]
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for c in cmds]
-    runs = [(c, p.communicate()[0], p.returncode) for c, p in zip(cmds, procs)]
-    link = [_nvcc(), *NVCC_FLAGS, "-shared", *(str(o) for o in objs), "-o", str(tmp)]
-    if all(rc == 0 for _, _, rc in runs):
-        res = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        runs.append((link, res.stdout, res.returncode))
-    BUILD_LOG.write_text("".join(f"== {' '.join(c)} (rc {rc})\n{out}" for c, out, rc in runs))
-    for o in objs:
-        o.unlink(missing_ok=True)
-    failed = [(c, out, rc) for c, out, rc in runs if rc != 0]
-    if failed:
-        tmp.unlink(missing_ok=True)
-        c, out, rc = failed[0]
-        raise RuntimeError(f"nvcc failed (rc {rc}): {' '.join(c)}\n{out}")
-    os.replace(tmp, so)
+    with open(BUILD_DIR / "build.lock", "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if so.exists():  # a peer built it while this process waited
+            return so
+        KERNEL_BUILDS.inc()
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        objs = [tmp.with_name(f"{tmp.name}.{Path(s).stem}.o") for s in _SOURCES]
+        cmds = [[_nvcc(), *NVCC_FLAGS, "-c", str(CSRC / s), "-o", str(o)]
+                for s, o in zip(_SOURCES, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+                 for c in cmds]
+        runs = [(c, p.communicate()[0], p.returncode) for c, p in zip(cmds, procs)]
+        link = [_nvcc(), *NVCC_FLAGS, "-shared", *(str(o) for o in objs), "-o", str(tmp)]
+        if all(rc == 0 for _, _, rc in runs):
+            res = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                 text=True)
+            runs.append((link, res.stdout, res.returncode))
+        BUILD_LOG.write_text("".join(f"== {' '.join(c)} (rc {rc})\n{out}"
+                                     for c, out, rc in runs))
+        for o in objs:
+            o.unlink(missing_ok=True)
+        failed = [(c, out, rc) for c, out, rc in runs if rc != 0]
+        if failed:
+            tmp.unlink(missing_ok=True)
+            c, out, rc = failed[0]
+            raise RuntimeError(f"nvcc failed (rc {rc}): {' '.join(c)}\n{out}")
+        os.replace(tmp, so)
     return so
 
 

@@ -7,6 +7,17 @@ instruments here at import time, so a snapshot always carries the full
 catalog — a counter that never fired reads 0, it does not vanish. Metric
 names are the reference package's, so one dashboard reads both.
 
+Exporters, as the reference package's:
+
+* ``REGISTRY.to_prometheus()`` — Prometheus text exposition (0.0.4),
+  histograms as cumulative ``_bucket{le=...}`` series plus
+  ``_sum``/``_count``;
+* ``REGISTRY.to_jsonl()`` / ``write_jsonl(path)`` — one JSON object per
+  metric per line, stamped with the run identity, for offline diffing
+  (:mod:`.snapshot` reads it back);
+* :func:`metrics_server` — a daemon-thread HTTP server exposing
+  ``/metrics`` (Prometheus) and ``/metrics.json`` (JSONL) for scraping.
+
 All instruments are thread-safe (one registry-wide lock; updates are a
 few dict/float ops, far cheaper than the host-side work they count).
 ``reset()`` zeroes values but keeps registrations — instrumented modules
@@ -16,7 +27,9 @@ without orphaning them.
 
 from __future__ import annotations
 
+import json
 import threading
+import time
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 __all__ = [
@@ -26,9 +39,11 @@ __all__ = [
     "MetricsRegistry",
     "REGISTRY",
     "DEFAULT_BUCKETS",
+    "quantile_from_cumulative",
     "counter",
     "gauge",
     "histogram",
+    "metrics_server",
 ]
 
 #: Default histogram bucket upper bounds, in seconds: from sub-millisecond
@@ -47,6 +62,18 @@ def _label_pairs(labels: Optional[Mapping[str, str]]) -> LabelPairs:
     return tuple(sorted((str(k), str(v)) for k, v in labels.items()))
 
 
+def _escape_label_value(v: str) -> str:
+    return v.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+def _fmt(v: float) -> str:
+    """Prometheus sample value: integers render bare, floats via repr."""
+    if v == float("inf"):
+        return "+Inf"
+    f = float(v)
+    return str(int(f)) if f.is_integer() else repr(f)
+
+
 class _Metric:
     """Shared identity: name + static label set + help text. Subclasses
     hold the value(s); all mutation goes through the registry lock."""
@@ -59,8 +86,18 @@ class _Metric:
         self.labels = labels
         self._lock = lock
 
+    @property
+    def label_str(self) -> str:
+        if not self.labels:
+            return ""
+        inner = ",".join(f'{k}="{_escape_label_value(v)}"' for k, v in self.labels)
+        return "{" + inner + "}"
+
     def _zero(self) -> None:
         raise NotImplementedError
+
+    def _samples(self):
+        return [(self.name, self.label_str, self._value)]
 
 
 class Counter(_Metric):
@@ -182,20 +219,7 @@ class Histogram(_Metric):
         if not (0.0 < q < 1.0):
             raise ValueError(f"quantile q must be in (0, 1), got {q}")
         cum = self.cumulative()
-        total = cum[-1][1]
-        if total == 0:
-            return None
-        rank = q * total
-        lo_bound, lo_count = 0.0, 0
-        for bound, count in cum:
-            if count >= rank:
-                if bound == float("inf"):
-                    return lo_bound
-                if count == lo_count:
-                    return bound
-                return lo_bound + (bound - lo_bound) * ((rank - lo_count) / (count - lo_count))
-            lo_bound, lo_count = bound, count
-        return lo_bound
+        return quantile_from_cumulative(cum, cum[-1][1], q)
 
     def quantiles(self, qs: Sequence[float] = (0.5, 0.95, 0.99)) -> Dict[str, Optional[float]]:
         """``{"p50": ..., "p95": ..., "p99": ...}`` via :meth:`quantile`."""
@@ -206,12 +230,57 @@ class Histogram(_Metric):
         self._sum = 0.0
         self._count = 0
 
+    def _samples(self):
+        with self._lock:  # one consistent read of buckets, sum and count
+            cum, running = [], 0
+            for b, c in zip(self.buckets, self._counts):
+                running += c
+                cum.append((b, running))
+            cum.append((float("inf"), self._count))
+            total_sum, total_count = self._sum, self._count
+        out = []
+        for le, c in cum:
+            ls = self.label_str
+            le_pair = f'le="{_fmt(le)}"'
+            merged = ls[:-1] + "," + le_pair + "}" if ls else "{" + le_pair + "}"
+            out.append((self.name + "_bucket", merged, c))
+        out.append((self.name + "_sum", self.label_str, total_sum))
+        out.append((self.name + "_count", self.label_str, total_count))
+        return out
+
     def _json_value(self):
         return {
-            "buckets": {str(le): c for le, c in self.cumulative()},
+            "buckets": {_fmt(le): c for le, c in self.cumulative()},
             "sum": self.sum,
             "count": self.count,
         }
+
+
+def quantile_from_cumulative(
+    cum: Sequence[Tuple[float, int]], count: int, q: float
+) -> Optional[float]:
+    """The one bucket-interpolation quantile estimate: ``cum`` is
+    ``[(upper_bound, cumulative_count), ...]`` sorted ascending (a
+    trailing +Inf entry is allowed and ignored — overflow clamps to the
+    largest finite bound). Shared by :meth:`Histogram.quantile` and the
+    offline registry-JSONL reader (:mod:`.snapshot`), so the live and the
+    exported estimates never diverge."""
+    if count <= 0:
+        return None
+    finite = [(b, c) for b, c in cum if b != float("inf")]
+    if not finite:
+        return None
+    rank = q * count
+    prev_bound, prev_cum = 0.0, 0
+    for bound, c in finite:
+        if c >= rank:
+            in_bucket = c - prev_cum
+            if in_bucket <= 0:  # pragma: no cover - defensive
+                return bound
+            frac = (rank - prev_cum) / in_bucket
+            return prev_bound + (bound - prev_bound) * frac
+        prev_bound, prev_cum = bound, c
+    return finite[-1][0]
 
 
 class MetricsRegistry:
@@ -283,6 +352,40 @@ class MetricsRegistry:
             out.append(d)
         return sorted(out, key=lambda d: (d["name"], sorted(d["labels"].items())))
 
+    def to_jsonl(self) -> str:
+        """One JSON object per metric per line, each stamped with the run
+        identity and the time, so a fleet's per-process exports join
+        offline the way trace shards do."""
+        from . import context as _context
+
+        ts = time.time()
+        stamp = _context.snapshot()
+        return "\n".join(
+            json.dumps({**d, **stamp, "ts": round(ts, 3)}, sort_keys=True)
+            for d in self.snapshot()
+        ) + ("\n" if self._metrics else "")
+
+    def write_jsonl(self, path: str) -> None:
+        with open(path, "w") as f:
+            f.write(self.to_jsonl())
+
+    def to_prometheus(self) -> str:
+        """Prometheus text exposition (format 0.0.4): families grouped,
+        one HELP/TYPE header per name, samples sorted for stable diffs."""
+        families: Dict[str, List[_Metric]] = {}
+        for m in self.collect():
+            families.setdefault(m.name, []).append(m)
+        lines: List[str] = []
+        for name in sorted(families):
+            members = families[name]
+            help_text = next((m.help for m in members if m.help), "")
+            lines.append(f"# HELP {name} {help_text}")
+            lines.append(f"# TYPE {name} {members[0].kind}")
+            for m in sorted(members, key=lambda m: m.labels):
+                for sample_name, label_str, v in m._samples():
+                    lines.append(f"{sample_name}{label_str} {_fmt(v)}")
+        return "\n".join(lines) + ("\n" if lines else "")
+
 
 #: The process-wide default registry every instrumented module uses.
 REGISTRY = MetricsRegistry()
@@ -305,3 +408,39 @@ def histogram(name: str, help: str = "",
               buckets: Sequence[float] = DEFAULT_BUCKETS) -> Histogram:
     """Get-or-create a histogram on the default registry."""
     return REGISTRY.histogram(name, help, labels, buckets=buckets)
+
+
+def metrics_server(port: int = 9464, registry: Optional[MetricsRegistry] = None,
+                   addr: str = "127.0.0.1"):
+    """Serve ``/metrics`` (Prometheus text) and ``/metrics.json`` (JSONL)
+    from a daemon thread. ``port=0`` binds an ephemeral port — read it
+    back from ``server.server_address[1]``. Returns the
+    ``ThreadingHTTPServer``; call ``.shutdown()`` to stop."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    reg = registry if registry is not None else REGISTRY
+
+    class Handler(BaseHTTPRequestHandler):
+        def do_GET(self):  # noqa: N802 - http.server API
+            if self.path.split("?")[0] in ("/metrics.json", "/metrics.jsonl"):
+                body = reg.to_jsonl().encode()
+                ctype = "application/x-ndjson"
+            elif self.path.split("?")[0] in ("/", "/metrics"):
+                body = reg.to_prometheus().encode()
+                ctype = "text/plain; version=0.0.4; charset=utf-8"
+            else:
+                self.send_error(404)
+                return
+            self.send_response(200)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *args):  # scrapers must not spam stderr
+            pass
+
+    server = ThreadingHTTPServer((addr, port), Handler)
+    threading.Thread(target=server.serve_forever, daemon=True,
+                     name="tfs-metrics-server").start()
+    return server

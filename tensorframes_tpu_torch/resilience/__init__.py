@@ -15,9 +15,14 @@ The reference package's ``resilience/`` in its single-process subset:
   states and skip the step, roll back to the last good state, or raise;
   plugged into ``training.run_resumable(guard=...)``.
 
-Fleet supervision (``fleet.py``, ``supervisor.py``) is not ported: it
-comes with the multi-device work (ROADMAP queue 1 item 9). Checkpoint
-integrity lives in :mod:`tensorframes_tpu_torch.checkpoint`.
+* :mod:`.fleet` — the file-based fleet rendezvous: heartbeats
+  (:class:`Heartbeater`), :func:`fleet_status`, the coordinated-abort
+  signal, and the atomic records the serving fleet's replica cards share.
+
+The SPMD half of fleet supervision (``FleetMonitor``, ``enroll``,
+``run_with_deadline``, ``barrier``, ``supervise()``) comes with the
+multi-device work. Checkpoint integrity lives in
+:mod:`tensorframes_tpu_torch.checkpoint`.
 """
 
 from __future__ import annotations
@@ -34,6 +39,17 @@ from .faults import (  # noqa: F401
     list_sites,
     register_site,
     reset,
+)
+from .fleet import (  # noqa: F401
+    FleetStatus,
+    Heartbeater,
+    abort_requested,
+    clear_fleet,
+    fleet_status,
+    read_heartbeats,
+    rendezvous_dir,
+    signal_abort,
+    write_beat,
 )
 from .guards import NonFiniteError, StepGuard, tree_all_finite  # noqa: F401
 from .retry import (  # noqa: F401
@@ -64,4 +80,13 @@ __all__ = [
     "NonFiniteError",
     "StepGuard",
     "tree_all_finite",
+    "FleetStatus",
+    "Heartbeater",
+    "rendezvous_dir",
+    "write_beat",
+    "read_heartbeats",
+    "fleet_status",
+    "signal_abort",
+    "abort_requested",
+    "clear_fleet",
 ]

@@ -216,6 +216,25 @@ register_site(
     "enrolled rank can be deterministically preempted mid-run)",
 )
 
+# Serving-fleet chaos sites, registered here and not at the modules they
+# instrument: a drill that arms them sees them in the catalog even in a
+# process that never imports the serving package.
+register_site(
+    "router.dispatch",
+    "serving/router.py Router.dispatch, before each router→replica "
+    "attempt — an injected Delay stalls the proxied dispatch (deadline-"
+    "expiry chaos at the ingress); any other injected error fails the "
+    "attempt exactly like a dead replica socket, driving the redrive "
+    "path deterministically",
+)
+register_site(
+    "serving.replica",
+    "serving/replica.py serve_replica main loop — an injected KillRank "
+    "SIGKILLs the replica process (the serving-fleet kill-replica "
+    "chaos: the fleet must reroute, redrive, and restart it); other "
+    "injected errors crash the loop into the nonzero-exit path",
+)
+
 
 @contextmanager
 def inject(site: str, error: ErrorSpec = RuntimeError, every_n: int = 1, after: int = 0,

@@ -23,13 +23,19 @@ an in-process server, with an HTTP adapter.
 :func:`serve_http` serves a :class:`Server` over HTTP (``POST
 /v1/<endpoint>``, ``GET /healthz``, ``POST /admin/drain``).
 
+Scale-out: :class:`ServingFleet` supervises N replica processes, each a
+``serve_replica(Server(...))`` (:mod:`.replica`: heartbeats and an
+address card in a shared rendezvous dir), behind one :class:`Router`
+ingress that routes by queue depth and redrives a request whose replica
+died to a survivor under its original deadline and idempotency key.
+
 Guarantees, as in the reference package: a coalesced request's rows equal
 its solo dispatch exactly, and a batched, prefix-hit or swap-resumed
 sequence's tokens equal its solo cold run exactly; admission is bounded
 (counted ``queue_full`` rejections), deadlines are total elapsed
 wall-clock, shutdown drains, and an idempotency key joins a request
-already admitted instead of running it twice. The router, the fleet and
-the replica process wait in ROADMAP queue 1.
+already admitted instead of running it twice; through the router every
+admitted request gets exactly one response.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from .batcher import (  # noqa: F401
     ServingError,
 )
 from .decode import DecodeConfig, DecodeEngine, prefix_cache_events  # noqa: F401
+from .fleet import FleetDegradedError, ServingFleet  # noqa: F401
 from .http import serve_http  # noqa: F401
 from .kvpool import PagedKVPool, PoolAccountingError, PoolExhaustedError  # noqa: F401
 from .query import (  # noqa: F401
@@ -51,6 +58,8 @@ from .query import (  # noqa: F401
     QuerySource,
     query_cache_events,
 )
+from .replica import serve_replica  # noqa: F401
+from .router import Router, RouterConfig  # noqa: F401
 from .server import Endpoint, Server, ServingConfig, UnknownEndpointError  # noqa: F401
 
 __all__ = [
@@ -74,5 +83,10 @@ __all__ = [
     "PoolAccountingError",
     "PoolExhaustedError",
     "serve_http",
+    "serve_replica",
+    "Router",
+    "RouterConfig",
+    "ServingFleet",
+    "FleetDegradedError",
     "metrics",
 ]

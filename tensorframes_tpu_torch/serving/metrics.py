@@ -1,5 +1,6 @@
 """Serving-layer instruments (``tftpu_serving_*``, ``tftpu_decode_*``,
-``tftpu_kvswap_*``, ``tftpu_prefix_cache_*``, ``tftpu_result_cache_*``),
+``tftpu_kvswap_*``, ``tftpu_prefix_cache_*``, ``tftpu_result_cache_*``,
+``tftpu_router_*``),
 registered at import under
 the reference package's names, so one dashboard reads both. Label value sets are closed and every series is
 pre-registered: a server that never shed load still exports
@@ -227,6 +228,71 @@ IDEMPOTENT_DEDUP = _counter(
 def http_rejected(reason: str) -> Counter:
     """The pre-registered ingress rejection counter for ``reason``."""
     return HTTP_REJECTIONS[reason]
+
+
+# -- fleet router (``tftpu_router_*``) ---------------------------------------
+# The router is the one place that sees the whole fleet: how many
+# replicas are routable, how often a dispatch had to be redriven to a
+# survivor, and the client's latency through failures. Per-replica
+# series stay out of the registry: ranks ride the router.* flight
+# records and the router's healthz body.
+
+#: Why the router refused an ingress request (closed set).
+ROUTER_REJECT_REASONS: Tuple[str, ...] = ("no_replica", "deadline")
+
+ROUTER_REQUESTS = _counter(
+    "tftpu_router_requests_total",
+    "Ingress requests admitted by the fleet router",
+)
+ROUTER_REDRIVES = _counter(
+    "tftpu_router_redrives_total",
+    "Dispatches redriven to a surviving replica after the chosen "
+    "replica failed mid-request (same idempotency key, original "
+    "deadline)",
+)
+ROUTER_REJECTED: Dict[str, Counter] = {
+    r: _counter(
+        "tftpu_router_rejected_total",
+        "Ingress requests the router refused, by reason (no_replica = "
+        "no live non-draining replica, deadline = the request's budget "
+        "lapsed before any dispatch succeeded)",
+        labels={"reason": r},
+    )
+    for r in ROUTER_REJECT_REASONS
+}
+ROUTER_REPLICAS_LIVE = _gauge(
+    "tftpu_router_replicas_live",
+    "Replicas the router currently considers routable (state=running, "
+    "fresh heartbeat, healthz reachable)",
+)
+ROUTER_REPLICA_DEAD = _counter(
+    "tftpu_router_replica_dead_total",
+    "Replicas newly marked dead by the router/fleet (process exit, "
+    "stale heartbeat, or repeated scrape failure)",
+)
+ROUTER_REPLICA_RESTARTS = _counter(
+    "tftpu_router_replica_restarts_total",
+    "Replica processes respawned by the serving fleet supervisor "
+    "after a death",
+)
+ROUTER_DISPATCH_SECONDS = _histogram(
+    "tftpu_router_dispatch_seconds",
+    "Wall-clock of one router->replica dispatch attempt (successful "
+    "or failed; redrives observe once per attempt)",
+    buckets=LATENCY_BUCKETS,
+)
+ROUTER_REQUEST_LATENCY = _histogram(
+    "tftpu_router_request_latency_seconds",
+    "Ingress request wall-clock through the router (admission to "
+    "relayed reply, including any redrives) — the fleet bench's p99 "
+    "gate reads this",
+    buckets=LATENCY_BUCKETS,
+)
+
+
+def router_rejected(reason: str) -> Counter:
+    """The pre-registered router rejection counter for ``reason``."""
+    return ROUTER_REJECTED[reason]
 
 
 # -- registered-query result cache (``tftpu_result_cache_*``) ---------------

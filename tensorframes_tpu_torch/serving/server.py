@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
+from ..kernels import KERNEL_BUILDS
 from ..observability import context as _context
 from ..observability import flight as _flight
 from ..program import Program
@@ -635,7 +636,9 @@ class Server:
         keys: ``xla_compiles`` and ``compile_cache_misses`` are dispatches
         at a feed-shape key seen for the first time
         (``tftpu_executor_jit_cache_misses_total``, the port's counterpart
-        of a compile), ``compile_cache_hits`` dispatches at a seen key."""
+        of a compile), ``compile_cache_hits`` dispatches at a seen key;
+        ``kernel_builds`` counts the CUDA kernel library's ``nvcc`` builds
+        this process ran (0 where it loaded an existing build)."""
         with self._lock:
             batchers = dict(self._batchers)
             engines = dict(self._decode)
@@ -691,6 +694,7 @@ class Server:
                 "xla_compiles": int(_JIT_MISSES.value),
                 "compile_cache_hits": int(_JIT_HITS.value),
                 "compile_cache_misses": int(_JIT_MISSES.value),
+                "kernel_builds": int(KERNEL_BUILDS.value),
             },
         }
         if decode:

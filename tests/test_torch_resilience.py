@@ -179,7 +179,8 @@ def test_fault_sites_registered_and_documented():
     assert registered == {"executor.run_block", "executor.run_rows", "executor.dispatch",
                           "io.prefetch.device_put", "io.save_frame", "io.load_frame",
                           "checkpoint.save", "checkpoint.restore",
-                          "fleet.rank.kill", "serving.flush", "blockstore.spill"}
+                          "fleet.rank.kill", "serving.flush", "blockstore.spill",
+                          "fleet.heartbeat", "router.dispatch", "serving.replica"}
     with pytest.raises(ValueError):
         faults_mod.register_site("", "nowhere")
 
