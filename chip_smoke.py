@@ -176,7 +176,24 @@ Phases:
    tensor cores in every replica that exited cleanly, the replicas' and
    the router's trace shards merged into one timeline, the leg within
    120 s; each burst's rows/s and latency p50/p99, ``recovery_s`` and the
-   router's redrives. Then gpt_small training with
+   router's redrives. Then the static analyzer and the compile cache
+   (``infra_leg``): two processes of this script (``--infra-warm cold``
+   and ``--infra-warm restart``) on one fresh store
+   (``TFTPU_COMPILE_CACHE``) warm BERT-base's ``map_rows`` program at
+   every bucket of ``serving_row_buckets(64)`` (12 flash launches a
+   bucket on the tensor cores, one store entry a key, the first real
+   dispatch at a warmed bucket adds no key) and replay the store's
+   manifest (``disk`` for every bucket, no kernel build, embeddings equal
+   to the cold process's bit for bit); the ``compilecache`` CLI reports
+   and quarantines a planted corrupt entry and prunes a planted stale
+   kernel library (in a build directory of the leg's own, beside a link
+   to the current library); a strict ``aggregate`` raises ``StaticAnalysisError``
+   (TFG104) before any launch and a clean one equals the non-strict bit
+   for bit through ``segment_reduce``; ``analyze_frame`` on BERT-base's
+   row program, TFG106 against the card's memory and a planted 1 MiB,
+   launches nothing and adds no key (its wall printed); ``lint_plan``
+   finds TFG107, TFG109 and TFG110 on chains built to show them; the leg
+   within 120 s. Then gpt_small training with
    flash attention (f32 weights from seed 0, AdamW at lr 1e-3):
    ``training.train_on_frame`` takes 10 steps of 8 x 1024 tokens off a
    16-row frame, counts reset first; every step must launch the flash
@@ -2037,7 +2054,12 @@ def registered_query_drill(tft, work: str) -> dict:
     chunk; the refresh equals ``_execute_full`` and a numpy int32 oracle
     bit for bit; a fresh ``Server`` over the same cache dir warms from the
     store executing no chunk; one answer over ``serve_http``;
-    ``segment_reduce`` launched during the cold execute and the refresh."""
+    ``segment_reduce`` launched during the cold execute and the refresh.
+    Then the dispatch-key store's cost on a cold execute: fresh servers,
+    each over an empty cache dir so that every part executes, with the
+    store armed and off (``active_store`` patched to None) in the order
+    off, armed, armed, off; every cold execute's wall spent in
+    ``CompiledProgram._consult_store`` is timed beside it."""
     import http.client
     import os
 
@@ -2070,8 +2092,23 @@ def registered_query_drill(tft, work: str) -> dict:
                                   tft.reduce_max(ins["ymax"], axis=0, name="ymax")],
                                  g.group_by("k"))
 
+    from unittest import mock
+
+    from tensorframes_tpu_torch.compilecache import store as cc_store
+    from tensorframes_tpu_torch.ops.executor import CompiledProgram
+
+    consult, consult_s = CompiledProgram._consult_store, []
+
+    def timed_consult(self, key, device):
+        t0 = time.perf_counter()
+        try:
+            return consult(self, key, device)
+        finally:
+            consult_s.append(time.perf_counter() - t0)
+
     out = {}
-    with knobs(tft, compilation_cache_dir=os.path.join(work, "cache")):
+    with knobs(tft, compilation_cache_dir=os.path.join(work, "cache")), \
+            mock.patch.object(CompiledProgram, "_consult_store", timed_consult):
         srv = tft.Server()
         q = srv.register_query("dashboard", tft.QuerySource(path=data), build)
         if not (q.cache_stats()["cacheable"] and q.cache_stats()["incremental"]):
@@ -2080,6 +2117,7 @@ def registered_query_drill(tft, work: str) -> dict:
         t0 = time.perf_counter()
         srv.start()  # the cold execute: every part read and executed once
         out["first_execute_s"] = time.perf_counter() - t0
+        out["first_execute_store"] = {"s": sum(consult_s), "consults": len(consult_s)}
         cold = tft.kernels.LAUNCHES.snapshot()
         out["cold_launches"] = cold
         if cold["segment_reduce"] <= 0:
@@ -2161,6 +2199,24 @@ def registered_query_drill(tft, work: str) -> dict:
             httpd.shutdown()
             httpd.server_close()
             srv2.stop()
+
+        ab = {"off": [], "armed": []}
+        for i, mode in enumerate(("off", "armed", "armed", "off")):
+            off = mock.patch.object(cc_store, "active_store", lambda: None) if mode == "off" \
+                else contextlib.nullcontext()
+            with knobs(tft, compilation_cache_dir=os.path.join(work, f"cache_ab{i}")), off:
+                srv3 = tft.Server()
+                q3 = srv3.register_query("dashboard", tft.QuerySource(path=data), build)
+                del consult_s[:]
+                t0 = time.perf_counter()
+                srv3.start()
+                ab[mode].append({"s": time.perf_counter() - t0, "store_s": sum(consult_s),
+                                 "consults": len(consult_s)})
+                srv3.stop()
+                if q3.cache_stats()["chunks_executed"] != QUERY_PARTS + 1:
+                    fail(f"data plane: the store A/B's cold execute ran "
+                         f"{q3.cache_stats()['chunks_executed']} chunks")
+        out["store_ab"] = ab
     out["refresh_over_full"] = out["refresh_s"] / out["full_recompute_s"]
     out["rows"] = (QUERY_PARTS + 1) * QUERY_PART_ROWS
     return out
@@ -3612,6 +3668,348 @@ def fleet_serving_leg(tft, dev, encoder) -> dict:
 
 EMB_RTOL = 2e-2  # of max |embedding|: ~3x the flash-vs-dense gap of a sound run (PERF.md)
 ENC_ROWS, ENC_SEQ = 1024, 128  # BASELINE config 5, as the reference's bench
+
+
+INFRA_ROWS = 64  # BERT-base rows a warmed process serves: serving_row_buckets(64) = 8..64
+INFRA_AGG_ROWS, INFRA_AGG_GROUPS = 1_000_000, 512
+INFRA_LEG_LIMIT_S = 120.0
+INFRA_STALE_LIB = "libtftorch_kernels-0000000000000000.so"
+
+
+def infra_warm(tft, dev, cfg, params, mode: str, cache: Path) -> dict:
+    """One process of ``infra_leg``'s warm-up pair, on the card, the
+    persistent store at ``cache`` (``TFTPU_COMPILE_CACHE``): ``cold`` warms
+    BERT-base's ``map_rows`` program at every bucket of
+    ``serving_row_buckets(INFRA_ROWS)``, ``restart`` replays the store's
+    manifest (``warmup(manifest=True)``); then one real ``map_rows`` call of
+    ``INFRA_ROWS`` rows, its embeddings saved to ``emb_<mode>.npy`` in
+    ``cache``. Counts reset before the warm-up; the report names its
+    statuses, launches, dispatch keys and builds."""
+    import numpy as np
+    import torch
+    from tensorframes_tpu_torch.compilecache import serving_row_buckets
+    from tensorframes_tpu_torch.models import transformer as tr
+    from tensorframes_tpu_torch.ops.executor import _JIT_MISSES
+
+    tokens, _ = tr.synthetic_batch(cfg, INFRA_ROWS, ENC_SEQ, seed=SEED)
+    frame = tft.frame_from_arrays({"tokens": tokens}, num_blocks=1)
+    prog = tft.compile_program(tr.embed_row_program(cfg, params), frame, block=False,
+                               device=dev)
+    tft.kernels.LAUNCHES.reset()
+    keys0 = int(_JIT_MISSES.value)
+    t0 = time.perf_counter()
+    if mode == "cold":
+        report = tft.warmup(frame, prog, rows=serving_row_buckets(INFRA_ROWS), block=False,
+                            device=dev)
+    else:
+        report = tft.warmup(None, prog, block=False, manifest=True, device=dev)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warm_launches = launch_counts(tft)
+    keys1 = int(_JIT_MISSES.value)
+    t1 = time.perf_counter()
+    emb = tft.map_rows(prog, frame, device=dev).column_values("embedding")
+    dispatch_s = time.perf_counter() - t1
+    np.save(cache / f"emb_{mode}.npy", emb)
+    return {"mode": mode, "counts": report.counts(), "compiled": report.compiled,
+            "disk_hits": report.disk_hits, "rows": [e["rows"] for e in report.entries],
+            "warm_s": warm_s, "warm_launches": warm_launches,
+            "launches": launch_counts(tft), "warm_keys": keys1 - keys0,
+            "dispatch_new_keys": int(_JIT_MISSES.value) - keys1, "dispatch_s": dispatch_s,
+            "kernel_builds": int(tft.kernels.KERNEL_BUILDS.value),
+            "entries": tft.compilecache.active_store().stats()["entries"],
+            "finite": bool(np.isfinite(emb).all()), "shape": list(emb.shape)}
+
+
+def infra_warm_main() -> int:
+    """``python3 chip_smoke.py --infra-warm MODE``: one process of
+    ``infra_leg``'s pair (``TFTPU_COMPILE_CACHE`` names the store). BERT-base's
+    weights are drawn from the seed as in ``encoder_path``, so both processes
+    hold the same bits. Prints the report as its last line."""
+    import os
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import torch
+
+    why = refusal(torch)
+    if why:
+        print(f"chip_smoke: {why}", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import tensorframes_tpu_torch as tft
+    from tensorframes_tpu_torch.models import transformer as tr
+
+    dev = torch.device("cuda", 0)
+    tft.kernels.library()
+    cfg = tr.bert_base(attention_impl="flash")
+    params = tr.init_params(cfg, seed=SEED, device=dev)
+    cache = Path(tft.get_config().compilation_cache_dir)
+    print(json.dumps(infra_warm(tft, dev, cfg, params, sys.argv[2], cache)))
+    return 0
+
+
+def infra_child(args, env=None, timeout: float = 240):
+    """Run a child process from the repo root; (rc, stdout, stderr, s)."""
+    import os
+
+    t0 = time.perf_counter()
+    out = subprocess.run(args, cwd=ROOT, env=dict(os.environ, **(env or {})),
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                         timeout=timeout)
+    return out.returncode, out.stdout, out.stderr, time.perf_counter() - t0
+
+
+def infra_cli(cache: Path, *args) -> tuple:
+    """``compilecache``'s CLI in this process (the same ``main`` that
+    ``python -m tensorframes_tpu_torch.compilecache`` runs): (rc, its JSON
+    output, s)."""
+    import contextlib
+    import io
+
+    from tensorframes_tpu_torch.compilecache.cli import main as cc_main
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cc_main(["--store", str(cache), *args])
+    return rc, json.loads(buf.getvalue().strip().splitlines()[-1]), time.perf_counter() - t0
+
+
+def infra_leg(tft, dev, encoder) -> dict:
+    """The static analyzer and the compile cache on the card, counts reset
+    first: (a) a process with a fresh store warms BERT-base's ``map_rows``
+    program at every bucket of ``serving_row_buckets(64)`` (12 flash
+    launches a bucket, all on the tensor cores; one store entry a key; the
+    first real dispatch at a warmed bucket adds no key); (b) a second
+    process on the same store replays its manifest (``disk`` for every
+    bucket, no kernel build) and gives the same embeddings bit for bit;
+    (c) the ``compilecache`` CLI's stats, verify and prune (the first
+    verify as ``python -m tensorframes_tpu_torch.compilecache`` in a child
+    process while (d)-(f) run, the rest through the same ``main`` here): a
+    planted corrupt entry reported and quarantined, a planted stale kernel
+    library pruned (the libraries' half points ``kernels.BUILD_DIR`` at a
+    directory under the leg's own, so nothing the checkout built is
+    touched); (d) a strict ``aggregate`` whose program
+    keeps a feed under its own name raises ``StaticAnalysisError`` before
+    any launch, and a clean strict one equals the non-strict bit for bit
+    through ``segment_reduce``; (e) ``analyze_frame`` on BERT-base's
+    ``map_rows`` program, TFG106 against the card's memory and against a
+    planted 1 MiB budget, no launch and no dispatch key; (f) ``lint_plan``
+    finds TFG107, TFG109 and TFG110 on chains built to show them."""
+    import numpy as np
+    import torch
+    from tensorframes_tpu_torch.compilecache import serving_row_buckets
+    from tensorframes_tpu_torch.models import transformer as tr
+    from tensorframes_tpu_torch.ops.executor import _JIT_MISSES
+
+    t_leg = time.perf_counter()
+    cfg, params = encoder["cfg"], encoder["params"]
+    buckets = serving_row_buckets(INFRA_ROWS)
+    work = Path(tempfile.mkdtemp(prefix="infra_leg.", dir=str(ROOT / "build")))
+    out = {"buckets": buckets}
+    verify_child = real_build_dir = None
+    try:
+        # (a) cold, (b) restart: two processes on one store
+        procs = {}
+        for mode in ("cold", "restart"):
+            rc, stdout, stderr, s = infra_child(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--infra-warm", mode],
+                env={"TFTPU_COMPILE_CACHE": str(work)})
+            if rc != 0:
+                fail(f"infra {mode} process: rc {rc}\n{stdout[-3000:]}\n{stderr[-3000:]}")
+            procs[mode] = dict(json.loads(stdout.strip().splitlines()[-1]), process_s=s)
+            log(f"# infra {mode}: {json.dumps(procs[mode])}")
+        cold, restart = procs["cold"], procs["restart"]
+        nb, nl = len(buckets), cfg.num_layers
+        if cold["compiled"] != nb or cold["counts"] != {"compiled": nb}:
+            fail(f"infra cold warm-up: {cold['counts']} (want compiled = {nb} buckets)")
+        if (cold["warm_launches"]["flash_attention"], cold["warm_launches"]["flash_attention_mma"]) \
+                != (nl * nb, nl * nb):
+            fail(f"infra cold warm-up launched {cold['warm_launches']} (want {nl} flash launches a "
+                 f"bucket, {nl * nb} in all, all on the tensor cores)")
+        if cold["entries"] != nb or cold["warm_keys"] != 0:
+            fail(f"infra cold: {cold['entries']} store entries, {cold['warm_keys']} counted keys "
+                 f"(want {nb} entries, one a key, and no counted dispatch key)")
+        for p in (cold, restart):
+            if p["dispatch_new_keys"] != 0 or not p["finite"] or \
+                    p["shape"] != [INFRA_ROWS, cfg.hidden]:
+                fail(f"infra {p['mode']}: the first map_rows added {p['dispatch_new_keys']} keys "
+                     f"(want 0), embeddings {p['shape']} finite={p['finite']}")
+        if restart["disk_hits"] != nb or restart["counts"] != {"disk": nb} \
+                or restart["kernel_builds"] != 0:
+            fail(f"infra restart: {restart['counts']}, kernel_builds {restart['kernel_builds']} "
+                 f"(want disk = {nb}, no build)")
+        if restart["warm_launches"]["flash_attention_mma"] != nl * nb:
+            fail(f"infra restart warm-up launched {restart['warm_launches']}")
+        a, b = np.load(work / "emb_cold.npy"), np.load(work / "emb_restart.npy")
+        if a.tobytes() != b.tobytes():
+            fail(f"infra restart: embeddings differ from the cold process's "
+                 f"(max |diff| {float(np.abs(a - b).max())})")
+        out.update(cold=cold, restart=restart)
+
+        # (c) the CLI on that store: a corrupt entry, a stale library. The
+        # first verify runs as `python -m` in a child process, beside (d)-(f)
+        rc, stats, s_stats = infra_cli(work, "stats", "--json")
+        if rc != 0 or stats["entries"] != nb or stats["libraries"]["current"] is None:
+            fail(f"compilecache stats: rc {rc}, {stats}")
+        entry = sorted((work / "aot").glob("*.xc"))[0]
+        bad = work / "aot" / ("f" * 40 + ".xc")
+        blob = bytearray(entry.read_bytes())
+        blob[-1] ^= 0xFF
+        bad.write_bytes(bytes(blob))
+        t_child = time.perf_counter()
+        verify_child = subprocess.Popen(
+            [sys.executable, "-m", "tensorframes_tpu_torch.compilecache", "--store", str(work),
+             "verify", "--json"], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+
+        # (d) strict aggregate
+        rng = np.random.default_rng(SEED)
+        n = INFRA_AGG_ROWS
+        agg_frame = tft.frame_from_arrays({
+            "k": rng.integers(0, INFRA_AGG_GROUPS, n).astype(np.int32),
+            "v": rng.standard_normal(n, dtype=np.float32),
+            "c": rng.integers(-1000, 1000, n).astype(np.int32),
+            "x": np.zeros(n, np.float32), "x_input": rng.standard_normal(n, dtype=np.float32),
+            "x_input_input": rng.standard_normal(n, dtype=np.float32),
+        }, num_blocks=2)
+        tft.kernels.LAUNCHES.reset()
+        keys0 = int(_JIT_MISSES.value)
+        raise_s = []
+        for _ in range(2):  # the first lint of the process, then a warm one
+            t0 = time.perf_counter()
+            try:
+                tft.aggregate(lambda x_input, x_input_input: {"x": x_input.sum(0),
+                                                              "x_input": x_input_input.sum(0)},
+                              agg_frame.group_by("k"), strict=True, device=dev)
+            except tft.StaticAnalysisError as e:
+                codes = [d.code for d in e.diagnostics]
+            else:
+                fail("strict aggregate over a program keeping a feed under its name did not "
+                     "raise")
+            raise_s.append(time.perf_counter() - t0)
+        if codes != ["TFG104"] or launch_counts(tft)["segment_reduce"] != 0 or \
+                int(_JIT_MISSES.value) != keys0:
+            fail(f"strict aggregate raised {codes} after {launch_counts(tft)} launches, "
+                 f"{int(_JIT_MISSES.value) - keys0} keys (want TFG104 before any)")
+
+        def clean(strict):
+            with tft.with_graph():
+                blk = lambda col: tft.block(agg_frame, col, tf_name=f"{col}_input")  # noqa: E731
+                return tft.aggregate([tft.reduce_sum(blk("v"), name="v"),
+                                      tft.reduce_max(blk("c"), name="c")],
+                                     agg_frame.group_by("k"), strict=strict, device=dev)
+
+        tft.kernels.LAUNCHES.reset()
+        strict_out = clean(True)
+        strict_launches = launch_counts(tft)
+        plain_out = clean(False)
+        if strict_launches["segment_reduce"] < 1:
+            fail(f"clean strict aggregate launched {strict_launches} (want segment_reduce)")
+        for col in ("k", "v", "c"):
+            if strict_out.column_values(col).tobytes() != plain_out.column_values(col).tobytes():
+                fail(f"clean strict aggregate column {col} differs from the non-strict one")
+        out["strict"] = {"raise_s": raise_s, "codes": codes,
+                         "launches": strict_launches}
+
+        # (e) analyze_frame on BERT-base's map_rows program
+        program_fn = tr.embed_row_program(cfg, params)
+        tft.kernels.LAUNCHES.reset()
+        keys0 = int(_JIT_MISSES.value)
+        t0 = time.perf_counter()
+        report = tft.analyze_frame(encoder["frame"], program_fn, block=False, device=dev)
+        lint_s = time.perf_counter() - t0
+        budget = int(torch.cuda.mem_get_info(dev)[1])
+        t0 = time.perf_counter()
+        planted = tft.analyze_frame(encoder["frame"], program_fn, block=False, device=dev,
+                                    hbm_budget_bytes=1 << 20)
+        planted_s = time.perf_counter() - t0
+        tfg106 = planted.by_code("TFG106")
+        if report.by_code("TFG106") or not tfg106:
+            fail(f"TFG106: {report.pretty()} at the card's {budget} bytes; "
+                 f"{planted.pretty()} at 1 MiB")
+        if sum(launch_counts(tft).values()) != 0 or int(_JIT_MISSES.value) != keys0:
+            fail(f"analyze_frame launched {launch_counts(tft)}, added "
+                 f"{int(_JIT_MISSES.value) - keys0} dispatch keys (want none)")
+        out["lint"] = {"seconds": lint_s, "planted_seconds": planted_s, "budget_bytes": budget,
+                       "codes": [(d.code, d.severity, d.subject) for d in report],
+                       "tfg106": tfg106[0].message if tfg106 else None}
+        log(f"# infra analyze_frame BERT-base map_rows: {lint_s:.3f} s "
+            f"(planted budget {planted_s:.3f} s); card budget {budget} bytes; "
+            f"{report.pretty()}; planted: {out['lint']['tfg106']}")
+
+        # (f) lint_plan on chains built to show TFG107, TFG109 and TFG110
+        fr = tft.frame_from_arrays({"x": np.arange(4096, dtype=np.float32),
+                                    "k": (np.arange(4096) % 8).astype(np.int32),
+                                    "k2": (np.arange(4096) % 6).astype(np.int32)},
+                                   num_blocks=2)
+        f1 = tft.map_blocks(lambda x: {"y": x + 1.0}, fr, device=dev)
+        barrier = tft.map_blocks(lambda y: {"z": y * 2.0}, f1.repartition(3), device=dev)
+        f2 = tft.map_blocks(lambda x: {"y": x * 2.0}, fr, device=dev)
+        nonalg = tft.aggregate(
+            lambda y_input: {"y": y_input.max(dim=0).values - y_input.min(dim=0).values},
+            f2.group_by("k"), device=dev)
+        dim = tft.frame_from_arrays({"k2": np.arange(6, dtype=np.int32),
+                                     "w": np.arange(6, dtype=np.int64) * 10}, num_blocks=1)
+        j = tft.map_blocks(lambda x: {"z": x * x}, fr, device=dev).join(dim, on="k2")
+        with tft.with_graph():
+            pushed = tft.aggregate(
+                tft.reduce_sum(tft.block(j, "z", tf_name="z_input"), axis=0, name="z"),
+                j.group_by("k2"), device=dev)
+        plan_codes = {name: sorted({d.code for d in tft.lint_plan(f)})
+                      for name, f in (("barrier", barrier), ("nonalgebraic", nonalg),
+                                      ("float_over_join", pushed))}
+        if plan_codes != {"barrier": ["TFG107"], "nonalgebraic": ["TFG109"],
+                          "float_over_join": ["TFG110"]}:
+            fail(f"lint_plan: {plan_codes}")
+        out["plan_codes"] = plan_codes
+
+        child_out, child_err = verify_child.communicate(timeout=240)
+        s_v1 = time.perf_counter() - t_child
+        rc1 = verify_child.returncode
+        try:
+            v1 = json.loads(child_out.strip().splitlines()[-1])
+        except (ValueError, IndexError):
+            fail(f"python -m ...compilecache verify: rc {rc1}, no JSON\n{child_err[-3000:]}")
+        # the libraries' half on a build directory of the leg's own: the
+        # current library linked there beside a planted stale one
+        lib_dir = work / "torch_kernels"
+        lib_dir.mkdir()
+        (lib_dir / tft.kernels.library_path().name).symlink_to(tft.kernels.library_path())
+        stale = lib_dir / INFRA_STALE_LIB
+        stale.write_bytes(b"built from other sources")
+        real_build_dir, tft.kernels.BUILD_DIR = tft.kernels.BUILD_DIR, lib_dir
+        rc2, v2, s_v2 = infra_cli(work, "verify", "--json", "--delete-bad")
+        rc3, v3, s_v3 = infra_cli(work, "verify", "--json")
+        rc4, pruned, s_prune = infra_cli(work, "prune")
+        if (rc1, rc2, rc3, rc4) != (1, 1, 0, 0):
+            fail(f"compilecache exit codes verify/--delete-bad/verify/prune = "
+                 f"{(rc1, rc2, rc3, rc4)} (want 1, 1, 0, 0)")
+        if [x["entry"] for x in v1["bad"]] != [bad.name] or v2["deleted"] != 1 or bad.exists():
+            fail(f"compilecache verify did not report and quarantine the planted entry: {v1}, {v2}")
+        if INFRA_STALE_LIB not in [x["file"] for x in v2["libraries"]["stale"]]:
+            fail(f"compilecache verify missed the stale library: {v2['libraries']}")
+        if pruned["libraries_removed"] != [INFRA_STALE_LIB] or stale.exists() or \
+                not tft.kernels.library_path().exists() or pruned["entries"] != nb:
+            fail(f"compilecache prune: {pruned}")
+        out["cli_s"] = {"stats": s_stats, "python_m_verify": s_v1, "verify_delete_bad": s_v2,
+                        "verify_clean": s_v3, "prune": s_prune}
+        log(f"# infra cli: stats {stats['entries']} entries, {stats['bytes']} bytes; verify "
+            f"{v1['bad']}; prune {pruned}; walls {json.dumps(out['cli_s'])}")
+    finally:
+        if real_build_dir is not None:
+            tft.kernels.BUILD_DIR = real_build_dir
+        if verify_child is not None and verify_child.poll() is None:
+            verify_child.kill()
+            verify_child.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    out["launches"] = {k: out["cold"]["launches"][k] + out["restart"]["launches"][k]
+                       + out["strict"]["launches"][k] for k in out["cold"]["launches"]}
+    out["leg_s"] = time.perf_counter() - t_leg
+    if out["leg_s"] > INFRA_LEG_LIMIT_S:
+        fail(f"infra leg: took {out['leg_s']:.1f} s (limit {INFRA_LEG_LIMIT_S:g} s)")
+    log(f"# infra leg: {json.dumps({k: v for k, v in out.items() if k not in ('cold', 'restart')})}")
+    return out
 
 
 def embed_rows(tft, cfg, params, frame, dev, verb: str):
@@ -5846,6 +6244,9 @@ def main() -> int:
         f"{dq['refresh_over_full']:.4f}); segment_reduce launches cold "
         f"{dq['cold_launches']['segment_reduce']}, refresh "
         f"{dq['refresh_launches']['segment_reduce']}")
+    log(f"# data plane query, the dispatch-key store's cost: first execute (armed) "
+        f"{json.dumps(dq['first_execute_store'])} of {dq['first_execute_s']:.4f} s; "
+        f"fresh cold executes off/armed/armed/off {json.dumps(dq['store_ab'])}")
     log(f"# data plane stream: {ds['rows']} rows, {ds['csv_bytes']} CSV bytes in {ds['parts']} "
         f"parts ({ds['chunks']} chunks, {ds['kept_rows']} rows kept by the filter), budget {ds['budget_bytes']} bytes; streamed {ds['stream_rows_per_s']:.1f} rows/s "
         f"({ds['stream_s']:.4f} s), in memory {ds['in_memory_rows_per_s']:.1f} rows/s "
@@ -5896,6 +6297,12 @@ def main() -> int:
     log(f"# fleet serving leg: {time.perf_counter() - t_fleet:.1f} s")
     if fleet["launches"]["flash_attention"] <= 0:
         fail("flash_attention never launched in the fleet's replicas")
+    t_infra = time.perf_counter()
+    infra = infra_leg(tft, dev, encoder)
+    log(f"# infra leg: {time.perf_counter() - t_infra:.1f} s")
+    missing = [k for k in ("segment_reduce", "flash_attention") if infra["launches"][k] <= 0]
+    if missing:
+        fail(f"kernels never launched on the infra leg's path: {missing}")
 
     t4 = time.perf_counter()
     train = training_path(tft, dev)
@@ -5978,6 +6385,7 @@ def main() -> int:
              (data, ("segment_reduce", "segment_sum")),
              (serving, SERVING_KERNELS), (kv, SERVING_KERNELS),
              (encoder, ENCODER_KERNELS), (flush, ENCODER_KERNELS), (fleet, ENCODER_KERNELS),
+             (infra, ("segment_reduce", "flash_attention")),
              (train, TRAINING_KERNELS), (resumable, TRAINING_KERNELS),
              (imported["int8"], ("int8_matmul",)),
              (vggr["int8"], ("int8_matmul",)))
@@ -6029,4 +6437,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(fleet_replica_main() if sys.argv[1:] == ["--fleet-replica"] else main())
+    if sys.argv[1:] == ["--fleet-replica"]:
+        sys.exit(fleet_replica_main())
+    sys.exit(infra_warm_main() if sys.argv[1:2] == ["--infra-warm"] else main())

@@ -22,7 +22,12 @@ retries and fault sites (:mod:`.resilience`), step telemetry and a
 flight recorder (:mod:`.observability`). Frozen TF graphs and SavedModels import as programs
 (:func:`load_graphdef`, :func:`load_saved_model`, :mod:`.graphdef`,
 with no TensorFlow), and programs serialize through ``torch.export``
-(:func:`save_program`, :func:`load_program`). The data plane reads and
+(:func:`save_program`, :func:`load_program`). A static analyzer lints
+programs and plans before they run (:func:`lint_program`,
+:func:`analyze_frame`, :func:`lint_plan`, the verbs' ``strict=``), and
+:func:`warmup` dispatches the expected shapes ahead of traffic, recorded
+in a persistent store when ``compilation_cache_dir`` is set
+(:mod:`.compilecache`). The data plane reads and
 writes CSV, Parquet and Arrow (:func:`read_csv`, :func:`scan_csv`, ...),
 persists frames (:func:`save_frame`, :func:`load_frame`), and streams a
 chain over data larger than memory (:func:`stream_chain`, spilling to a
@@ -89,7 +94,9 @@ from .program import (  # noqa: F401
     program_from_function,
     save_program,
 )
-from .validation import ValidationError  # noqa: F401
+from .validation import StaticAnalysisError, ValidationError  # noqa: F401
+from . import analysis  # noqa: F401  (registers tftpu_analysis_* metrics)
+from .analysis import analyze_frame, lint_plan, lint_program  # noqa: F401
 from . import kernels  # noqa: F401  (registers tftpu_kernels_* metrics)
 from .ops.verbs import (  # noqa: F401
     aggregate,
@@ -149,6 +156,8 @@ from . import resilience  # noqa: F401
 from .resilience import RetryPolicy, StepGuard  # noqa: F401
 from .observability import StepTelemetry  # noqa: F401
 from .training import run_resumable  # noqa: F401
+from . import compilecache  # noqa: F401  (registers tftpu_compilecache_* metrics)
+from .compilecache import WarmupReport, warmup  # noqa: F401
 
 __version__ = "0.1.0"
 
@@ -265,4 +274,13 @@ __all__ = [
     "program_from_graphdef",
     "restore_variables",
     "ValidationError",
+    # static analysis and warmup
+    "StaticAnalysisError",
+    "analysis",
+    "analyze_frame",
+    "lint_plan",
+    "lint_program",
+    "compilecache",
+    "WarmupReport",
+    "warmup",
 ]

@@ -1,5 +1,11 @@
-"""The serving bucket ladders, stated once, and (in :mod:`.fingerprint`)
-the content digests a registered query's result cache keys on.
+"""The serving bucket ladders, stated once; program fingerprints and the
+content digests a registered query's result cache keys on
+(:mod:`.fingerprint`); the persistent dispatch-key store (:mod:`.store`);
+warmup (:mod:`.warmup`); and ``python -m tensorframes_tpu_torch.compilecache``
+(:mod:`.cli`: stats / warm / prune / verify).
+
+The store is off by default; ``TFTPU_COMPILE_CACHE=/dir`` (or
+``configure(compilation_cache_dir=...)``) turns it on, under ``<dir>/aot``.
 
 The reference package's ``compilecache/warmup.py:138-214``: the
 power-of-two lead-dim buckets a serving flush, a decode step's slot count
@@ -62,3 +68,28 @@ def decode_warmup_grid(max_slots: int, max_prompt_len: int) -> Dict[str, List[in
         "decode": decode_slot_buckets(max_slots),
         "prefill": serving_row_buckets(max_prompt_len),
     }
+
+
+from .fingerprint import FORMAT_VERSION, program_fingerprint  # noqa: E402,F401
+from .store import CompileCacheStore, active_store, store_for  # noqa: E402,F401
+from .warmup import (  # noqa: E402,F401
+    WarmupReport,
+    partitioner_row_counts,
+    warm_program,
+    warmup,
+)
+
+__all__ = [
+    "FORMAT_VERSION",
+    "CompileCacheStore",
+    "WarmupReport",
+    "active_store",
+    "decode_slot_buckets",
+    "decode_warmup_grid",
+    "partitioner_row_counts",
+    "program_fingerprint",
+    "serving_row_buckets",
+    "store_for",
+    "warm_program",
+    "warmup",
+]

@@ -1,0 +1,8 @@
+"""Entry point: ``python -m tensorframes_tpu_torch.compilecache``."""
+
+import sys
+
+from .cli import main
+
+if __name__ == "__main__":
+    sys.exit(main())

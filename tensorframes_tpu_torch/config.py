@@ -3,7 +3,8 @@
 The knobs the ported verbs read — row-bucketing ladder, the default
 partition count, the verbs' block pipeline, the generic aggregate's
 buffer, the plan layer's fusion and re-optimization switches, the
-stats sidecar's directory, the block store's budget and the fleet's
+persistent caches' directory and the dispatch-key store's bound, the
+donation switch the static analyzer reads, the block store's budget and the fleet's
 heartbeat cadence and timeout — plus the execution ``device``. Every knob but the device can
 be overridden via environment variables (``TFTPU_*``, the reference's
 names and defaults);
@@ -72,9 +73,13 @@ class Config:
     # sidecar under TFTPU_COMPILE_CACHE. TFTPU_REOPT=0 keeps the static
     # cost model: no rewrite, no reordering, no stats recorded or read.
     plan_reopt: bool = _env_bool("TFTPU_REOPT", True)
-    # Root directory of persistent caches; the plan-stats sidecar lives
-    # in <dir>/planstats. Empty: stats stay in memory.
+    # Root directory of persistent caches: the plan-stats sidecar lives
+    # in <dir>/planstats, the registered queries' results in
+    # <dir>/results, the dispatch-key store (compilecache/store.py) in
+    # <dir>/aot. Empty: all three stay in memory or off.
     compilation_cache_dir: str = os.environ.get("TFTPU_COMPILE_CACHE", "")
+    # Byte bound of the dispatch-key store's entries (LRU eviction).
+    compile_cache_max_bytes: int = _env_int("TFTPU_COMPILE_CACHE_MAX_MB", 2048) * (1 << 20)
     # Resident-bytes budget of a BlockStore built without one (the
     # chunked readers' ingest, the streaming partitioner): blocks past it
     # spill to disk least-recently-used.

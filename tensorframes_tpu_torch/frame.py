@@ -895,31 +895,33 @@ class TensorFrame:
 
     # -- verb methods (≙ Implicits.RichDataFrame, dsl/Implicits.scala:25-100)
     def map_blocks(self, fetches, feed_dict=None, trim: bool = False,
-                   device=None):
+                   strict: bool = False, device=None):
         from .ops.verbs import map_blocks
 
         return map_blocks(fetches, self, feed_dict=feed_dict, trim=trim,
-                          device=device)
+                          strict=strict, device=device)
 
-    def map_blocks_trimmed(self, fetches, feed_dict=None, device=None):
+    def map_blocks_trimmed(self, fetches, feed_dict=None, strict: bool = False,
+                           device=None):
         """≙ ``mapBlocksTrimmed`` (dsl/Implicits.scala:49-55)."""
         return self.map_blocks(fetches, feed_dict=feed_dict, trim=True,
-                               device=device)
+                               strict=strict, device=device)
 
-    def map_rows(self, fetches, feed_dict=None, device=None):
+    def map_rows(self, fetches, feed_dict=None, strict: bool = False, device=None):
         from .ops.verbs import map_rows
 
-        return map_rows(fetches, self, feed_dict=feed_dict, device=device)
+        return map_rows(fetches, self, feed_dict=feed_dict, strict=strict,
+                        device=device)
 
-    def reduce_rows(self, fetches, device=None):
+    def reduce_rows(self, fetches, strict: bool = False, device=None):
         from .ops.verbs import reduce_rows
 
-        return reduce_rows(fetches, self, device=device)
+        return reduce_rows(fetches, self, strict=strict, device=device)
 
-    def reduce_blocks(self, fetches, device=None):
+    def reduce_blocks(self, fetches, strict: bool = False, device=None):
         from .ops.verbs import reduce_blocks
 
-        return reduce_blocks(fetches, self, device=device)
+        return reduce_blocks(fetches, self, strict=strict, device=device)
 
     def analyze(self) -> "TensorFrame":
         """≙ ``RichDataFrame.analyze`` (dsl/Implicits.scala:69-71)."""
@@ -954,12 +956,12 @@ class GroupedData:
         self.frame = frame
         self.keys = keys
 
-    def aggregate(self, fetches, device=None) -> "TensorFrame":
+    def aggregate(self, fetches, strict: bool = False, device=None) -> "TensorFrame":
         """≙ ``RichRelationalGroupedDataset.aggregate``
         (dsl/Implicits.scala:107-116)."""
         from .ops.verbs import aggregate
 
-        return aggregate(fetches, self, device=device)
+        return aggregate(fetches, self, strict=strict, device=device)
 
     def count(self, device=None) -> "TensorFrame":
         """Rows per key (the ``groupBy().count()`` affordance): a DSL

@@ -84,6 +84,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import fcntl
+import functools
 import hashlib
 import os
 import shutil
@@ -263,6 +264,25 @@ def _nvcc() -> str:
     )
 
 
+@functools.lru_cache(maxsize=None)
+def sources_hash() -> str:
+    """The content hash the kernel library is named by: sha256 over the
+    ``nvcc`` flags and every source and header, first 16 hex digits. A
+    library whose name carries another hash was built from other
+    sources (``compilecache``'s ``prune`` removes such files). Read once
+    a process: the sources a process loads cannot change under it."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in (*_SOURCES, *_HEADERS):
+        h.update((CSRC / s).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    """Where the library built from the current sources lives (it may
+    not exist yet)."""
+    return BUILD_DIR / f"libtftorch_kernels-{sources_hash()}.so"
+
+
 def _build() -> Path:
     """Compile every source into an object with one ``nvcc`` each, all
     started together, link them into one shared library, then move it
@@ -274,10 +294,7 @@ def _build() -> Path:
     ``BUILD_DIR/build.lock``, and a process that waited there finds the
     library its peer built. Each build this process runs adds one to
     :data:`KERNEL_BUILDS`."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in (*_SOURCES, *_HEADERS):
-        h.update((CSRC / s).read_bytes())
-    so = BUILD_DIR / f"libtftorch_kernels-{h.hexdigest()[:16]}.so"
+    so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

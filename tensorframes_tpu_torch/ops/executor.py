@@ -11,7 +11,10 @@ PyTorch compiles nothing per shape, but the dispatch bookkeeping keeps the
 reference's shape accounting: :class:`CompiledProgram` records every
 distinct (entry, feed shapes/dtypes) key it has dispatched, so
 ``cache_sizes`` drives ``map_rows``' adaptive lead-dim bucketing exactly
-as in the reference, and the hit/miss counters keep their names. Each
+as in the reference, and the hit/miss counters keep their names. With
+``compilation_cache_dir`` set, a first-seen key is also looked up in the
+persistent store (:mod:`..compilecache.store`), or recorded there with a
+manifest row that ``warmup`` replays in a later process. Each
 dispatch passes the reference's fault sites (``executor.run_block`` /
 ``executor.run_rows``, and the ``executor.dispatch`` delay site around
 the call) and leaves a ``dispatch`` or ``dispatch.error`` flight record.
@@ -22,7 +25,7 @@ rows match the reference row for row.
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +38,9 @@ from ..observability import latency as _latency
 from ..observability.metrics import counter as _counter
 from ..program import Program
 from ..resilience.faults import delay_point, fault_point, register_site
+from ..utils import get_logger
+
+logger = get_logger(__name__)
 
 register_site(
     "executor.dispatch",
@@ -135,12 +141,74 @@ class CompiledProgram:
             )
         )
 
-    def _note_dispatch(self, key: Tuple) -> None:
+    def _note_dispatch(self, key: Tuple, device=None) -> None:
         if key in self._dispatched:
             _JIT_HITS.inc()
         else:
             self._dispatched.add(key)
             _JIT_MISSES.inc()
+            self._consult_store(key, device)
+
+    def _consult_store(self, key: Tuple, device) -> Optional[str]:
+        """Look a first-seen dispatch key up in the persistent store
+        (``<compilation_cache_dir>/aot``, :mod:`..compilecache.store`):
+        ``"disk"`` when a process recorded it before, ``"compiled"`` when
+        it is recorded now (its feed shapes also go to the store's
+        manifest, which ``warmup(manifest=True)`` replays); None with no
+        store or when the program cannot be fingerprinted. A store
+        problem is counted and never fails the dispatch."""
+        from ..compilecache import store as cc_store
+        from ..compilecache.fingerprint import dispatch_fingerprint
+
+        store = cc_store.active_store()
+        if store is None:
+            return None
+        kind = key[0]
+        inputs = [(n, list(s), d.replace("torch.", "")) for (n, s, d) in key[1:]]
+        try:
+            res = dispatch_fingerprint(self.program, kind, inputs, device)
+        except Exception as e:
+            logger.debug("dispatch fingerprint failed: %s", e)
+            res = None
+        if res is None:
+            cc_store.note_unfingerprintable()
+            return None
+        fp, comps, env = res
+        if store.get(fp) is not None:
+            return "disk"
+        store.record_miss(kind, inputs)
+        store.put(fp, {"inputs": inputs, "components": comps,
+                       "outputs": list(self.program.fetch_order), **env})
+        return "compiled"
+
+    def warm(self, kind: str, feeds: Dict[str, object], device) -> str:
+        """Dispatch the program once at one feed-shape key, on
+        zero-filled feeds on ``device`` (``feeds`` maps input names to
+        anything with ``shape`` and ``dtype``, e.g. meta tensors), and
+        mark the key dispatched without counting it, so the first real
+        dispatch at that shape is a hit. What it pays for ahead of the
+        traffic: the kernel library's load, the cuBLAS/cuDNN handles and
+        the allocator's growth. Returns
+        ``"cached"`` (key already dispatched in this process), ``"disk"``
+        (the persistent store had recorded it), ``"compiled"`` (new) or
+        ``"failed"``."""
+        device = torch.device(device)
+        tensors = {
+            n: torch.zeros(tuple(int(d) for d in v.shape), dtype=v.dtype, device=device)
+            for n, v in feeds.items()
+        }
+        key = self._feeds_key(kind, tensors)
+        if key in self._dispatched:
+            return "cached"
+        fn = self.program.fn if kind == "block" else self._vmapped
+        try:
+            with torch.inference_mode():
+                fn(tensors)
+        except Exception as e:
+            logger.warning("warmup dispatch at %s failed: %s", key, e)
+            return "failed"
+        self._dispatched.add(key)
+        return self._consult_store(key, device) or "compiled"
 
     def _run(self, kind: str, fn: Callable, feeds, device, to_numpy: bool):
         site = f"executor.run_{'block' if kind == 'block' else 'rows'}"
@@ -164,7 +232,7 @@ class CompiledProgram:
             }
             key = self._feeds_key(kind, tensors)
             fresh = key not in self._dispatched
-            self._note_dispatch(key)
+            self._note_dispatch(key, device)
             t0 = time.perf_counter()
             delay_point("executor.dispatch")
             with torch.inference_mode():

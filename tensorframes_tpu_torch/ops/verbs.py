@@ -108,15 +108,16 @@ def _is_pandas(obj) -> bool:
     return pd is not None and isinstance(obj, pd.DataFrame)
 
 
-def _map_pandas(fetches, pdf, feed_dict, device):
+def _map_pandas(fetches, pdf, feed_dict, device, strict: bool = False):
     """Local pandas path (≙ ``_map_pd``, core.py:171-183): run the program
     on the pandas columns (block semantics, whole columns, as the
     reference's ``_map_pd`` feeds them) and append the outputs to a copy
-    of the frame."""
+    of the frame. ``strict`` rides through to the converted frame's
+    ``map_blocks``, as in the reference."""
     from ..frame import frame_from_pandas
 
     result = map_blocks(fetches, frame_from_pandas(pdf, num_blocks=1),
-                        feed_dict=feed_dict, device=device)
+                        feed_dict=feed_dict, strict=strict, device=device)
     out = pdf.copy()
     for name in result.schema.names:
         if name not in pdf.columns:
@@ -210,6 +211,24 @@ def _apply_feed_dict(program: Program, feed_dict: Optional[Dict[str, str]]) -> P
     return program.rename_inputs(dict(feed_dict))
 
 
+def _strict_lint(program: Program, frame, block_mode: Optional[bool]) -> None:
+    """The verbs' ``strict=True`` hook: run the static analyzer
+    (:mod:`tensorframes_tpu_torch.analysis`) on the normalized program and
+    raise :class:`~tensorframes_tpu_torch.validation.StaticAnalysisError`
+    on any error-severity diagnostic — before any block is staged or
+    dispatched. Block shapes feed the recompile-storm rule only when the
+    frame is already materialized (lint never forces a pending
+    computation)."""
+    from ..analysis import lint_program
+
+    counts = None
+    if getattr(frame, "is_materialized", False):
+        counts = tuple(_block_num_rows(b) for b in frame.blocks())
+    lint_program(
+        program, block_mode=block_mode, block_row_counts=counts,
+    ).raise_on_errors()
+
+
 def _sorted_output_infos(program: Program, block_mode: bool) -> List[ColumnInfo]:
     """Output columns first, sorted by name (≙ DebugRowOps.scala:353-379)."""
     infos = []
@@ -259,6 +278,7 @@ def map_blocks(
     frame,
     feed_dict: Optional[Dict[str, str]] = None,
     trim: bool = False,
+    strict: bool = False,
     device=None,
 ) -> "TensorFrame":
     """Transform a frame block by block, appending one column per output
@@ -274,16 +294,20 @@ def map_blocks(
     Blocks pipeline: a worker thread stages up to ``map_prefetch_depth``
     blocks' feeds on the device ahead of the one computing, and up to
     ``map_pipeline_depth`` blocks stay in flight before the oldest one's
-    outputs are read back (config.py).
+    outputs are read back (config.py). ``strict=True`` additionally runs
+    the static analyzer and raises on error-severity diagnostics before
+    any dispatch.
     """
     if _is_pandas(frame):
-        return _map_pandas(fetches, frame, feed_dict, device)
+        return _map_pandas(fetches, frame, feed_dict, device, strict=strict)
     dev = resolve_device(device)
     program, _ = _normalize_program(
         fetches, frame.schema, block=True, device=dev, feed_dict=feed_dict
     )
     program = _apply_feed_dict(program, feed_dict)
     validate_map(program, frame.schema, block=True, trim=trim)
+    if strict:
+        _strict_lint(program, frame, block_mode=True)
     out_infos = _sorted_output_infos(program, block_mode=True)
     schema = Schema(out_infos if trim else out_infos + frame.schema.columns)
     if not trim:
@@ -575,6 +599,7 @@ def map_rows(
     fetches: Fetches,
     frame,
     feed_dict: Optional[Dict[str, str]] = None,
+    strict: bool = False,
     device=None,
 ) -> "TensorFrame":
     """Transform a frame row by row (placeholders are cell-shaped).
@@ -585,13 +610,15 @@ def map_rows(
     takes the reference's pandas path (whole columns, as ``map_blocks``).
     """
     if _is_pandas(frame):
-        return _map_pandas(fetches, frame, feed_dict, device)
+        return _map_pandas(fetches, frame, feed_dict, device, strict=strict)
     dev = resolve_device(device)
     program, _ = _normalize_program(
         fetches, frame.schema, block=False, device=dev, feed_dict=feed_dict
     )
     program = _apply_feed_dict(program, feed_dict)
     validate_map(program, frame.schema, block=False)
+    if strict:
+        _strict_lint(program, frame, block_mode=False)
     out_infos = _sorted_output_infos(program, block_mode=False)
     schema = Schema(out_infos + frame.schema.columns)
     planned = _plan_map_result(frame, program, schema, True, dev)
@@ -686,7 +713,7 @@ def _unpack_results(program: Program, finals: Dict[str, np.ndarray]):
 
 
 def reduce_rows(
-    fetches: Fetches, frame, device=None
+    fetches: Fetches, frame, strict: bool = False, device=None
 ) -> Union[np.ndarray, list]:
     """Pairwise-reduce all rows to a single row. Each fetch ``x`` consumes
     placeholders ``x_1``/``x_2`` (Operations.scala:83-96). Eager
@@ -701,6 +728,8 @@ def reduce_rows(
         fetches, frame.schema, block=False, device=dev, reduce_mode="rows"
     )
     validate_reduce_rows(program, frame.schema)
+    if strict:
+        _strict_lint(program, frame, block_mode=False)
     out_names = [o.name for o in program.outputs]
     fold = make_pair_fold(program, out_names)
     t0 = time.perf_counter()
@@ -756,7 +785,7 @@ def reduce_rows(
 # ---------------------------------------------------------------------------
 
 def reduce_blocks(
-    fetches: Fetches, frame, device=None
+    fetches: Fetches, frame, strict: bool = False, device=None
 ) -> Union[np.ndarray, list]:
     """Block-reduce all rows to a single row. Each fetch ``x`` consumes a
     placeholder ``x_input`` with one extra (Unknown) leading dim
@@ -771,6 +800,8 @@ def reduce_blocks(
         fetches, frame.schema, block=True, device=dev, reduce_mode="blocks"
     )
     validate_reduce_blocks(program, frame.schema)
+    if strict:
+        _strict_lint(program, frame, block_mode=True)
     out_names = [o.name for o in program.outputs]
     compiled = program.compiled()
     t0 = time.perf_counter()
@@ -1070,7 +1101,7 @@ def _generic_aggregate(program, frame, keys, out_names, device):
 
 
 def aggregate(
-    fetches: Fetches, grouped: GroupedData, device=None
+    fetches: Fetches, grouped: GroupedData, strict: bool = False, device=None
 ) -> "TensorFrame":
     """Algebraic aggregation over grouped data: one output row per key.
 
@@ -1093,6 +1124,8 @@ def aggregate(
         fetches, frame.schema, block=True, device=dev, reduce_mode="blocks"
     )
     validate_reduce_blocks(program, frame.schema)
+    if strict:
+        _strict_lint(program, frame, block_mode=True)
     out_names = [o.name for o in program.outputs]
     algebraic = seg_info is not None and all(
         op in _SEGMENT_OPS or op == "reduce_mean" for _, op, _ in seg_info

@@ -1619,6 +1619,43 @@ def estimate_materialized_bytes(frame) -> Optional[int]:
     return int(rows) * per_row
 
 
+def oversized_materializations(frame) -> List[dict]:
+    """TFG111 evidence for ``lint_plan``: forced ``to_host``/``to_numpy``
+    materializations on ``frame``'s chain whose estimated bytes exceed
+    the block-store budget (``config.block_budget_bytes`` /
+    ``TFTPU_BLOCK_BUDGET_MB``). Checks the frame itself and its chain
+    source (where :func:`.ir.mark_barrier` records a materialization);
+    never forces a lazy frame. The port's single-device frames have no
+    ``to_host`` barrier yet (it comes with multi-device frames), so on a
+    real chain this finds nothing until then."""
+    from ..config import get_config
+
+    budget = get_config().block_budget_bytes
+    if budget <= 0:
+        return []
+    out: List[dict] = []
+    node = getattr(frame, "_plan", None)
+    source = ir.resolve_chain(node)[0] if node is not None else None
+    seen = set()
+    for f in (frame, source):
+        if f is None or id(f) in seen:
+            continue
+        seen.add(id(f))
+        reason = getattr(f, "_fusion_barrier", None)
+        if not reason or "to_host" not in str(reason):
+            continue
+        est = estimate_materialized_bytes(f)
+        if est is None or est <= budget:
+            continue
+        out.append({
+            "reason": str(reason),
+            "estimated_bytes": int(est),
+            "budget_bytes": int(budget),
+            "rows": int(f.estimated_rows or 0),
+        })
+    return out
+
+
 def lower_reduce(
     frame, program, out_names: Sequence[str], mode: str, device=None,
 ) -> Optional[tuple]:

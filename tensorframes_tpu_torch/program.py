@@ -185,6 +185,15 @@ class Program:
         self._bytes_per_row = max(0.0, (b2 - b1) / probe)
         return self._bytes_per_row
 
+    def lint(self, **kwargs):
+        """Run the static analyzer over this program
+        (:func:`tensorframes_tpu_torch.analysis.lint_program`; keyword
+        arguments pass through). Traces under ``FakeTensorMode`` only:
+        no data moves and no kernel runs."""
+        from .analysis import lint_program
+
+        return lint_program(self, **kwargs)
+
     def explain(self) -> str:
         ins = ", ".join(s.pretty() for s in self.inputs)
         outs = ", ".join(s.pretty() for s in self.outputs)
@@ -206,6 +215,63 @@ def _probe_inputs(
         dims = tuple(probe if d == Unknown else d for d in s.shape.dims)
         out[s.name] = torch.empty(dims, dtype=s.dtype.torch_dtype, device=device)
     return out
+
+
+@dataclasses.dataclass
+class CapturedGraph:
+    """A program's aten graph at one probe shape (:func:`capture_graph`).
+    ``inputs``/``outputs`` are ``(name, shape, dtype)`` in the graph's
+    placeholder and output order; ``consts`` the tensors the program
+    captured, ``(attribute, tensor)`` in the order the graph reads them
+    (the real tensors: weights on the GPU stay there)."""
+
+    gm: object
+    inputs: List[tuple]
+    outputs: List[tuple]
+    consts: List[tuple]
+
+
+def capture_graph(program: Program, probe: int = 8) -> CapturedGraph:
+    """Capture ``program.fn`` as an FX graph of aten ops with
+    ``make_fx(..., tracing_mode="fake")`` under ``FakeTensorMode`` (the
+    mode :func:`analyze_program` probes under), ``probe`` rows standing
+    in for every Unknown dim, on the device the program was analyzed
+    for. No data moves and no kernel runs: captured tensors become the
+    graph's ``_tensor_constant`` attributes. A fresh function object per
+    call, so each capture re-runs the program's own Python. Raises
+    whatever the program raises under fake tensors (``.item()``,
+    data-dependent shapes)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    device = torch.device(program.device if program.device is not None else "cpu")
+    out_names: List[str] = []
+
+    def traced(feeds):
+        res = program.fn(feeds)
+        if not isinstance(res, dict):
+            raise TypeError(
+                "Program function must return a dict of named outputs; got "
+                f"{type(res).__name__}"
+            )
+        out_names[:] = list(res)
+        return res
+
+    with torch.inference_mode(False), FakeTensorMode(allow_non_fake_inputs=True), \
+            torch.no_grad():
+        feeds = _probe_inputs(program.inputs, probe, device)
+        gm = make_fx(traced, tracing_mode="fake")(feeds)
+    inputs = [(n, tuple(v.shape), v.dtype) for n, v in feeds.items()]
+    outs = gm.graph.output_node().args[0]
+    outputs = []
+    for name, node in zip(out_names, outs):
+        val = node.meta.get("val") if hasattr(node, "meta") else None
+        shape = tuple(int(d) for d in val.shape) if val is not None else ()
+        outputs.append((name, shape, getattr(val, "dtype", None)))
+    consts = [(n.target, getattr(gm, n.target))
+              for n in gm.graph.nodes if n.op == "get_attr"
+              and torch.is_tensor(getattr(gm, n.target, None))]
+    return CapturedGraph(gm, inputs, outputs, consts)
 
 
 def analyze_program(

@@ -36,6 +36,17 @@ class ValidationError(ValueError):
     """A schema/program mismatch detected before execution."""
 
 
+class StaticAnalysisError(ValidationError):
+    """Error-severity static diagnostics under a verb's ``strict=True``
+    (or ``DiagnosticReport.raise_on_errors()``). Like every
+    ValidationError it fires *before* execution; ``diagnostics`` carries
+    the structured findings (:mod:`tensorframes_tpu_torch.analysis`)."""
+
+    def __init__(self, message: str, diagnostics: Sequence = ()):
+        super().__init__(message)
+        self.diagnostics = list(diagnostics)
+
+
 def _no_collisions(outputs: Sequence[TensorSpec], schema: Schema) -> None:
     cols = set(schema.names)
     clash = [o.name for o in outputs if o.name in cols]
