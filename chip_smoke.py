@@ -123,6 +123,21 @@ Phases:
    spilled) equal to the in-memory chain, with the peak RSS growth
    sampled and held under 3.5 budgets; a 1M-row ``save_frame``/
    ``load_frame`` and a 1M-row native ``read_csv`` against numpy.
+   Then verified UDF lifting (``lift_leg``): numpy UDFs captured by
+   ``numpy_udf`` on the card (arithmetic, compare/where, clip, abs/
+   maximum chains, sqrt, x / 3, exp, tanh, sign, mod, an int32 mean and
+   span, a bool mask, a two-input hypot, in f32, f64 and int32), each
+   decision and its wall printed, every lifted capture equal to its
+   host stage (``udf_lifting=False``) bit for bit over 1,000,000 values,
+   a float mean, a loop and ``np.random`` declining with the JAX
+   package's reasons; a map → lifted ``numpy_udf`` → keyed sum/max chain
+   over 10,000,000 rows fused with no barrier and through
+   ``segment_reduce``, against the same chain with the UDF as a host
+   stage (one barrier, a counted ``host_callback`` fallback), the two
+   equal bit for bit and to numpy (sums within the float64 tolerance),
+   each mode's median wall, launches, copies and busy share; TFG112
+   ``info``/``warn`` from ``lint_plan``, the CLI's ``--lift-report``,
+   and the lift slot of the stage's fingerprint.
    Then the decode server's path, counts reset again: a
    ``Server`` with a gpt_small decode endpoint (int8 weights from seed 0,
    16 slots, 16-position pages, prompts <= 128, 64 new tokens) answers 32
@@ -278,6 +293,8 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
@@ -2729,6 +2746,346 @@ def plan_leg(tft, dev) -> dict:
     if fused_md.get("reoptimized", 0) < 1:
         fail("plan_leg multijoin: a repeated fused run recorded no reoptimized decision")
     return result
+
+
+# ---------------------------------------------------------------------------
+# verified UDF lifting (lift_leg)
+# ---------------------------------------------------------------------------
+
+LIFT_VALUES = 1_000_000  # values of each capture's lifted-against-host check
+LIFT_BLOCKS = 2
+LIFT_LEG_LIMIT_S = 90.0
+
+
+# The UDFs the leg captures. Module-level functions: lifting reads their
+# source (inspect.getsource). The first four are the JAX package's
+# tests/test_lifting.py's own.
+def _arith(x):
+    return {"y": (x * 2 + 1) - 3}
+
+
+def _where_compare(x):
+    return {"y": np.where(x > 3, x - 3, 3 - x)}
+
+
+def _clip(x):
+    return {"y": np.clip(x, 1, 25)}
+
+
+def _chain(x):
+    z = np.abs(x) + 1
+    return {"y": np.maximum(z, x) * np.minimum(z, 7)}
+
+
+def udf_sqrt(x):
+    return {"y": np.sqrt(x)}
+
+
+def udf_div3(x):
+    return {"y": x / 3}
+
+
+def udf_exp(x):
+    return {"y": np.exp(x)}
+
+
+def udf_tanh(x):
+    return {"y": np.tanh(x)}
+
+
+def udf_sign(x):
+    return {"y": np.sign(x)}
+
+
+def udf_mod(x):
+    return {"y": np.mod(x, 3.0)}
+
+
+def udf_demean(x):
+    return {"y": x - x.mean()}
+
+
+def udf_span(x):
+    return {"lo": x - x.min(), "hi": x.max() - x}
+
+
+def udf_mask(x):
+    return {"m": np.logical_and(x > 2, x < 9)}
+
+
+def udf_hypot(x, y):
+    return {"h": np.sqrt(x * x + y * y), "d": np.where(x > y, x, y)}
+
+
+def udf_float_mean(x):
+    return {"y": x - np.mean(x)}
+
+
+def udf_loop(x):
+    acc = x
+    for _ in range(3):
+        acc = acc + x
+    return {"a": acc}
+
+
+def udf_random(x):
+    return {"r": x + np.random.rand(*x.shape)}
+
+
+def blend(u, v):
+    d = np.where(u > v, u - v, v - u)
+    return {"zs": d, "zm": d}
+
+
+# (UDF, dtypes); then the three that must decline, with the JAX package's
+# reasons
+LIFT_CAPTURES = (
+    (_arith, ("float32", "float64", "int32")),
+    (_where_compare, ("float32", "float64", "int32")),
+    (_clip, ("float32", "float64", "int32")),
+    (_chain, ("float32", "float64", "int32")),
+    (udf_sqrt, ("float32", "float64", "int32")),
+    (udf_div3, ("float32", "float64", "int32")),
+    (udf_exp, ("float32", "float64", "int32")),
+    (udf_tanh, ("float32", "float64", "int32")),
+    (udf_sign, ("float32", "float64", "int32")),
+    (udf_mod, ("float32", "float64", "int32")),
+    (udf_demean, ("int32",)),
+    (udf_span, ("int32",)),
+    (udf_mask, ("float32", "int32")),
+    (udf_hypot, ("float32", "float64")),
+)
+LIFT_MUST_DECLINE = (
+    (udf_float_mean, "float32", "float-reduction"),
+    (udf_loop, "float32", "unsupported-syntax:For"),
+    (udf_random, "float32", "unsupported-call:np.random.rand"),
+)
+
+
+def same_bits(a, b) -> bool:
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def lift_leg(tft, dev) -> dict:
+    """Verified UDF lifting on the card (``numpy_udf``, ``plan/lift``):
+    (a) each UDF of LIFT_CAPTURES captured on the card per dtype — the
+    decision, its reason and the capture's wall (verification included),
+    and each lifted capture through ``map_blocks`` equal bit for bit to
+    its host stage (``udf_lifting=False``) over LIFT_VALUES seeded values;
+    the LIFT_MUST_DECLINE three declining with the JAX package's reasons;
+    (b) ``map_blocks`` (x, y → u, v) → ``map_blocks(numpy_udf(blend))`` →
+    ``aggregate`` of ``blend``'s output's sum and max by ``k`` over
+    PLAN_ROWS rows in PLAN_BLOCKS blocks, lifted (no barrier, no
+    ``host_callback`` fallback) and with ``udf_lifting=False`` (one
+    barrier, the fallback counted), ``segment_reduce`` launched in both,
+    both modes' outputs equal bit for bit, the max equal to numpy's and
+    the sums within ``float_close`` of float64 sums; per mode the median
+    host wall of PLAN_REPS calls after a warm-up, launches per call and a
+    profiled call's copies and busy share; (c) ``lint_plan`` on both
+    chains gives TFG112 ``info`` and ``warn``, and the analysis CLI's
+    ``--lift-report`` prints LIFTED and DECLINED rows; (d) the lifted
+    stage's ``program_fingerprint`` moves when ``udf_lifting`` flips (a
+    host stage has none). ``launches``: the kernels' launches during
+    (b)."""
+    import io
+
+    import torch
+
+    from tensorframes_tpu_torch.analysis.cli import main as analysis_main
+    from tensorframes_tpu_torch.compilecache.fingerprint import program_fingerprint
+    from tensorframes_tpu_torch.plan import ir as plan_ir
+    from tensorframes_tpu_torch.plan import lift as plan_lift
+
+    t_leg = time.perf_counter()
+    reg = tft.observability.REGISTRY
+
+    def host_callback_fallbacks() -> float:
+        return sum(float(d["value"]) for d in reg.snapshot()
+                   if d["name"] == "tftpu_plan_fallback_total"
+                   and d["labels"].get("reason") == "host_callback")
+
+    plan_lift.clear_lift_log()
+    rng = np.random.default_rng(SEED)
+    a_cols = {
+        "float32": {"x": rng.standard_normal(LIFT_VALUES).astype(np.float32),
+                    "y": rng.standard_normal(LIFT_VALUES).astype(np.float32)},
+        "float64": {"x": rng.standard_normal(LIFT_VALUES),
+                    "y": rng.standard_normal(LIFT_VALUES)},
+        "int32": {"x": rng.integers(-2**31, 2**31, LIFT_VALUES, dtype=np.int32, endpoint=False)},
+    }
+    frames = {k: tft.frame_from_arrays(v, num_blocks=LIFT_BLOCKS) for k, v in a_cols.items()}
+
+    # (a) the decisions on the card
+    decisions = []
+    for fn, dtypes in LIFT_CAPTURES:
+        for dtn in dtypes:
+            fr = frames[dtn]
+            if fn.__code__.co_argcount == 1 and len(fr.schema.names) > 1:
+                fr = tft.frame_from_arrays({"x": a_cols[dtn]["x"]}, num_blocks=LIFT_BLOCKS)
+            udf = tft.numpy_udf(fn)
+            t0 = time.perf_counter()
+            tft.compile_program(udf, fr, device=dev)
+            wall = time.perf_counter() - t0
+            rec = plan_lift.lift_log()[-1]
+            row = {"udf": fn.__name__, "dtype": dtn, "lifted": rec["lifted"],
+                   "reason": rec["reason"], "detail": rec["detail"], "wall_s": wall,
+                   "verify_s": rec["wall_s"]}
+            if rec["lifted"]:
+                outs = rec["outputs"]
+                lifted = tft.map_blocks(udf, fr, device=dev)
+                got = {o: lifted.column_values(o) for o in outs}
+                with knobs(tft, udf_lifting=False):
+                    host = tft.map_blocks(udf, fr, device=dev)
+                    want = {o: host.column_values(o) for o in outs}
+                for o in outs:
+                    if not same_bits(got[o], want[o]):
+                        fail(f"lift_leg {fn.__name__} {dtn}: lifted output {o!r} differs from "
+                             f"the host stage's bits over {LIFT_VALUES} values")
+                row["checked_values"] = LIFT_VALUES
+            decisions.append(row)
+            log(f"# lift capture {fn.__name__} {dtn}: "
+                + ("LIFTED" if rec["lifted"] else f"DECLINED {rec['reason']}")
+                + f", capture {wall:.4f} s (verify {rec['wall_s']:.4f} s)"
+                + (f"; equal to the host stage bit for bit over {LIFT_VALUES} values"
+                   if rec["lifted"] else f" — {rec['detail'][:160]}"))
+    for fn, dtn, reason in LIFT_MUST_DECLINE:
+        fr = tft.frame_from_arrays({"x": a_cols[dtn]["x"]}, num_blocks=LIFT_BLOCKS)
+        t0 = time.perf_counter()
+        tft.compile_program(tft.numpy_udf(fn), fr, device=dev)
+        wall = time.perf_counter() - t0
+        rec = plan_lift.lift_log()[-1]
+        if rec["lifted"] or rec["reason"] != reason:
+            fail(f"lift_leg {fn.__name__}: decided {rec['lifted']}/{rec['reason']!r}, "
+                 f"must decline with {reason!r}")
+        decisions.append({"udf": fn.__name__, "dtype": dtn, "lifted": False,
+                          "reason": rec["reason"], "wall_s": wall, "verify_s": rec["wall_s"]})
+        log(f"# lift capture {fn.__name__} {dtn}: DECLINED {rec['reason']} (as it must), "
+            f"capture {wall:.4f} s")
+    t_a = time.perf_counter() - t_leg
+
+    # (b) the fused chain: lifted, and with udf_lifting=False
+    n = PLAN_ROWS
+    x = rng.standard_normal(n).astype(np.float32)
+    y = rng.standard_normal(n).astype(np.float32)
+    k = rng.integers(0, 4096, n).astype(np.int32)
+    frame = tft.frame_from_arrays(
+        {"x": x, "y": y, "n": rng.integers(-2**31, 2**31, n, dtype=np.int32),
+         "k": k}, num_blocks=PLAN_BLOCKS)
+    pre = tft.compile_program(lambda x, y: {"u": x * 2.0, "v": y + 1.0}, frame, device=dev)
+    udf = tft.numpy_udf(blend)
+    f1 = tft.map_blocks(pre, frame, device=dev)
+    f2 = tft.map_blocks(udf, f1, device=dev)
+    with tft.with_graph():
+        agg = tft.compile_program(
+            [tft.reduce_sum(tft.block(f2, "zs", tf_name="zs_input"), axis=0, name="zs"),
+             tft.reduce_max(tft.block(f2, "zm", tf_name="zm_input"), axis=0, name="zm")],
+            f2, reduce_mode="blocks", device=dev)
+
+    def chain():
+        g2 = tft.map_blocks(udf, tft.map_blocks(pre, frame, device=dev), device=dev)
+        out = tft.aggregate(agg, g2.group_by("k"), device=dev)
+        return g2, {c: out.column_values(c) for c in ("k", "zs", "zm")}
+
+    u32 = x * np.float32(2.0)
+    v32 = y + np.float32(1.0)
+    d = np.where(u32 > v32, u32 - v32, v32 - u32)
+    present = np.flatnonzero(np.bincount(k, minlength=4096))
+    want_max = np.full(4096, -np.inf, np.float32)
+    np.maximum.at(want_max, k, d)
+    want_sum = np.bincount(k, weights=d.astype(np.float64), minlength=4096)
+    counts = np.bincount(k, minlength=4096)[present]
+
+    tft.kernels.LAUNCHES.reset()
+    modes, outs, frames_b = {}, {}, {}
+    for mode, lifting in (("lifted", True), ("host", False)):
+        with knobs(tft, udf_lifting=lifting):
+            g2, outs[mode] = chain()  # warm-up, and the outputs compared below
+            frames_b[mode] = g2
+            n_maps, barriers = plan_ir.chain_barriers(g2)
+            walls, per_call = [], []
+            for _ in range(PLAN_REPS):
+                before = launch_counts(tft)
+                fb = host_callback_fallbacks()
+                t0 = time.perf_counter()
+                chain()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                after = launch_counts(tft)
+                per_call.append({k2: after[k2] - before.get(k2, 0) for k2 in after
+                                 if after[k2] != before.get(k2, 0)})
+                fallbacks = host_callback_fallbacks() - fb
+            prof = copy_profile(lambda: chain())
+        r = {"wall_ms": float(np.median(walls)), "walls_ms": walls,
+             "launches_per_call": per_call[-1], "barriers": len(barriers),
+             "host_callback_fallbacks_per_call": fallbacks,
+             **{("profiled_wall_ms" if k2 == "wall_ms" else k2): v for k2, v in prof.items()}}
+        modes[mode] = r
+        if r["launches_per_call"].get("segment_reduce", 0) < 1:
+            fail(f"lift_leg chain ({mode}): the aggregate launched no segment_reduce")
+        log(f"# lift chain {mode}: median {r['wall_ms']:.3f} ms of {PLAN_REPS} calls "
+            f"({', '.join(f'{w:.3f}' for w in walls)}); barriers {len(barriers)} of {n_maps} "
+            f"maps; host_callback fallbacks a call {fallbacks:.0f}; launches per call "
+            f"{json.dumps(r['launches_per_call'])}; profiled {r['profiled_wall_ms']:.3f} ms: "
+            f"Memcpy HtoD {r['htod_count']} copies {r['htod_bytes']} bytes, DtoH "
+            f"{r['dtoh_count']} copies {r['dtoh_bytes']} bytes, device busy {r['busy_ms']:.3f} "
+            f"ms ({100 * r['busy_share']:.1f}%)")
+    launches = tft.kernels.LAUNCHES.snapshot()
+    if modes["lifted"]["barriers"] != 0 or modes["lifted"]["host_callback_fallbacks_per_call"]:
+        fail(f"lift_leg: the lifted chain kept a barrier or a host_callback fallback "
+             f"({json.dumps(modes['lifted'])})")
+    if modes["host"]["barriers"] != 1 or modes["host"]["host_callback_fallbacks_per_call"] < 1:
+        fail("lift_leg: the host-stage chain has no barrier or no host_callback fallback")
+    for col in ("k", "zs", "zm"):
+        if not same_bits(outs["lifted"][col], outs["host"][col]):
+            fail(f"lift_leg: column {col!r} of the lifted chain differs from the host stage's")
+    got = outs["lifted"]
+    if not np.array_equal(got["k"], present.astype(got["k"].dtype)):
+        fail("lift_leg: the aggregate's keys differ from numpy's")
+    if not same_bits(got["zm"], want_max[present]):
+        fail("lift_leg: the keyed max differs from numpy's")
+    sum_err = float_close(torch.from_numpy(got["zs"]), torch.from_numpy(want_sum[present]),
+                          counts, float(np.abs(d).max()))
+    log(f"# lift chain outputs: lifted = host stage bit for bit; max = numpy's; sums within "
+        f"the float64 tolerance (max |err| {sum_err:.6g}); {len(present)} groups")
+
+    # (c) the analyzer
+    diags = {}
+    for mode, g2 in frames_b.items():
+        hits = tft.lint_plan(g2).by_code("TFG112")
+        diags[mode] = [(h.severity, h.message) for h in hits]
+    if [s for s, _ in diags["lifted"]] != ["info"] or [s for s, _ in diags["host"]] != ["warn"]:
+        fail(f"lift_leg: lint_plan's TFG112 {json.dumps(diags)}")
+    for mode, hits in diags.items():
+        log(f"# lift TFG112 {mode}: {hits[0][0]} — {hits[0][1]}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = analysis_main(["--lift-report"])
+    report = buf.getvalue().splitlines()
+    lifted_rows = [r for r in report if r.strip().startswith("LIFTED")]
+    declined_rows = [r for r in report if r.strip().startswith("DECLINED")]
+    if rc != 0 or not lifted_rows or not declined_rows:
+        fail(f"lift_leg: --lift-report rc {rc}, {len(lifted_rows)} LIFTED and "
+             f"{len(declined_rows)} DECLINED rows")
+    log(f"# lift report (the analysis CLI's --lift-report, rc 0): {report[0]}; "
+        f"{len(lifted_rows)} LIFTED rows, {len(declined_rows)} DECLINED rows; e.g."
+        f"{lifted_rows[0]} |{declined_rows[-1]}")
+
+    # (d) the fingerprint's lift slot
+    lifted_prog = tft.compile_program(udf, f1, device=dev)
+    fp_on = program_fingerprint(lifted_prog)
+    with knobs(tft, udf_lifting=False):
+        fp_off = program_fingerprint(lifted_prog)
+        host_fp = program_fingerprint(tft.compile_program(udf, f1, device=dev))
+    if fp_on is None or fp_off is None or fp_on == fp_off or host_fp is not None:
+        fail(f"lift_leg: fingerprints {fp_on} / {fp_off} / host stage {host_fp}")
+    log(f"# lift fingerprint: lifted stage {fp_on} with udf_lifting on, {fp_off} off; the "
+        "host stage has none (counted unfingerprintable at dispatch)")
+    leg_s = time.perf_counter() - t_leg
+    log(f"# lift leg: {leg_s:.1f} s ((a) {t_a:.1f} s)")
+    if leg_s > LIFT_LEG_LIMIT_S:
+        fail(f"lift_leg took {leg_s:.1f} s, past its {LIFT_LEG_LIMIT_S:.0f} s")
+    return {"decisions": decisions, "modes": modes, "launches": launches,
+            "sum_err": sum_err, "leg_s": leg_s}
 
 
 def serving_path(tft, dev) -> dict:
@@ -6264,6 +6621,10 @@ def main() -> int:
         log(f"# data plane native site {name}: native {r['native_s']:.4f} s, pure "
             f"{r['pure_s']:.4f} s (pure / native {r['pure_over_native']:.2f}), outputs equal")
 
+    lift = lift_leg(tft, dev)
+    if lift["launches"]["segment_reduce"] <= 0:
+        fail("segment_reduce never launched on the lift leg's chain")
+
     t2 = time.perf_counter()
     serving = serving_path(tft, dev)
     log(f"# serving path: {time.perf_counter() - t2:.1f} s")
@@ -6382,7 +6743,7 @@ def main() -> int:
 
     kernels = []
     paths = ((path, SLICE1_KERNELS), (relational, ("segment_reduce", "segment_sum")),
-             (data, ("segment_reduce", "segment_sum")),
+             (data, ("segment_reduce", "segment_sum")), (lift, ("segment_reduce",)),
              (serving, SERVING_KERNELS), (kv, SERVING_KERNELS),
              (encoder, ENCODER_KERNELS), (flush, ENCODER_KERNELS), (fleet, ENCODER_KERNELS),
              (infra, ("segment_reduce", "flash_attention")),

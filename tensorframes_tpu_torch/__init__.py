@@ -22,7 +22,9 @@ retries and fault sites (:mod:`.resilience`), step telemetry and a
 flight recorder (:mod:`.observability`). Frozen TF graphs and SavedModels import as programs
 (:func:`load_graphdef`, :func:`load_saved_model`, :mod:`.graphdef`,
 with no TensorFlow), and programs serialize through ``torch.export``
-(:func:`save_program`, :func:`load_program`). A static analyzer lints
+(:func:`save_program`, :func:`load_program`). A numpy function becomes a block stage with
+:func:`numpy_udf`: lifted into a torch program when it verifies bit for
+bit on the device, a counted host stage otherwise. A static analyzer lints
 programs and plans before they run (:func:`lint_program`,
 :func:`analyze_frame`, :func:`lint_plan`, the verbs' ``strict=``), and
 :func:`warmup` dispatches the expected shapes ahead of traffic, recorded
@@ -99,10 +101,12 @@ from . import analysis  # noqa: F401  (registers tftpu_analysis_* metrics)
 from .analysis import analyze_frame, lint_plan, lint_program  # noqa: F401
 from . import kernels  # noqa: F401  (registers tftpu_kernels_* metrics)
 from .ops.verbs import (  # noqa: F401
+    NumpyUDF,
     aggregate,
     compile_program,
     map_blocks,
     map_rows,
+    numpy_udf,
     reduce_blocks,
     reduce_rows,
 )
@@ -181,6 +185,9 @@ __all__ = [
     "reduce_blocks",
     "aggregate",
     "compile_program",
+    # verified UDF lifting
+    "numpy_udf",
+    "NumpyUDF",
     "analyze",
     "append_shape",
     "print_schema",

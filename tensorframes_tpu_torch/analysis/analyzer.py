@@ -148,15 +148,28 @@ def analyze_frame(
 def lint_plan(frame) -> DiagnosticReport:
     """Lint a frame's *logical plan*: TFG107 fusion-barrier, TFG109
     unfused-aggregate, TFG110 missed-aggregate-pushdown, TFG111
-    larger-than-budget materialization, TFG113 prefix-cache-ineligible
-    and TFG114 query-not-incremental, from the evidence the plan layer
+    larger-than-budget materialization, TFG112 liftable-callback /
+    lift-declined, TFG113 prefix-cache-ineligible and TFG114
+    query-not-incremental, from the evidence the plan layer, the lifter
     and the serving engines record. Each finding's ``explain()`` names
     the cause. Purely static over the recorded plan chain — never
     forces a lazy frame."""
-    from ..plan.ir import chain_barriers, unfused_epilogues
+    from ..plan.ir import chain_barriers, resolve_chain, unfused_epilogues
     from ..plan.lower import oversized_materializations, pushdown_misses
 
     n_maps, barriers = chain_barriers(frame)
+    # verified-lift decisions (TFG112): each numpy UDF stage carries its
+    # capture record — lifted (barrier cleared) or declined (reason +
+    # offending AST node) — on the program plan/lift built
+    lift_events = []
+    node = getattr(frame, "_plan", None)
+    if node is not None:
+        _, nodes = resolve_chain(node)
+        for n in nodes:
+            info = getattr(getattr(n, "program", None),
+                           "_tftpu_lift_info", None)
+            if info:
+                lift_events.append(dict(info))
     # serving evidence; import-guarded — linting must work where the
     # serving modules cannot load
     try:
@@ -177,12 +190,14 @@ def lint_plan(frame) -> DiagnosticReport:
         unfused_epilogues=unfused_epilogues(frame),
         pushdown_misses=pushdown_misses(frame),
         oversized_materializations=oversized_materializations(frame),
+        lift_events=lift_events,
         prefix_cache_events=prefix_events,
         query_cache_events=query_events,
     )
     diags = run_rules(
         ctx,
-        codes=["TFG107", "TFG109", "TFG110", "TFG111", "TFG113", "TFG114"],
+        codes=["TFG107", "TFG109", "TFG110", "TFG111", "TFG112", "TFG113",
+               "TFG114"],
     )
     return DiagnosticReport(
         diags, subject=f"plan({n_maps} map stage(s))"

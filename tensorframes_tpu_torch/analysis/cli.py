@@ -14,6 +14,9 @@ self-lint instead (:mod:`.selfcheck`, the TFL rules):
 logreg scoring program, the geom-mean log transform), lints them,
 round-trips one through a temporary artifact, and lints that too.
 
+``--lift-report`` prints this process's verified-lift decisions
+(:func:`tensorframes_tpu_torch.plan.lift.lift_report`) and exits 0.
+
 Exit status, as the reference's: 0 on success; with ``--strict``, 1 when
 any error-severity diagnostic was found; 2 on unreadable inputs.
 """
@@ -160,7 +163,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("--device", default="",
                         help="device the programs run on (default: "
                              "config.device)")
+    parser.add_argument("--lift-report", action="store_true",
+                        help="print this process's verified-lift decisions "
+                             "(lifted / declined + reason) and exit")
     args = parser.parse_args(argv)
+    if args.lift_report:
+        from ..plan import lift as plan_lift
+
+        print(plan_lift.lift_report())
+        return 0
     if not args.paths and not args.demo:
         parser.error("nothing to lint: pass bundle paths or --demo")
 

@@ -31,14 +31,16 @@ graph's op nodes in order.
   materializations past the block-store budget.
 * **TFG108 cache-fingerprint-unstable** — the program fingerprint
   differs across two identical rebuilds.
+* **TFG112 liftable-callback** — verified-lift decisions on a chain's
+  numpy UDF stages (``lint_plan`` only, from :mod:`..plan.lift`'s
+  capture records): ``info`` when lifted, ``warn`` with the decline
+  reason and the offending AST node otherwise.
 * **TFG113/114** — serving evidence (``lint_plan`` only): prefix-cache
   ineligibility, registered queries that cannot cache or refresh
   incrementally.
 
-TFG112 (liftable-callback) has its catalog row and no rule yet: it comes
-with verified UDF lifting. Rules never dispatch: they read specs, the
-captured graph (node metadata, and the values of small host constants
-only) and config.
+Rules never dispatch: they read specs, the captured graph (node
+metadata, and the values of small host constants only) and config.
 """
 
 from __future__ import annotations
@@ -86,6 +88,11 @@ class RuleContext:
     unfused_epilogues: Optional[Sequence[dict]] = None
     pushdown_misses: Optional[Sequence[dict]] = None
     oversized_materializations: Optional[Sequence[dict]] = None
+    #: Verified-lift decisions for numpy UDF stages on a frame's plan
+    #: chain (lint_plan only): the capture records attached by
+    #: plan.lift.build_udf_program — dicts with ``udf``, ``lifted``,
+    #: ``reason``, ``node``, ``lineno``, ``detail``; read by TFG112.
+    lift_events: Optional[Sequence[dict]] = None
     prefix_cache_events: Optional[Sequence[dict]] = None
     query_cache_events: Optional[Sequence[dict]] = None
 
@@ -251,6 +258,11 @@ def _rule_f64_leak(ctx: RuleContext) -> List[Diagnostic]:
 
 def _rule_unused_input(ctx: RuleContext) -> List[Diagnostic]:
     if ctx.graph is None:
+        return []
+    if getattr(ctx.program, "_tftpu_has_callback", False):
+        # a numpy_udf host stage hands every input to the numpy function;
+        # its captured graph is only the empty outputs it returns under
+        # fake tensors
         return []
     placeholders = [n for n in ctx.graph.gm.graph.nodes if n.op == "placeholder"]
     out: List[Diagnostic] = []
@@ -756,6 +768,55 @@ def _rule_fingerprint_unstable(ctx: RuleContext) -> List[Diagnostic]:
 
 
 # ---------------------------------------------------------------------------
+# TFG112 — liftable-callback / lift-declined (plan-chain rule)
+# ---------------------------------------------------------------------------
+
+def _rule_liftable_callback(ctx: RuleContext) -> List[Diagnostic]:
+    """Verified UDF lifting decisions on the chain's numpy UDF stages
+    (plan/lift): a *lifted* stage is an info — the callback barrier was
+    cleared after bit-exact verification and the stage fuses like any
+    other; a *declined* stage is a warn carrying the taxonomy reason
+    and, where one exists, the offending AST node — the actionable
+    rewrite that would let the UDF lift."""
+    if not ctx.lift_events:
+        return []
+    out: List[Diagnostic] = []
+    for ev in ctx.lift_events:
+        udf = str(ev.get("udf", "<udf>"))
+        if ev.get("lifted"):
+            out.append(Diagnostic(
+                "TFG112", "info",
+                f"numpy UDF {udf!r} lifted into the plan IR (synthesis "
+                "verified bit-exact on the boundary corpus): the stage "
+                "fuses — no callback barrier, no per-stage dispatch",
+                subject=udf,
+                fix="none needed — TFTPU_LIFT=0 replays the callback "
+                    "path if you need the host-side original",
+            ))
+            continue
+        reason = str(ev.get("reason", "unknown"))
+        node = ev.get("node")
+        lineno = ev.get("lineno")
+        at = f" at AST node {node}" if node else ""
+        at += f" (line {lineno})" if lineno else ""
+        detail = str(ev.get("detail") or "")
+        out.append(Diagnostic(
+            "TFG112", "warn",
+            f"numpy UDF {udf!r} stayed a host-callback barrier — "
+            f"lift declined: {reason}{at}"
+            + (f" — {detail}" if detail else ""),
+            subject=udf,
+            fix="restrict the UDF to the lifting allowlist (elementwise "
+                "numpy ops, min/max and int/bool sum/mean reductions, "
+                "constants, column refs — no loops, branches, mutable "
+                "closures or np.random); see docs/analysis.md#tfg112 "
+                "for the full table, or keep the callback and accept "
+                "the barrier",
+        ))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # TFG113 — prefix-cache ineligible (serving evidence rule)
 # ---------------------------------------------------------------------------
 
@@ -809,8 +870,9 @@ def _rule_prefix_cache_ineligible(ctx: RuleContext) -> List[Diagnostic]:
 _TFG114_FIXES = {
     "host_callback":
         "the map stage runs a host callback, so results are not a pure "
-        "function of the plan fingerprint — move the callback out of "
-        "the served pipeline",
+        "function of the plan fingerprint — lift the UDF "
+        "(plan.lift/TFG112 names whether it is liftable) or move the "
+        "callback out of the served pipeline",
     "non_algebraic":
         "the aggregate fetches a non-algebraic reduction, so it "
         "executes on the host instead of the plan — restrict fetches "
@@ -889,6 +951,7 @@ RULES: Dict[str, Callable[[RuleContext], List[Diagnostic]]] = {
     "TFG109": _rule_unfused_aggregate,
     "TFG110": _rule_missed_pushdown,
     "TFG111": _rule_oversized_materialization,
+    "TFG112": _rule_liftable_callback,
     "TFG113": _rule_prefix_cache_ineligible,
     "TFG114": _rule_query_not_incremental,
 }

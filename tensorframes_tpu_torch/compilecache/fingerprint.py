@@ -17,8 +17,15 @@ makes one dispatch of a program differ from another:
   inputs, and the fetch order;
 * the **environment**: the device's kind and CUDA capability, the torch
   version, the content hash of the hand-written kernel library
-  (:func:`tensorframes_tpu_torch.kernels.sources_hash`), the entry kind
-  (block/vmap) and the format version.
+  (:func:`tensorframes_tpu_torch.kernels.sources_hash`), the verified-lift
+  state (:func:`tensorframes_tpu_torch.plan.lift.fingerprint_token`), the
+  entry kind (block/vmap) and the format version.
+
+A numpy_udf host stage (``_tftpu_has_callback``) has no fingerprint: its
+captured graph is the ``empty`` outputs it returns under fake tensors,
+the same for every UDF of those shapes, while what it computes is the
+numpy function's. Such a dispatch is counted
+(``note_unfingerprintable``) and never records or hits a key.
 
 ``TFG108`` (analysis/rules.py) calls :func:`program_fingerprint` twice
 with independent captures; :func:`fingerprint_components` names the
@@ -42,7 +49,7 @@ import numpy as np
 
 #: Bumped whenever an entry's layout or the key's composition changes:
 #: old entries then simply miss.
-FORMAT_VERSION = 1
+FORMAT_VERSION = 2
 
 __all__ = [
     "FORMAT_VERSION",
@@ -155,6 +162,7 @@ def _env_parts(kind: str, device) -> Dict[str, object]:
     import torch
 
     from .. import kernels as _kernels
+    from ..plan import lift as _lift
 
     return {
         "format": FORMAT_VERSION,
@@ -163,8 +171,17 @@ def _env_parts(kind: str, device) -> Dict[str, object]:
         # a change to any kernel source or its flags is another library:
         # a key recorded against the old one must miss
         "kernels": _kernels.sources_hash(),
+        # verified-lift state: enabled flag + synthesis-rule version — a
+        # lifted stage and its host stage are different programs, so a
+        # TFTPU_LIFT flip must miss cleanly
+        "lift": _lift.fingerprint_token(),
         "kind": kind,
     }
+
+
+def _is_host_stage(program) -> bool:
+    """A numpy_udf host stage: no graph stands for what it computes."""
+    return bool(getattr(program, "_tftpu_has_callback", False))
 
 
 def _key_slots(
@@ -259,7 +276,8 @@ def program_fingerprint(
     (TFG108). The capture runs under ``FakeTensorMode``: no data moves
     and no kernel runs. ``components=True`` returns the per-component
     digests (:func:`fingerprint_components`) instead of the composed
-    hash. None when the program cannot be captured. ``mesh`` and
+    hash. None when the program cannot be captured, or is a numpy_udf
+    host stage (see the module docstring). ``mesh`` and
     ``shardings`` (a sharded program's layout) come with multi-device
     support and raise ``NotImplementedError`` until then."""
     from ..program import capture_graph
@@ -268,6 +286,8 @@ def program_fingerprint(
         raise NotImplementedError(
             "program_fingerprint: mesh/shardings need the multi-device port"
         )
+    if _is_host_stage(program):
+        return None
     try:
         captured = capture_graph(program, probe)
     except Exception:
@@ -292,11 +312,14 @@ def dispatch_fingerprint(
     program-level slots are captured once per (program, kind, device)
     and memoized on the Program. Returns ``(fingerprint, components,
     environment)``, the last the ``env`` slot's parts as a dict, or None
-    when the program cannot be captured."""
+    when the program cannot be captured or is a numpy_udf host stage."""
+    from ..config import get_config
     from ..program import capture_graph
 
+    if _is_host_stage(program):
+        return None
     memo = program.__dict__.setdefault("_dispatch_slots", {})
-    mkey = (kind, str(device))
+    mkey = (kind, str(device), bool(get_config().udf_lifting))
     if mkey not in memo:
         try:
             captured = capture_graph(program, 8)

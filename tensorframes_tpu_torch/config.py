@@ -2,8 +2,8 @@
 
 The knobs the ported verbs read — row-bucketing ladder, the default
 partition count, the verbs' block pipeline, the generic aggregate's
-buffer, the plan layer's fusion and re-optimization switches, the
-persistent caches' directory and the dispatch-key store's bound, the
+buffer, the plan layer's fusion and re-optimization switches, verified
+UDF lifting, the persistent caches' directory and the dispatch-key store's bound, the
 donation switch the static analyzer reads, the block store's budget and the fleet's
 heartbeat cadence and timeout — plus the execution ``device``. Every knob but the device can
 be overridden via environment variables (``TFTPU_*``, the reference's
@@ -73,6 +73,14 @@ class Config:
     # sidecar under TFTPU_COMPILE_CACHE. TFTPU_REOPT=0 keeps the static
     # cost model: no rewrite, no reordering, no stats recorded or read.
     plan_reopt: bool = _env_bool("TFTPU_REOPT", True)
+    # Verified UDF lifting (analysis/lifting + plan/lift): a numpy UDF
+    # captured by numpy_udf is inspected, synthesized into a torch
+    # Program and verified bit-exactly, on the device the stage runs on,
+    # before it replaces the host stage; a verified lift fuses like any
+    # other stage. Anything that does not verify stays a counted host
+    # stage with its decline reason in TFG112. TFTPU_LIFT=0 runs every
+    # UDF as the host stage: the bit-identity oracle.
+    udf_lifting: bool = _env_bool("TFTPU_LIFT", True)
     # Root directory of persistent caches: the plan-stats sidecar lives
     # in <dir>/planstats, the registered queries' results in
     # <dir>/results, the dispatch-key store (compilecache/store.py) in

@@ -31,6 +31,7 @@ stage by stage, with the same bits. No sharded frames.
 from __future__ import annotations
 
 import sys
+import threading
 import time
 from collections import deque
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
@@ -64,7 +65,7 @@ from .executor import (
 
 logger = get_logger(__name__)
 
-Fetches = Union[Node, Sequence[Node], Program, Callable]
+Fetches = Union[Node, Sequence[Node], Program, Callable, "NumpyUDF"]
 
 
 def _plan_map_result(
@@ -133,6 +134,123 @@ def _input_specs_from_schema(schema: Schema, block: bool) -> Dict[str, TensorSpe
     return specs
 
 
+class NumpyUDF:
+    """A numpy UDF captured for verified lifting (``numpy_udf``).
+
+    The wrapped function receives one *numpy* array per parameter
+    (parameter name = column name, block-level) and returns arrays /
+    a dict / a tuple of arrays. Capture goes one of two ways, decided for
+    the device the verb runs on:
+
+    * the static lifter (analysis/lifting + plan/lift) synthesizes an
+      equivalent torch Program and verifies it bit-exactly on a
+      boundary-value corpus and seeded random blocks, on that device —
+      the lifted stage fuses like any other (no TFG107 barrier), or
+    * anything that does not verify runs as a host stage — exactly what
+      the user wrote, once per block, with the decline reason counted
+      and surfaced via TFG112 / ``--lift-report``.
+
+    Results are bit-identical either way (both write NaN as one
+    canonical NaN); the lift exists purely for speed. Block-level only:
+    ``map_rows`` raises. Capture warns (TFG112) when the UDF closes over
+    mutable state — the host stage re-reads such state per block, so
+    later mutations silently rebind its behavior (stale-closure hazard).
+    """
+
+    def __init__(self, fn: Callable):
+        if not callable(fn) or isinstance(fn, (Node, Program)):
+            raise TypeError(
+                "numpy_udf wraps a plain Python function over numpy "
+                f"arrays; got {type(fn).__name__}")
+        self.fn = fn
+        self._programs: Dict[tuple, Program] = {}
+        self._prog_lock = threading.Lock()
+        self._warn_mutable_closures()
+
+    def _warn_mutable_closures(self) -> None:
+        from ..analysis.lifting import detect_mutable_closures
+
+        names = detect_mutable_closures(self.fn)
+        if not names:
+            return
+        from ..analysis.diagnostics import Diagnostic, DiagnosticReport
+
+        udf = getattr(self.fn, "__name__", "<udf>")
+        DiagnosticReport([
+            Diagnostic(
+                code="TFG112",
+                severity="warn",
+                message=(
+                    f"numpy_udf {udf!r} closes over mutable state "
+                    f"({', '.join(sorted(names))}): the callback re-reads "
+                    "it on every block, so mutating it after capture "
+                    "silently rebinds the UDF's behavior (stale-closure "
+                    "hazard); lifting declines it"
+                ),
+                subject=udf,
+                fix=(
+                    "snapshot the captured value into an immutable "
+                    "scalar, pass it as a column, or freeze it "
+                    "(tuple / float) before capture"
+                ),
+            )
+        ])
+
+    def _materialize(
+        self,
+        schema: Schema,
+        block: bool,
+        reduce_mode: Optional[str],
+        feed_dict: Optional[Dict[str, str]],
+        device,
+    ) -> Program:
+        if not block:
+            raise ValidationError(
+                "numpy_udf programs are block-level (the host callback "
+                "runs once per block, and lifting targets block "
+                "expressions); use map_blocks / aggregate, not map_rows"
+            )
+        specs = _input_specs_from_schema(schema, block)
+        for ph, col in (feed_dict or {}).items():
+            if col in specs and ph not in specs:
+                specs[ph] = TensorSpec(ph, specs[col].dtype, specs[col].shape)
+        if reduce_mode == "blocks":
+            for c in schema.device_columns:
+                specs[f"{c.name}_input"] = TensorSpec(
+                    f"{c.name}_input", c.dtype, c.block_shape
+                )
+        # cache the analyzed Program per capture context so steady-state
+        # calls reuse one object; the device is part of the context, as a
+        # stage verified on one device proves nothing on another
+        key = (
+            tuple(sorted(
+                (n, str(s.dtype), tuple(repr(d) for d in s.shape.dims))
+                for n, s in specs.items()
+            )),
+            reduce_mode,
+            bool(get_config().udf_lifting),
+            str(device),
+        )
+        with self._prog_lock:
+            cached = self._programs.get(key)
+        if cached is not None:
+            return cached
+        from ..plan import lift as plan_lift
+
+        program = plan_lift.build_udf_program(self.fn, specs, device=device)
+        with self._prog_lock:
+            self._programs.setdefault(key, program)
+            return self._programs[key]
+
+
+def numpy_udf(fn: Callable) -> NumpyUDF:
+    """Capture a numpy host function for verified lifting — see
+    :class:`NumpyUDF`. Usable anywhere block-level fetches are:
+    ``map_blocks(numpy_udf(f), frame)``, ``aggregate``,
+    ``reduce_blocks``."""
+    return NumpyUDF(fn)
+
+
 def _normalize_program(
     fetches: Fetches,
     schema: Schema,
@@ -167,6 +285,13 @@ def _normalize_program(
         nodes = [fetches] if isinstance(fetches, Node) else list(fetches)
         program = compile_fetches(nodes)
         seg_info = segment_reduce_info(nodes)
+    elif isinstance(fetches, NumpyUDF):
+        # capture -> lifted-or-host-stage Program, fully analyzed and
+        # cached on the UDF per device (like the Program passthrough
+        # above, its dispatch bookkeeping survives across verb calls)
+        program = fetches._materialize(schema, block, reduce_mode, feed_dict,
+                                       device)
+        return program, getattr(program, "seg_info", None)
     elif callable(fetches):
         specs = _input_specs_from_schema(schema, block)
         for ph, col in (feed_dict or {}).items():

@@ -27,8 +27,13 @@ the cost model, so a recurring pipeline's second execution is counted
 bit-identical; ``TFTPU_REOPT=0`` / ``configure(plan_reopt=False)``
 restores the static cost model.
 
-Importing this package registers the ``tftpu_plan_*`` metrics family,
-so expositions carry it from process start.
+Verified UDF lifting (:mod:`.lift`) turns a ``numpy_udf`` stage into a
+torch program when it verifies bit for bit on the stage's device, so it
+fuses instead of splitting the chain as a host stage.
+
+Importing this package registers the ``tftpu_plan_*`` and
+``tftpu_lift_total`` metrics families, so expositions carry them from
+process start.
 """
 
 from .ir import (  # noqa: F401
@@ -47,6 +52,7 @@ from .ir import (  # noqa: F401
     unfused_epilogues,
 )
 from .lower import execute_aggregate, execute_plan, lower_reduce  # noqa: F401
+from . import lift  # noqa: F401  (registers tftpu_lift_total)
 from .rules import (  # noqa: F401
     Decision,
     PushdownPlan,

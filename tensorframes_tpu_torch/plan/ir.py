@@ -312,12 +312,16 @@ def pushdown_miss_log(frame) -> List[dict]:
 def program_has_callback(program) -> bool:
     """True when the program reaches back to the host while it runs —
     such a stage executes per stage, so its side effects happen exactly
-    as with fusion off. A program counts as a callback when it carries
-    ``_tftpu_has_callback = True``, or when running it under torch's
-    ``FakeTensorMode`` fails (``.item()``, ``.numpy()``, ``.tolist()``
-    and data-dependent shapes do): a trace failure is treated as a
-    callback, never fusing what cannot be seen. Cached on the
-    Program."""
+    as with fusion off. A numpy_udf stage says so itself (plan/lift): a
+    verified lift (``_tftpu_lifted``) never is one, its host stage
+    (``_tftpu_has_callback = True``) always is, though that stage runs
+    under ``FakeTensorMode`` without touching data. Any other program
+    counts as a callback when running it under ``FakeTensorMode`` fails
+    (``.item()``, ``.numpy()``, ``.tolist()`` and data-dependent shapes
+    do): a trace failure is treated as a callback, never fusing what
+    cannot be seen. Cached on the Program."""
+    if getattr(program, "_tftpu_lifted", False):
+        return False
     cached = getattr(program, "_tftpu_has_callback", None)
     if cached is not None:
         return cached

@@ -128,6 +128,12 @@ class Program:
 
         renamed = Program(fn, new_inputs, self.outputs, self.fetch_order)
         renamed.device = self.device
+        # a numpy_udf stage's lift decision (plan/lift) names the stage,
+        # not its feeds: the plan reads it to fuse or split, TFG112 to
+        # report it
+        for attr in ("_tftpu_lifted", "_tftpu_has_callback", "_tftpu_lift_info"):
+            if attr in self.__dict__:
+                setattr(renamed, attr, self.__dict__[attr])
         # carry the segment-lowering info (input names remapped) so the
         # aggregate fast path survives feed_dict renames
         seg = getattr(self, "seg_info", None)

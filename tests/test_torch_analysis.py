@@ -149,7 +149,7 @@ def test_codes_are_the_references():
     from tensorframes_tpu_torch.analysis import diagnostics as td
 
     assert td.SEVERITIES == jd.SEVERITIES
-    assert set(trules.RULES) == set(janalysis.rules.RULES) - {"TFG112"}
+    assert set(trules.RULES) == set(janalysis.rules.RULES)
 
 
 def test_messages_whole_where_no_graph_is_named():

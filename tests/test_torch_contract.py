@@ -456,6 +456,8 @@ def test_metric_names_are_the_reference_packages():
     from tensorframes_tpu_torch.observability.metrics import REGISTRY as TREG
 
     import tensorframes_tpu.kernels  # noqa: F401  (registers the JAX side's kernel counters)
+    import tensorframes_tpu.plan.lift  # noqa: F401  (and its tftpu_lift_total, which the port's
+    # package import registers)
 
     ref = {d["name"] for d in JREG.snapshot()}
     port = {d["name"] for d in TREG.snapshot()}

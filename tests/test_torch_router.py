@@ -538,7 +538,9 @@ def test_heartbeats_and_cards_read_back_equal_across_packages(tmp_path):
     # a graceful stop reads as stopped in both packages' status
     hb = tfleet.Heartbeater(d, interval_s=0.05, rank=2).start()
     hb.stop(graceful=True)
-    jhb = jfleet.Heartbeater(d, interval_s=0.05, rank=3).start()
+    # a live rank whose next beat falls after both reads: a beat between
+    # them would give the two packages' statuses different ages
+    jhb = jfleet.Heartbeater(d, interval_s=30.0, rank=3).start()
     time.sleep(0.1)
     now = time.time()
     for run in runs:
