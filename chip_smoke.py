@@ -208,7 +208,19 @@ Phases:
    row program, TFG106 against the card's memory and a planted 1 MiB,
    launches nothing and adds no key (its wall printed); ``lint_plan``
    finds TFG107, TFG109 and TFG110 on chains built to show them; the leg
-   within 120 s. Then gpt_small training with
+   within 120 s. Then the data-parallel frame (``sharded_leg``): a world
+   of one under NCCL takes the main path's 10M-row aggregate feed through
+   ``to_device``, a map, the keyed aggregate (one ``segment_reduce``
+   launch, equal to the unsharded port's within ``float_close``) and
+   ``reduce_blocks`` (the device's idle share of one aggregate printed);
+   two ranks of this script (``--sharded-rank``) share the card over gloo
+   (NCCL refuses two ranks on one device), 5M rows each: the dense,
+   string-key and generic aggregates, ``repartition_by_key``, an exchange
+   join, a range-exchange sort, ``drop_duplicates``, a ragged
+   ``map_rows``, the sharded save/load and ``to_host``, their union equal
+   to the single-process port, ``segment_reduce`` once a rank an
+   aggregate and ``ragged_gather`` once a rank; each rank's walls and
+   exchange and shuffle bytes printed; the leg within 120 s. Then gpt_small training with
    flash attention (f32 weights from seed 0, AdamW at lr 1e-3):
    ``training.train_on_frame`` takes 10 steps of 8 x 1024 tokens off a
    16-row frame, counts reset first; every step must launch the flash
@@ -4369,6 +4381,435 @@ def infra_leg(tft, dev, encoder) -> dict:
     return out
 
 
+SHARDED_ROWS, SHARDED_GROUPS = 10_000_000, 4096  # the main path's aggregate feed
+SHARDED_RANKS = 2            # gloo ranks sharing cuda:0 (NCCL refuses two ranks on one card)
+SHARDED_REL_ROWS = 1_000_000  # each rank's slice for the relational ops and the string keys
+SHARDED_STR_KEYS = 64
+SHARDED_RIGHT = 4096         # the join's right side: one row a key
+SHARDED_RAGGED = 100_000     # each rank's ragged rows (RAGGED_ROWS in all)
+SHARDED_LEG_LIMIT_S = 120.0
+SHARDED_RANK_CMD = [sys.executable, str(ROOT / "chip_smoke.py"), "--sharded-rank"]
+
+
+def free_port() -> int:
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    return port
+
+
+def sharded_columns(dev, lo: int, hi: int) -> dict:
+    """Rows ``[lo, hi)`` of the main path's 10M-row aggregate feed
+    (``segment_inputs``, drawn on the card from the seed): int32 ids over
+    4,096 groups, f32 ``v`` (summed) and its copy ``u`` (averaged), f32
+    ``[n, 8]`` ``w`` (its map ``w2`` maxed), int32 ``c`` (summed) and its
+    copy ``c_min`` (minimized)."""
+    ids, v, w, c = segment_inputs(SHARDED_ROWS, SHARDED_GROUPS, dev)
+    return {"ids": ids[lo:hi], "v": v[lo:hi], "u": v[lo:hi].clone(), "w": w[lo:hi],
+            "c": c[lo:hi], "c_min": c[lo:hi].clone()}
+
+
+def sharded_fetches(tft, frame) -> list:
+    """sum, mean, max (of the mapped ``w2``), sum and min: one aggregate."""
+    with tft.with_graph():
+        b = lambda col: tft.block(frame, col, tf_name=f"{col}_input")  # noqa: E731
+        return [tft.reduce_sum(b("v"), name="v"), tft.reduce_mean(b("u"), name="u"),
+                tft.reduce_max(b("w2"), name="w2"), tft.reduce_sum(b("c"), name="c"),
+                tft.reduce_min(b("c_min"), name="c_min")]
+
+
+def sharded_reduce(tft, frame):
+    with tft.with_graph():
+        return frame.reduce_blocks([
+            tft.reduce_sum(tft.block(frame, "v", tf_name="v_input"), name="v"),
+            tft.reduce_min(tft.block(frame, "c", tf_name="c_input"), name="c")])
+
+
+def sharded_rel_columns(cols: dict) -> dict:
+    """A rank's relational slice: its first SHARDED_REL_ROWS rows, with a
+    string key of SHARDED_STR_KEYS values (``ids % 64``)."""
+    ids = cols["ids"][:SHARDED_REL_ROWS]
+    names = [f"grp{j:02d}" for j in range(SHARDED_STR_KEYS)]
+    return {"k": ids, "x": cols["v"][:SHARDED_REL_ROWS], "c": cols["c"][:SHARDED_REL_ROWS],
+            "s": [names[i] for i in (ids.cpu().numpy() % SHARDED_STR_KEYS)]}
+
+
+def sharded_right(lo: int, hi: int) -> dict:
+    import numpy as np
+
+    rv = np.random.default_rng(SEED).integers(0, 1000, SHARDED_RIGHT).astype(np.int32)
+    return {"k": np.arange(SHARDED_RIGHT, dtype=np.int32)[lo:hi], "rv": rv[lo:hi]}
+
+
+def sharded_lse(x_input, c_input):
+    """The generic (UDAF) fetch: log-sum-exp and an int32 sum."""
+    import torch
+
+    return {"x": torch.logsumexp(x_input, 0), "c": c_input.sum(0, dtype=torch.int32)}
+
+
+def sharded_generic(tft, frame):
+    return frame.select(["k", "x", "c"]).group_by("k").aggregate(sharded_lse)
+
+
+def sharded_strings(tft, frame):
+    with tft.with_graph():
+        return frame.group_by("s").aggregate([
+            tft.reduce_sum(tft.block(frame, "c", tf_name="c_input"), name="c"),
+            tft.reduce_sum(tft.block(frame, "x", tf_name="x_input"), name="x")])
+
+
+def check_dense(got, want, ids, v, what: str) -> float:
+    """A sharded 10M-row aggregate against the unsharded port's: keys,
+    max, int sum and min exact; the float sum and mean within float_close
+    of float64 sums."""
+    import numpy as np
+    import torch
+
+    for col in ("ids", "w2", "c", "c_min"):
+        a, b = np.asarray(got[col]), np.asarray(want[col])
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            fail(f"{what}: {col} differs from the unsharded port's")
+    keys = torch.from_numpy(np.asarray(got["ids"]).astype(np.int64)).to(v.device)
+    counts = torch.bincount(ids.long(), minlength=SHARDED_GROUPS)[keys]
+    sums = f64_sums(v, ids, SHARDED_GROUPS)[keys][:, 0]
+    vmax = float(v.abs().max())
+    err = float_close(torch.as_tensor(np.asarray(got["v"])).to(v.device), sums, counts, vmax)
+    return max(err, float_close(torch.as_tensor(np.asarray(got["u"])).to(v.device),
+                                sums / counts.double(), counts, vmax, mean=True))
+
+
+def table(frame) -> dict:
+    """A host frame's columns (this rank's rows)."""
+    import numpy as np
+
+    out = {}
+    for n in frame.schema.names:
+        v = frame.column_values(n)
+        out[n] = list(v) if v.dtype == object else np.asarray(v)
+    return out
+
+
+def sharded_rank(tft, dev, rank: int, world: int, port: int, work: Path) -> dict:
+    """One gloo rank of ``sharded_leg``'s pair on the card: its half of the
+    10M rows through ``frame_from_process_local``, the dense-span
+    aggregate after a map, ``reduce_blocks``, and on its 1M-row relational
+    slice the string-key (dictionary plan) and generic aggregates (the
+    latter's partials merged through the file shuffle), ``repartition_by_key``,
+    an exchange join, an over-budget ``sort_values``, ``drop_duplicates``,
+    a ``map_rows`` over process-local ragged cells, the sharded save and
+    load, and ``to_host``. Returns its results, walls and launches."""
+    import os
+
+    import numpy as np
+    from tensorframes_tpu_torch import io as tio
+    from tensorframes_tpu_torch.blockstore import shuffle
+    from tensorframes_tpu_torch.blockstore.store import HOSTGATHER_BYTES
+    from tensorframes_tpu_torch.ops import exchange
+    from tensorframes_tpu_torch.parallel import frame_from_process_local, init_distributed
+
+    init_distributed(f"localhost:{port}", world, rank, backend="gloo", device=dev)
+    walls, launches, out = {}, {}, {}
+
+    def timed(name, fn):
+        tft.kernels.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        res = fn()
+        walls[name] = time.perf_counter() - t0
+        launches[name] = launch_counts(tft)
+        return res
+
+    lo, hi = rank * SHARDED_ROWS // world, (rank + 1) * SHARDED_ROWS // world
+    cols = sharded_columns(dev, lo, hi)
+    fr = timed("frame_from_process_local", lambda: frame_from_process_local(cols))
+    mapped = timed("map_blocks", lambda: fr.map_blocks(lambda w: {"w2": w * 2.0}).cache())
+    fetch = sharded_fetches(tft, mapped)
+    out["dense"] = timed("dense_aggregate",
+                         lambda: table(mapped.group_by("ids").aggregate(fetch)))
+    # the same call again: the first pays the process's first program
+    # capture and plan decisions
+    timed("dense_aggregate_again", lambda: mapped.group_by("ids").aggregate(fetch))
+    out["reduce_blocks"] = timed("reduce_blocks", lambda: sharded_reduce(tft, fr))
+    rel = frame_from_process_local(sharded_rel_columns(cols))
+    out["strings"] = timed("string_aggregate", lambda: table(sharded_strings(tft, rel)))
+    os.environ["TFTPU_SHUFFLE_DIR"] = str(work / "shuffle")
+    shuffle._reset_for_tests()
+    out["generic"] = timed("generic_aggregate", lambda: table(sharded_generic(tft, rel)))
+    del os.environ["TFTPU_SHUFFLE_DIR"]
+    shuffle._reset_for_tests()
+    out["repartition"] = timed("repartition_by_key",
+                               lambda: table(rel.select(["k", "c"]).repartition_by_key("k")))
+    right = frame_from_process_local(sharded_right(rank * SHARDED_RIGHT // world,
+                                                   (rank + 1) * SHARDED_RIGHT // world))
+    budget = tft.get_config().relational_broadcast_bytes
+    tft.configure(relational_broadcast_bytes=0)  # over budget: the exchange plans
+    try:
+        out["join"] = timed("join", lambda: table(rel.select(["k", "c"]).join(right, on="k")))
+        out["sort"] = timed("sort_values",
+                            lambda: table(rel.select(["k", "c"]).sort_values(["k", "c"])))
+    finally:
+        tft.configure(relational_broadcast_bytes=budget)
+    out["dedup"] = timed("drop_duplicates",
+                         lambda: table(rel.select(["k", "s"]).drop_duplicates()))
+    lens, starts, flat = ragged_cells(RAGGED_ROWS)
+    r0, r1 = rank * SHARDED_RAGGED, (rank + 1) * SHARDED_RAGGED
+    cells = [flat[starts[i]:starts[i] + lens[i]] for i in range(r0, r1)]
+    rag = frame_from_process_local({"i": np.arange(r0, r1, dtype=np.int32), "r": cells})
+    out["ragged"] = timed("map_rows_ragged", lambda: rag.map_rows(
+        lambda r: {"rs": r.sum() * 2.0}).to_host().column_values("rs"))
+    path = str(work / "saved")
+
+    def save_load():
+        tio.save_frame_sharded(rel.select(["k", "x", "c"]), path)
+        return tio.load_frame_sharded(path)
+
+    back = timed("save_load", save_load)
+    mine = table(rel.select(["k", "x", "c"]).to_host())
+    loaded = table(back.to_host())
+    out["save_load_equal"] = all(np.array_equal(mine[n], loaded[n]) for n in ("k", "x", "c"))
+    out["to_host_rows"] = len(mine["k"])
+    out["num_rows"] = fr.num_rows
+    out["counters"] = {
+        "all_to_all_wire_bytes": exchange.EXCHANGE_WIRE_BYTES.value,
+        "all_to_all_payload_bytes": exchange.EXCHANGE_PAYLOAD_BYTES.value,
+        "shuffle_bytes": shuffle.SHUFFLE_BYTES.value,
+        "hostgather_bytes": HOSTGATHER_BYTES.value,
+    }
+    return {"rank": rank, "walls": walls, "launches": launches, "out": out}
+
+
+def sharded_rank_main() -> int:
+    """``python3 chip_smoke.py --sharded-rank RANK WORLD PORT WORKDIR``: one
+    rank of ``sharded_leg``'s pair; pickles its report to WORKDIR."""
+    import pickle
+
+    import torch
+
+    why = refusal(torch)
+    if why:
+        print(f"chip_smoke: {why}", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import tensorframes_tpu_torch as tft
+
+    rank, world, port, work = (int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
+                               Path(sys.argv[5]))
+    dev = torch.device("cuda", 0)
+    tft.kernels.library()
+    report = sharded_rank(tft, dev, rank, world, port, work)
+    with open(work / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(report, f)
+    from tensorframes_tpu_torch.parallel.distributed import shutdown_distributed
+
+    shutdown_distributed()
+    return 0
+
+
+def sharded_world_of_one(tft, dev) -> dict:
+    """A world of one under NCCL on cuda:0: the 10M rows through
+    ``to_device()``, a ``map_blocks``, the keyed aggregate (sum, mean, max,
+    sum, min) and ``reduce_blocks``, against the unsharded port on the
+    card; ``segment_reduce`` launched once for the aggregate; the device's
+    idle share of one aggregate call (``timeline_profile``)."""
+    import numpy as np
+    from tensorframes_tpu_torch.parallel import distributed, init_distributed
+
+    init_distributed(f"localhost:{free_port()}", 1, 0, backend="nccl", device=dev)
+    try:
+        if distributed.backend() != "nccl":
+            fail("sharded leg: the world of one is not on NCCL")
+        cols = sharded_columns(dev, 0, SHARDED_ROWS)
+        host = tft.frame_from_arrays({k: v.cpu().numpy() for k, v in cols.items()})
+        t0 = time.perf_counter()
+        sh = host.to_device()
+        to_device_s = time.perf_counter() - t0
+        mapped = sh.map_blocks(lambda w: {"w2": w * 2.0}).cache()
+        fetch = sharded_fetches(tft, mapped)
+        mapped.group_by("ids").aggregate(fetch)  # warm-up
+        tft.kernels.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        got = table(mapped.group_by("ids").aggregate(fetch))
+        wall = time.perf_counter() - t0
+        launches = launch_counts(tft)
+        if launches["segment_reduce"] != 1:
+            fail(f"sharded leg: the world of one's aggregate launched segment_reduce "
+                 f"{launches['segment_reduce']} times (want 1)")
+        red = sharded_reduce(tft, sh)
+        plain_mapped = host.map_blocks(lambda w: {"w2": w * 2.0}, device=dev)
+        want = table(tft.aggregate(sharded_fetches(tft, plain_mapped),
+                                   plain_mapped.group_by("ids"), device=dev))
+        want_red = sharded_reduce(tft, host)
+        err = check_dense(got, want, cols["ids"], cols["v"], "world of one")
+        if int(red[1]) != int(want_red[1]) or not np.isclose(
+                float(red[0]), float(want_red[0]), rtol=1e-5):
+            fail(f"sharded leg: reduce_blocks {red} against the unsharded {want_red}")
+        prof = timeline_profile(lambda: mapped.group_by("ids").aggregate(fetch))
+        return {"wall_s": wall, "to_device_s": to_device_s, "launches": launches,
+                "max_abs_err": err, "want": want, "busy_share": prof["busy_share"],
+                "profile_wall_ms": prof["wall_ms"], "reduce_blocks": [float(red[0]), int(red[1])]}
+    finally:
+        distributed.shutdown_distributed()
+
+
+def sharded_leg(tft, dev) -> dict:
+    """The data-parallel frame on the card, within SHARDED_LEG_LIMIT_S.
+
+    1. A world of one under NCCL (:func:`sharded_world_of_one`).
+    2. Two ranks sharing cuda:0 over gloo (:func:`sharded_rank`, child
+       processes through SHARDED_RANK_CMD; NCCL refuses two ranks on one
+       device, "Duplicate GPU detected"). The union of the ranks' results
+       must equal the single-process port on the card: the dense aggregate
+       (ints exact, floats within float_close of float64 sums), the string
+       and generic aggregates, the join, the sort (ranks in order), the
+       dedup and the ragged map; each rank's rows after
+       ``repartition_by_key`` must be the ones ``partition_by_hash`` sends
+       it, in (source rank, local order); ``segment_reduce`` at least once
+       a rank for each device-plan aggregate, ``ragged_gather`` at least
+       once a rank. A failed child fails the leg."""
+    import os
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch
+    from tensorframes_tpu_torch.ops.exchange import partition_by_hash
+
+    t_leg = time.perf_counter()
+    one = sharded_world_of_one(tft, dev)
+    log(f"# sharded world of one (NCCL, cuda:0): to_device {one['to_device_s']:.3f} s, aggregate "
+        f"{one['wall_s'] * 1e3:.3f} ms host wall, segment_reduce launches "
+        f"{one['launches']['segment_reduce']}, float error {one['max_abs_err']:.3g}; one "
+        f"profiled aggregate {one['profile_wall_ms']:.3f} ms, device busy "
+        f"{one['busy_share']:.4f}, idle {1 - one['busy_share']:.4f}")
+    work = Path(tempfile.mkdtemp(prefix="sharded_", dir=str(ROOT / "build")))
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(SHARDED_RANK_CMD + [str(r), str(SHARDED_RANKS), str(port), str(work)],
+                              cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True, env=dict(os.environ, TFTPU_RUN_ID="sharded"))
+             for r in range(SHARDED_RANKS)]
+    logs = []
+    try:
+        for p in procs:
+            left = max(1.0, SHARDED_LEG_LIMIT_S - (time.perf_counter() - t_leg))
+            logs.append(p.communicate(timeout=left)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode != 0 for p in procs):
+        fail("sharded leg: a rank failed: " + " | ".join(
+            f"rank {r} rc {p.returncode}: {logs[r][-2000:] if r < len(logs) else ''}"
+            for r, p in enumerate(procs)))
+    ranks_s = time.perf_counter() - t0
+    reports = []
+    for r in range(SHARDED_RANKS):
+        with open(work / f"rank{r}.pkl", "rb") as f:
+            reports.append(pickle.load(f))
+
+    # the single-process port on the card, on the same whole data
+    whole = sharded_columns(dev, 0, SHARDED_ROWS)
+    err = 0.0
+    for rep in reports:
+        if rep["out"]["num_rows"] != SHARDED_ROWS:
+            fail(f"sharded leg: rank {rep['rank']} counts {rep['out']['num_rows']} rows")
+        err = max(err, check_dense(rep["out"]["dense"], one["want"], whole["ids"],
+                                   whole["v"], f"rank {rep['rank']} dense aggregate"))
+        red = rep["out"]["reduce_blocks"]
+        if int(red[1]) != one["reduce_blocks"][1] or not np.isclose(
+                float(red[0]), one["reduce_blocks"][0], rtol=1e-5):
+            fail(f"sharded leg: rank {rep['rank']} reduce_blocks {red}")
+    halves = [sharded_columns(dev, r * SHARDED_ROWS // SHARDED_RANKS,
+                              (r + 1) * SHARDED_ROWS // SHARDED_RANKS)
+              for r in range(SHARDED_RANKS)]
+    rels = [sharded_rel_columns(h) for h in halves]
+    rel = {"k": np.concatenate([r["k"].cpu().numpy() for r in rels]),
+           "x": np.concatenate([r["x"].cpu().numpy() for r in rels]),
+           "c": np.concatenate([r["c"].cpu().numpy() for r in rels]),
+           "s": sum((r["s"] for r in rels), [])}
+    frame = tft.frame_from_arrays(rel, num_blocks=1)
+    want_s = table(sharded_strings(tft, frame))
+    want_g = table(sharded_generic(tft, frame))
+    right = tft.frame_from_arrays(sharded_right(0, SHARDED_RIGHT))
+    want_j = table(frame.select(["k", "c"]).join(right, on="k"))
+    want_sort = table(frame.select(["k", "c"]).sort_values(["k", "c"]))
+    want_dd = table(frame.select(["k", "s"]).drop_duplicates())
+    lens, starts, flat = ragged_cells(RAGGED_ROWS)
+    cells = [flat[starts[i]:starts[i] + lens[i]] for i in range(RAGGED_ROWS)]
+    want_rag = tft.frame_from_arrays({"r": cells}).map_rows(
+        lambda r: {"rs": r.sum() * 2.0}, device=dev).column_values("rs")
+
+    def rows(tab, names):
+        return sorted(zip(*(np.asarray(tab[n], dtype=object).tolist() for n in names)))
+
+    def union(key, names):
+        return {n: (sum((list(rep["out"][key][n]) for rep in reports), [])
+                    if isinstance(reports[0]["out"][key][n], list)
+                    else np.concatenate([np.asarray(rep["out"][key][n]) for rep in reports]))
+                for n in names}
+
+    for rep in reports:
+        got = rep["out"]["strings"]
+        if list(got["s"]) != list(want_s["s"]) or not np.array_equal(got["c"], want_s["c"]):
+            fail(f"sharded leg: rank {rep['rank']} string aggregate keys or int sums")
+        if not np.allclose(got["x"], want_s["x"], rtol=1e-5, atol=1e-3):
+            fail(f"sharded leg: rank {rep['rank']} string aggregate float sums")
+        got = rep["out"]["generic"]
+        tol = LSE_RTOL * float(np.abs(want_g["x"]).max())
+        if (not np.array_equal(got["k"], want_g["k"]) or not np.array_equal(got["c"], want_g["c"])
+                or float(np.abs(got["x"] - want_g["x"]).max()) > tol):
+            fail(f"sharded leg: rank {rep['rank']} generic aggregate")
+        if not rep["out"]["save_load_equal"]:
+            fail(f"sharded leg: rank {rep['rank']} save_frame_sharded/load_frame_sharded")
+    if rows(union("join", ("k", "c", "rv")), ("k", "c", "rv")) != rows(want_j, ("k", "c", "rv")):
+        fail("sharded leg: the exchange join's union differs from the single-process join")
+    srt = union("sort", ("k", "c"))
+    if not all(np.array_equal(srt[n], want_sort[n]) for n in ("k", "c")):
+        fail("sharded leg: the range-exchange sort in rank order differs from the global sort")
+    if rows(union("dedup", ("k", "s")), ("k", "s")) != rows(want_dd, ("k", "s")):
+        fail("sharded leg: drop_duplicates' union differs")
+    got_rag = np.concatenate([np.asarray(rep["out"]["ragged"]) for rep in reports])
+    if not np.allclose(got_rag, want_rag, rtol=1e-6, atol=1e-6):
+        fail("sharded leg: the ragged map_rows' union differs")
+    parts = [partition_by_hash([r["k"].cpu().numpy()], SHARDED_RANKS) for r in rels]
+    for me, rep in enumerate(reports):
+        idx = [np.flatnonzero(parts[r] == me) for r in range(SHARDED_RANKS)]
+        want_k = np.concatenate([rels[r]["k"].cpu().numpy()[i] for r, i in enumerate(idx)])
+        want_c = np.concatenate([rels[r]["c"].cpu().numpy()[i] for r, i in enumerate(idx)])
+        got = rep["out"]["repartition"]
+        if not (np.array_equal(got["k"], want_k) and np.array_equal(got["c"], want_c)):
+            fail(f"sharded leg: rank {me}'s rows after repartition_by_key")
+    if sum(rep["out"]["to_host_rows"] for rep in reports) != 2 * SHARDED_REL_ROWS:
+        fail("sharded leg: to_host's rows")
+    for rep in reports:
+        ln = rep["launches"]
+        for agg in ("dense_aggregate", "string_aggregate"):
+            if ln[agg]["segment_reduce"] < 1:
+                fail(f"sharded leg: rank {rep['rank']}'s {agg} never launched segment_reduce")
+        if ln["map_rows_ragged"]["ragged_gather"] < 1:
+            fail(f"sharded leg: rank {rep['rank']}'s ragged map_rows never launched ragged_gather")
+        log(f"# sharded rank {rep['rank']} walls (s): " + json.dumps(
+            {k: round(v, 4) for k, v in rep["walls"].items()}))
+        log(f"# sharded rank {rep['rank']} launches: " + json.dumps(
+            {k: {n: v[n] for n in ("segment_reduce", "segment_sum", "ragged_gather")}
+             for k, v in ln.items()}))
+        log(f"# sharded rank {rep['rank']} counters: {json.dumps(rep['out']['counters'])}")
+    leg_s = time.perf_counter() - t_leg
+    log(f"# sharded leg: ranks {ranks_s:.1f} s (start-up included), dense float error "
+        f"{err:.3g}, leg {leg_s:.1f} s")
+    if leg_s > SHARDED_LEG_LIMIT_S:
+        fail(f"sharded leg: took {leg_s:.1f} s (limit {SHARDED_LEG_LIMIT_S:g} s)")
+    total = {}
+    for counts in [one["launches"]] + [v for rep in reports for v in rep["launches"].values()]:
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return {"launches": total, "leg_s": leg_s, "world_of_one": one, "ranks": reports}
+
+
 def embed_rows(tft, cfg, params, frame, dev, verb: str):
     """One verb call of BERT-base embedding extraction on ``frame``:
     ``map_rows`` over ``compile_program(embed_row_program, block=False)``
@@ -6664,6 +7105,12 @@ def main() -> int:
     missing = [k for k in ("segment_reduce", "flash_attention") if infra["launches"][k] <= 0]
     if missing:
         fail(f"kernels never launched on the infra leg's path: {missing}")
+    t_sharded = time.perf_counter()
+    sharded = sharded_leg(tft, dev)
+    log(f"# sharded leg: {time.perf_counter() - t_sharded:.1f} s")
+    missing = [k for k in ("segment_reduce", "ragged_gather") if sharded["launches"][k] <= 0]
+    if missing:
+        fail(f"kernels never launched on the sharded leg's path: {missing}")
 
     t4 = time.perf_counter()
     train = training_path(tft, dev)
@@ -6747,6 +7194,7 @@ def main() -> int:
              (serving, SERVING_KERNELS), (kv, SERVING_KERNELS),
              (encoder, ENCODER_KERNELS), (flush, ENCODER_KERNELS), (fleet, ENCODER_KERNELS),
              (infra, ("segment_reduce", "flash_attention")),
+             (sharded, ("segment_reduce", "segment_sum", "ragged_gather")),
              (train, TRAINING_KERNELS), (resumable, TRAINING_KERNELS),
              (imported["int8"], ("int8_matmul",)),
              (vggr["int8"], ("int8_matmul",)))
@@ -6800,4 +7248,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--fleet-replica"]:
         sys.exit(fleet_replica_main())
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        sys.exit(sharded_rank_main())
     sys.exit(infra_warm_main() if sys.argv[1:2] == ["--infra-warm"] else main())

@@ -37,7 +37,12 @@ chain over data larger than memory (:func:`stream_chain`, spilling to a
 
 Frames are host-resident; verbs run each block on one device, the GPU
 unless the caller asks for the CPU (``device="cpu"`` on a verb, or
-``configure(device="cpu")``). The keyed segment reductions and the ragged
+``configure(device="cpu")``). A frame can also be sharded over the ranks
+of a ``torch.distributed`` process group, one device a rank
+(:meth:`TensorFrame.to_device`, :func:`parallel.frame_from_process_local`):
+its verbs then run on each rank's rows and cross ranks through NCCL or
+gloo collectives (:mod:`.parallel`, ``ops/device_agg.py``,
+``ops/exchange.py``, the file shuffle in :mod:`.blockstore`). The keyed segment reductions and the ragged
 row gather, the paged decode attention, the int8-weight matmul and flash
 attention (forward, dK/dV and dQ) run as hand-written CUDA kernels
 (:mod:`.kernels`). This
@@ -157,6 +162,7 @@ from .graphdef import (  # noqa: F401
 from .bundle import restore_variables  # noqa: F401
 from .checkpoint import CheckpointCorruptionError, Checkpointer  # noqa: F401
 from . import resilience  # noqa: F401
+from . import parallel  # noqa: F401  (the process group, meshes, collectives)
 from .resilience import RetryPolicy, StepGuard  # noqa: F401
 from .observability import StepTelemetry  # noqa: F401
 from .training import run_resumable  # noqa: F401

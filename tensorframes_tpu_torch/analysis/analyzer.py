@@ -33,14 +33,6 @@ from .rules import RuleContext, run_rules
 __all__ = ["lint_program", "analyze_frame", "lint_plan"]
 
 
-def _no_mesh(mesh, shardings) -> None:
-    if mesh is not None or shardings:
-        raise NotImplementedError(
-            "lint of a sharded program (mesh/shardings) needs the "
-            "multi-device port"
-        )
-
-
 def _capture(program, probe: int):
     """Capture ``program`` at probe inputs. Returns (graph, in_names,
     in_avals, out_names, out_avals); when the capture fails (the program
@@ -78,10 +70,9 @@ def lint_program(
     substitutes Unknown dims for the capture. ``hbm_budget_bytes``
     overrides the device budget for TFG106 (by default the GPU's total
     memory when the program runs on one; silent on the CPU). ``mesh``
-    and ``shardings`` lint a sharded program; they come with the
-    multi-device port and raise ``NotImplementedError`` until then.
+    and ``shardings`` lint a program as its sharded dispatches key: the
+    TFG108 stability probes fingerprint with the layout in the key.
     """
-    _no_mesh(mesh, shardings)
     graph, in_names, in_avals, out_names, out_avals = _capture(program, probe)
     ctx = RuleContext(
         program=program,
@@ -94,6 +85,8 @@ def lint_program(
         block_mode=block_mode,
         block_row_counts=block_row_counts,
         hbm_budget_bytes=hbm_budget_bytes,
+        mesh=mesh,
+        shardings=shardings,
     )
     diags = run_rules(ctx, codes=rules)
     return DiagnosticReport(
@@ -119,7 +112,9 @@ def analyze_frame(
     functions, Programs, ``feed_dict`` renames) for ``device`` (default
     ``config.device``: captured tensors live there), then lint with the
     frame's block sizes — only when the frame is already materialized:
-    analysis never forces a lazy frame.
+    analysis never forces a lazy frame. A sharded frame lints with its
+    mesh and the batch sharding of each device column it feeds, as its
+    dispatches key.
     """
     from ..config import resolve_device
     from ..ops.verbs import _apply_feed_dict, _normalize_program
@@ -134,6 +129,18 @@ def analyze_frame(
         from ..frame import _block_num_rows
 
         counts = tuple(_block_num_rows(b) for b in frame.blocks())
+    mesh = shardings = None
+    if frame.is_sharded:
+        from ..config import get_config
+        from ..parallel.mesh import batch_sharding
+
+        mesh = frame.mesh
+        axis = getattr(frame, "_axis", None) or get_config().batch_axis
+        shardings = {}
+        for spec in program.inputs:
+            if spec.name not in frame.schema.names or not frame.schema[spec.name].is_device:
+                continue  # a feed_dict host array: fed placement-free
+            shardings[spec.name] = batch_sharding(mesh, max(1, len(spec.shape.dims)), axis)
     return lint_program(
         program,
         probe=probe,
@@ -142,6 +149,8 @@ def analyze_frame(
         block_row_counts=counts,
         hbm_budget_bytes=hbm_budget_bytes,
         subject=f"fetches×frame({', '.join(frame.schema.names)})",
+        mesh=mesh,
+        shardings=shardings,
     )
 
 

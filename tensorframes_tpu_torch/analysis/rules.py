@@ -95,6 +95,10 @@ class RuleContext:
     lift_events: Optional[Sequence[dict]] = None
     prefix_cache_events: Optional[Sequence[dict]] = None
     query_cache_events: Optional[Sequence[dict]] = None
+    #: A sharded program's mesh and input-name → layout: part of the
+    #: fingerprint TFG108 probes (the key its dispatches carry).
+    mesh: object = None
+    shardings: Optional[Dict[str, object]] = None
 
 
 # ---------------------------------------------------------------------------
@@ -744,12 +748,16 @@ def _rule_fingerprint_unstable(ctx: RuleContext) -> List[Diagnostic]:
         return []
     from ..compilecache.fingerprint import program_fingerprint
 
-    a = program_fingerprint(ctx.program, probe=ctx.probe, components=True)
-    b = program_fingerprint(ctx.program, probe=ctx.probe, components=True)
+    kw = dict(probe=ctx.probe, mesh=ctx.mesh, shardings=ctx.shardings)
+    a = program_fingerprint(ctx.program, components=True, **kw)
+    b = program_fingerprint(ctx.program, components=True, **kw)
     if a is None or b is None or a == b:
         return []
     moved = [k for k in ("graph", "consts", "avals", "outs", "env")
              if a.get(k) != b.get(k)]
+    sh_a, sh_b = a.get("shardings", {}), b.get("shardings", {})
+    moved += [f"shardings[{n}]" for n in sorted(set(sh_a) | set(sh_b))
+              if sh_a.get(n) != sh_b.get(n)]
     detail = "; ".join(_TFG108_WHAT.get(m, m) for m in moved)
     return [Diagnostic(
         "TFG108", "warn",

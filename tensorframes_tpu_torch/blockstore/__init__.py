@@ -11,15 +11,18 @@ streaming partitioner and the content-keyed result store.
   results spilling as they complete.
 * :mod:`.resultstore` — :class:`ResultStore`: a registered query's cached
   results and per-chunk partials under content keys.
+* :mod:`.shuffle` — the file shuffle: a rank-to-rank exchange through
+  CRC-framed spill files in a shared directory, and the
+  ``distributed_aggregate``/``distributed_join`` helpers over it.
 
 Importing this package pre-registers every ``tftpu_blockstore_*`` and
-``tftpu_resultstore_*`` metric. The reference's file shuffle is
-multi-process and waits in ROADMAP queue 1 (item 5).
+``tftpu_resultstore_*`` metric.
 """
 
 from .partitioner import SpilledFrame, stream_chain  # noqa: F401
 from .resultstore import ResultStore  # noqa: F401
 from .store import BlockCorruptionError, BlockRef, BlockStore  # noqa: F401
+from . import shuffle  # noqa: F401
 
 __all__ = [
     "BlockStore", "BlockRef", "BlockCorruptionError",

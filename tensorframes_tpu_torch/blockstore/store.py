@@ -92,6 +92,11 @@ QUARANTINES = _counter(
     "tftpu_blockstore_quarantines_total",
     "Spilled segments failing CRC/manifest checks on reload, renamed aside",
 )
+HOSTGATHER_BYTES = _counter(
+    "tftpu_blockstore_hostgather_bytes_total",
+    "Bytes of partial tables host-gathered by multi-process aggregates "
+    "(the pre-shuffle path; zero when the file shuffle carries the merge)",
+)
 
 _MANIFEST = "manifest.json"
 _HOST_PKL = "host.pkl"

@@ -184,6 +184,26 @@ def _is_host_stage(program) -> bool:
     return bool(getattr(program, "_tftpu_has_callback", False))
 
 
+def _sharding_parts(avals, shardings, mesh=None) -> Dict[str, object]:
+    """Per-input layout descriptors keyed by input name
+    (:func:`..parallel.mesh.sharding_descriptor`: the trivial placement
+    normalizes to None and is left out), and the mesh's descriptor under
+    ``"__mesh__"`` when one is given. Empty for an unsharded program, whose
+    key then carries no ``shardings`` slot at all."""
+    from ..parallel.mesh import mesh_descriptor, sharding_descriptor
+
+    out: Dict[str, object] = {}
+    if mesh is not None:
+        out["__mesh__"] = mesh_descriptor(mesh)
+    if not shardings:
+        return out
+    for (name, _, _) in avals:
+        desc = sharding_descriptor(shardings.get(name))
+        if desc is not None:
+            out[str(name)] = desc
+    return out
+
+
 def _key_slots(
     captured,
     avals: Sequence[Tuple[str, Tuple[int, ...], str]],
@@ -193,15 +213,18 @@ def _key_slots(
     device,
     value_policy: str,
     extra: Optional[Dict[str, object]],
+    shardings: Optional[Dict[str, object]] = None,
+    mesh=None,
 ) -> Dict[str, bytes]:
     """Every slot of the key, serialized once: the composed hash
     (:func:`fingerprint_from_graph`) and the per-component digests
     (:func:`fingerprint_components`) both derive from this dict, so a
-    slot added to one cannot miss the other."""
+    slot added to one cannot miss the other. A sharded program's layout
+    (``shardings``, ``mesh``) adds the ``shardings`` slot."""
     ch = hashlib.sha256(b"consts:%d|" % len(captured.consts))
     for _, c in captured.consts:
         _const_digest(ch, c, value_policy)
-    return {
+    slots = {
         "graph": _scrub(str(captured.gm.graph)).encode(),
         "consts": ch.digest(),
         "avals": json.dumps(
@@ -211,6 +234,10 @@ def _key_slots(
         "env": json.dumps(_env_parts(kind, device), sort_keys=True).encode(),
         "extra": json.dumps(extra or {}, sort_keys=True).encode(),
     }
+    layout = _sharding_parts(avals, shardings, mesh)
+    if layout:
+        slots["shardings"] = json.dumps(layout, sort_keys=True).encode()
+    return slots
 
 
 def _compose(slots: Dict[str, bytes]) -> str:
@@ -231,15 +258,27 @@ def fingerprint_components(
     device=None,
     value_policy: str = "all",
     extra: Optional[Dict[str, object]] = None,
-) -> Dict[str, str]:
+    shardings: Optional[Dict[str, object]] = None,
+    mesh=None,
+) -> Dict[str, object]:
     """The key's per-component digests: ``graph``, ``consts``, ``avals``,
-    ``outs``, ``env``, ``extra`` (16 hex digits each). Two captures of a
-    stable program agree on every one; TFG108 names the ones that
-    moved."""
-    slots = _key_slots(captured, list(avals), out_names, kind=kind, device=device,
-                       value_policy=value_policy, extra=extra)
-    return {name: hashlib.sha256(payload).hexdigest()[:16]
-            for name, payload in slots.items()}
+    ``outs``, ``env``, ``extra`` (16 hex digits each), and for a sharded
+    program ``shardings``: one digest per laid-out input (and
+    ``__mesh__``), so TFG108 can name the input whose layout moved. Two
+    captures of a stable program agree on every one; TFG108 names the
+    ones that moved."""
+    avals = list(avals)
+    slots = _key_slots(captured, avals, out_names, kind=kind, device=device,
+                       value_policy=value_policy, extra=extra,
+                       shardings=shardings, mesh=mesh)
+    out: Dict[str, object] = {name: hashlib.sha256(payload).hexdigest()[:16]
+                              for name, payload in slots.items() if name != "shardings"}
+    if "shardings" in slots:
+        out["shardings"] = {
+            name: hashlib.sha256(json.dumps(desc, sort_keys=True).encode()).hexdigest()[:16]
+            for name, desc in _sharding_parts(avals, shardings, mesh).items()
+        }
+    return out
 
 
 def fingerprint_from_graph(
@@ -251,14 +290,19 @@ def fingerprint_from_graph(
     device=None,
     value_policy: str = "all",
     extra: Optional[Dict[str, object]] = None,
+    shardings: Optional[Dict[str, object]] = None,
+    mesh=None,
 ) -> str:
     """Fingerprint an already-captured program (the counterpart of the
     reference's ``fingerprint_from_closed``): ``captured`` is a
     :class:`~tensorframes_tpu_torch.program.CapturedGraph`, ``avals`` the
     sorted (name, shape, dtype-str) triples of the feed, ``out_names`` the
-    fetch order, ``extra`` a JSON-able dict folded into the key."""
+    fetch order, ``extra`` a JSON-able dict folded into the key,
+    ``shardings`` (input name → layout) and ``mesh`` a sharded program's
+    layout."""
     return _compose(_key_slots(captured, list(avals), out_names, kind=kind,
-                               device=device, value_policy=value_policy, extra=extra))
+                               device=device, value_policy=value_policy, extra=extra,
+                               shardings=shardings, mesh=mesh))
 
 
 def program_fingerprint(
@@ -277,15 +321,14 @@ def program_fingerprint(
     and no kernel runs. ``components=True`` returns the per-component
     digests (:func:`fingerprint_components`) instead of the composed
     hash. None when the program cannot be captured, or is a numpy_udf
-    host stage (see the module docstring). ``mesh`` and
-    ``shardings`` (a sharded program's layout) come with multi-device
-    support and raise ``NotImplementedError`` until then."""
+    host stage (see the module docstring). ``shardings`` (input name →
+    :class:`~tensorframes_tpu_torch.parallel.mesh.NamedSharding` or device)
+    and ``mesh`` key a sharded program's layout: their descriptors fold
+    into the ``shardings`` slot, so two meshes of different size key
+    differently. (The reference's mesh scopes its trace; a PyTorch capture
+    needs no mesh, so here it enters the key.)"""
     from ..program import capture_graph
 
-    if mesh is not None or shardings is not None:
-        raise NotImplementedError(
-            "program_fingerprint: mesh/shardings need the multi-device port"
-        )
     if _is_host_stage(program):
         return None
     try:
@@ -299,7 +342,7 @@ def program_fingerprint(
     outs = list(program.fetch_order or [o.name for o in program.outputs])
     fn = fingerprint_components if components else fingerprint_from_graph
     return fn(captured, avals, outs, kind=kind, device=program.device,
-              value_policy=value_policy)
+              value_policy=value_policy, shardings=shardings, mesh=mesh)
 
 
 def dispatch_fingerprint(

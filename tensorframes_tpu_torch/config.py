@@ -5,7 +5,8 @@ partition count, the verbs' block pipeline, the generic aggregate's
 buffer, the plan layer's fusion and re-optimization switches, verified
 UDF lifting, the persistent caches' directory and the dispatch-key store's bound, the
 donation switch the static analyzer reads, the block store's budget and the fleet's
-heartbeat cadence and timeout — plus the execution ``device``. Every knob but the device can
+heartbeat cadence and timeout, the dispatch deadline, the batch axis
+and the multi-rank relational budget — plus the execution ``device``. Every knob but the device can
 be overridden via environment variables (``TFTPU_*``, the reference's
 names and defaults);
 every field can be set programmatically via :func:`configure`. The device
@@ -103,6 +104,23 @@ class Config:
     # Must comfortably exceed the longest host-side stall a healthy
     # process can hit (GC, a kernel build, a model's warm-up).
     heartbeat_timeout_s: float = _env_float("TFTPU_HEARTBEAT_TIMEOUT_S", 5.0)
+    # Hung-dispatch watchdog (resilience/fleet.py): a collective, a
+    # process-group handshake or a fleet barrier past this many seconds
+    # raises HungDispatchError with a flight-recorder postmortem naming
+    # the unresponsive ranks instead of blocking forever. 0 disables it
+    # (a barrier then waits max(4 x heartbeat_timeout_s, 20 s)).
+    dispatch_deadline_s: float = _env_float("TFTPU_DISPATCH_DEADLINE_S", 0.0)
+    # The mesh axis a sharded frame splits its rows over.
+    batch_axis: str = os.environ.get("TFTPU_BATCH_AXIS", "dp")
+    # Multi-rank sort_values / join: a frame whose replicated side would
+    # exceed this many bytes on every rank takes the hash/range
+    # exchange (ops/exchange.py, O(global/P) rows a rank) instead of the
+    # replicating plan (allgather sort / broadcast join).
+    relational_broadcast_bytes: int = _env_int(
+        "TFTPU_RELATIONAL_BROADCAST_MB", 64) * (1 << 20)
+    # Kill-switch of that exchange: off, an over-budget replicated plan
+    # raises instead.
+    relational_exchange: bool = _env_bool("TFTPU_RELATIONAL_EXCHANGE", True)
     # Where verbs execute: "cuda" (the default) or "cpu". With no GPU
     # present, "cuda" raises at the verb call instead of running on the
     # CPU; the CPU is used only when asked for.

@@ -10,7 +10,13 @@ metadata it smuggles into ``StructField``\\ s). A frame is a list of
   ≙ datatypes.scala:571-622).
 
 Frames are host-resident: blocks move to the device when a verb dispatches
-them, and results come back to the host. Verbs are **lazy**, like the
+them, and results come back to the host. A *sharded* frame
+(:meth:`TensorFrame.to_device`,
+:func:`~tensorframes_tpu_torch.parallel.frame_from_process_local`) is the
+exception: its first block holds each rank's rows as tensors on the rank's
+device (one process, one device, over ``torch.distributed``), an optional
+second block the host tail every rank holds alike, and its verbs run
+across ranks. Verbs are **lazy**, like the
 reference's map verbs under Spark (core.py:232-233): ``map_*`` returns a
 frame carrying a pending computation; ``collect()`` / ``blocks()`` forces
 it once and caches. With ``plan_fusion`` on (the default), chained verbs
@@ -38,6 +44,7 @@ import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
 from . import dtypes as dt
 from .config import get_config
@@ -79,6 +86,96 @@ def _leaf_value(x):
     return x
 
 
+def _is_multirank() -> bool:
+    from .parallel.distributed import process_count
+
+    return process_count() > 1
+
+
+def _host_col(v):
+    """A block column in host form: tensors come back as numpy."""
+    return dt.to_numpy(v) if torch.is_tensor(v) else v
+
+
+def carry_layout(src, dst, rows_changed: bool = True) -> None:
+    """Give ``dst`` the sharded layout of ``src`` (mesh, batch axis,
+    process-local columns). A frame whose rows may differ drops the cached
+    global row count."""
+    mesh = getattr(src, "_mesh", None)
+    if mesh is None:
+        return
+    dst._mesh = mesh
+    dst._axis = getattr(src, "_axis", None)
+    dst._process_local_cols = frozenset(
+        n for n in getattr(src, "_process_local_cols", ()) if n in dst.schema.names
+    )
+    if not rows_changed and getattr(src, "_global_rows", None) is not None:
+        dst._global_rows = src._global_rows
+
+
+def _spans_error(op_name: str) -> RuntimeError:
+    return RuntimeError(
+        f"{op_name}: columns span processes — one process cannot "
+        f"materialize the global frame. {op_name} before "
+        "frame_from_process_local, or reduce with a verb (verbs "
+        "run as collectives)."
+    )
+
+
+def _gathered_local_or_raise(frame, names, op_name: str):
+    """This rank's rows of ``names`` with the fleet-wide eligibility VOTE
+    (one collective): every rank must gather successfully or every rank
+    raises — one rank bailing out of a later collective its peers already
+    entered would deadlock the fleet. Shared by the exchange-planning ops
+    (sort_values / drop_duplicates / repartition_by_key)."""
+    from .ops.device_agg import gather_local_columns, uniform_ok
+
+    local = gather_local_columns(frame, names)
+    if not uniform_ok(local is not None):
+        raise RuntimeError(
+            f"{op_name}: some process holds no addressable shard of a "
+            "column — re-shard so every process holds rows "
+            "(frame_from_process_local)"
+        )
+    return {n: (list(v) if v.dtype == object else v) for n, v in local.items()}
+
+
+def _replicated_fleetwide(cols: Dict[str, Union[np.ndarray, list]]) -> bool:
+    """True when EVERY rank holds byte-identical local columns (a
+    full-content 128-bit blake2b over every column — values, dtypes,
+    shapes — allgathered and compared). Judged on ALL columns, not just
+    keys: a process-local frame whose key column coincides fleet-wide is
+    not replicated. Every rank enters the one allgather, including ranks
+    whose local hash failed (their signature marks not-ok). Alone, a
+    frame is trivially replicated. Used by drop_duplicates for
+    replicated-in → replicated-out semantics."""
+    if not _is_multirank():
+        return True
+    import hashlib
+
+    from .parallel.collectives import allgather_bytes
+
+    def _hash_col(h, v) -> None:
+        cells = v if isinstance(v, list) else [v]
+        for c in cells:
+            a = np.asarray(c)
+            h.update(str((a.dtype.str, a.shape)).encode())
+            h.update(
+                str(a.tolist()).encode() if a.dtype == object
+                else np.ascontiguousarray(a).tobytes()
+            )
+
+    h, ok = hashlib.blake2b(digest_size=16), b"1"
+    try:
+        for name in sorted(cols):
+            h.update(name.encode())
+            _hash_col(h, cols[name])
+    except Exception:  # unhashable layout: the exchange is the safe path
+        ok = b"0"
+    sigs = allgather_bytes(ok + h.digest())
+    return all(s[:1] == b"1" for s in sigs) and len(set(sigs)) == 1
+
+
 def _spanned(name: str, compute, rows_fn):
     """Wrap a pending thunk so forcing it records a profiling span;
     ``rows_fn()`` supplies the INPUT row count at force time, as the
@@ -93,13 +190,17 @@ def _spanned(name: str, compute, rows_fn):
     return run
 
 
-def _merged_global_columns(frame, names) -> Dict[str, object]:
+def _merged_global_columns(frame, names, op_name: str = "collect") -> Dict[str, object]:
     """Concatenate every block of ``names`` into single host columns (a
-    list where any block stores the column as cells)."""
+    list where any block stores the column as cells; device tensors come
+    back). A sharded frame across ranks raises the spans-processes
+    error: no rank can materialize it."""
+    if frame.is_sharded and _is_multirank():
+        raise _spans_error(op_name)
     out: Dict[str, object] = {}
     blocks = frame.blocks()
     for name in names:
-        vals = [b[name] for b in blocks]
+        vals = [_host_col(b[name]) for b in blocks]
         if any(isinstance(v, list) for v in vals):
             out[name] = [x for v in vals for x in v]
         elif not vals:
@@ -113,7 +214,8 @@ def _merged_global_columns(frame, names) -> Dict[str, object]:
 def _apply_mask(block: Block, names: Sequence[str], mask_name: str) -> Block:
     """Row-subset one block by its computed mask column: bool[rows] masks
     only, loud row-count mismatches, host columns compressed."""
-    m = np.asarray(block[mask_name])
+    mask = block[mask_name]
+    m = np.asarray(_host_col(mask))
     if m.dtype != np.bool_ or m.ndim != 1:
         raise ValueError(
             f"filter predicate output {mask_name!r} must be bool[rows]; "
@@ -130,6 +232,10 @@ def _apply_mask(block: Block, names: Sequence[str], mask_name: str) -> Block:
         v = block[name]
         if isinstance(v, list):
             out[name] = [x for x, keep in zip(v, m) if keep]
+        elif torch.is_tensor(v):
+            # a sharded frame's rows stay on their device
+            out[name] = v[mask.to(v.device) if torch.is_tensor(mask)
+                          else dt.to_torch(m, v.device)]
         else:
             out[name] = np.asarray(v)[m]
     return out
@@ -358,7 +464,21 @@ class TensorFrame:
 
     @property
     def num_rows(self) -> int:
-        return sum(_block_num_rows(b) for b in self.blocks())
+        """The row count — global for a sharded frame (one all-reduce of
+        the ranks' main-block rows, cached; the host tail counted once)."""
+        blocks = self.blocks()
+        if not self.is_sharded or not _is_multirank():
+            return sum(_block_num_rows(b) for b in blocks)
+        cached = getattr(self, "_global_rows", None)
+        if cached is None:
+            from .parallel.collectives import all_reduce
+
+            local = torch.tensor([_block_num_rows(blocks[0]) if blocks else 0],
+                                 dtype=torch.int64)
+            cached = int(all_reduce(local, "sum")[0]) + sum(
+                _block_num_rows(b) for b in blocks[1:])
+            self._global_rows = cached
+        return cached
 
     @property
     def estimated_rows(self) -> Optional[int]:
@@ -404,15 +524,37 @@ class TensorFrame:
     def column_values(self, name: str) -> np.ndarray:
         """Concatenate one column across blocks (dense columns only)."""
         info = self.schema[name]
+        self._check_global(name)
         parts = []
         for b in self.blocks():
-            v = b[name]
+            v = _host_col(b[name])
             if isinstance(v, list):
                 v = np.asarray(v, dtype=object) if not info.is_device else np.asarray(v)
             parts.append(v)
         if not parts:
             return np.empty((0,), dtype=info.dtype.np_dtype)
         return np.concatenate(parts, axis=0)
+
+    def _check_global(self, name: str) -> None:
+        """Raise the reference's texts where one rank cannot materialize a
+        column of a sharded frame across ranks."""
+        if not self.is_sharded or not _is_multirank():
+            return
+        if name in getattr(self, "_process_local_cols", ()):
+            raise RuntimeError(
+                f"Column {name!r} is process-local (host-only column of a "
+                "multi-process frame); one process cannot materialize the "
+                "global column. Aggregate by it (the dictionary plan "
+                "merges per-process key dictionaries with a collective), "
+                "or persist per process with io.save_frame_sharded."
+            )
+        raise RuntimeError(
+            f"Column {name!r} spans processes (multi-host global "
+            "array); one process cannot materialize it. Reduce it "
+            "with a verb (reduce_blocks/reduce_rows/aggregate run "
+            "as collectives without a host gather), or persist per "
+            "process with io.save_frame_sharded."
+        )
 
     def collect(self) -> List[Dict[str, object]]:
         """Materialize as a list of row dicts (≙ ``DataFrame.collect``).
@@ -421,10 +563,12 @@ class TensorFrame:
         """
         from . import native
 
+        for name in self.schema.names:
+            self._check_global(name)
         rows: List[Dict[str, object]] = []
         for b in self.blocks():
             n = _block_num_rows(b)
-            cols = {name: b[name] for name in self.schema.names}
+            cols = {name: _host_col(b[name]) for name in self.schema.names}
             if all(
                 isinstance(v, np.ndarray)
                 and v.ndim == 1
@@ -462,7 +606,7 @@ class TensorFrame:
                 continue
             take_here = min(n - len(out), m)
             small = TensorFrame(
-                [{k: v[:take_here] for k, v in b.items()}], self.schema
+                [{k: _host_col(v[:take_here]) for k, v in b.items()}], self.schema
             )
             out.extend(small.collect())
             if len(out) >= n:
@@ -474,7 +618,7 @@ class TensorFrame:
             if _block_num_rows(b) > 0:
                 row = {}
                 for name in self.schema.names:
-                    cell = b[name][0]
+                    cell = _host_col(b[name][:1])[0]
                     if not isinstance(cell, (list, str, bytes)):
                         cell = np.asarray(cell)
                         cell = cell.item() if cell.ndim == 0 else cell
@@ -487,9 +631,10 @@ class TensorFrame:
 
         data = {}
         for name in self.schema.names:
+            self._check_global(name)
             vals = []
             for b in self.blocks():
-                vals.extend(list(b[name]))
+                vals.extend(list(_host_col(b[name])))
             data[name] = vals
         return pd.DataFrame(data)
 
@@ -497,10 +642,12 @@ class TensorFrame:
     def select(self, names: Sequence[str]) -> "TensorFrame":
         schema = self.schema.select(names)
         if self.is_materialized:
-            return TensorFrame([{n: b[n] for n in names} for b in self._blocks], schema)
+            out = TensorFrame([{n: b[n] for n in names} for b in self._blocks], schema)
+            carry_layout(self, out, rows_changed=False)
+            return out
         from .plan import ir as _plan_ir
 
-        if _plan_ir.fusion_enabled():
+        if _plan_ir.fusion_enabled() and not self.is_sharded:
             # a pending frame: record the projection on the logical plan
             # — pushdown then prunes dead upstream outputs (and whole
             # stages), so dropped columns are never computed or moved
@@ -521,9 +668,11 @@ class TensorFrame:
             out._plan = node
             return out
         parent = self
-        return TensorFrame(
+        out = TensorFrame(
             None, schema, pending=lambda: [{n: b[n] for n in names} for b in parent.blocks()]
         )
+        carry_layout(self, out)
+        return out
 
     def filter(self, predicate, device=None) -> "TensorFrame":
         """Keep the rows where ``predicate`` is true.
@@ -574,10 +723,14 @@ class TensorFrame:
         def compute() -> List[Block]:
             return [_apply_mask(b, names, mname) for b in masked.blocks()]
 
-        return TensorFrame(
+        out = TensorFrame(
             None, self.schema,
             pending=_spanned("filter", compute, lambda: parent.num_rows),
         )
+        # a sharded frame filters each rank's rows on its device: the
+        # result stays sharded, its global row count re-reduced
+        carry_layout(self, out)
+        return out
 
     def sort_values(self, by, ascending=True) -> "TensorFrame":
         """Rows ordered by one or more key columns (stable: ties keep
@@ -605,7 +758,18 @@ class TensorFrame:
         def compute() -> List[Block]:
             from .ops.keys import _unique_inverse
 
-            merged = _merged_global_columns(parent, names)
+            merged = None
+            if parent.is_sharded and _is_multirank():
+                merged = _sort_exchanged(parent, names, keys, asc)
+            elif parent.is_sharded:
+                blocks = parent.blocks()
+                if len(blocks) == 1 and all(torch.is_tensor(blocks[0][n]) for n in names) \
+                        and all(_device_key_ok(blocks[0][k]) for k in keys):
+                    # every column on the device, every key numeric: order
+                    # and gather there (≙ the reference's device lexsort)
+                    return [_device_sorted(blocks[0], names, keys, asc)]
+            if merged is None:
+                merged = _merged_global_columns(parent, names, "sort_values")
             key_arrs = []
             # lexsort: the LAST key is primary
             for k, k_asc in zip(reversed(keys), reversed(asc)):
@@ -623,10 +787,13 @@ class TensorFrame:
             order = np.lexsort(key_arrs)
             return [{name: _take_rows(merged[name], order) for name in names}]
 
-        return TensorFrame(
+        out = TensorFrame(
             None, self.schema,
             pending=_spanned("sort_values", compute, lambda: parent.num_rows),
         )
+        if self.is_sharded and not _is_multirank():
+            carry_layout(self, out, rows_changed=False)
+        return out
 
     def limit(self, n: int) -> "TensorFrame":
         """The first ``n`` rows, as a frame (``take`` returns rows). Lazy."""
@@ -636,16 +803,23 @@ class TensorFrame:
         parent = self
 
         def compute() -> List[Block]:
+            if parent.is_sharded and _is_multirank():
+                raise RuntimeError(
+                    "limit: columns span processes — one process "
+                    "cannot materialize the global head. Limit "
+                    "before frame_from_process_local."
+                )
             remaining = n
             out_blocks: List[Block] = []
             for b in parent.blocks():
                 if remaining <= 0:
                     break
                 take_n = min(_block_num_rows(b), remaining)
-                out_blocks.append({name: b[name][:take_n] for name in names})
+                # slice first: a device column moves only the kept rows
+                out_blocks.append({name: _host_col(b[name][:take_n]) for name in names})
                 remaining -= take_n
             if not out_blocks:
-                out_blocks = [{name: b[name][:0] for name in names}
+                out_blocks = [{name: _host_col(b[name][:0]) for name in names}
                               for b in parent.blocks()[:1]]
             return out_blocks
 
@@ -756,7 +930,7 @@ class TensorFrame:
         left, right = self, other
         from .plan import ir as _plan_ir
 
-        if _plan_ir.fusion_enabled():
+        if _plan_ir.fusion_enabled() and not left.is_sharded and not right.is_sharded:
             # the hash join ENTERS the plan: upstream probe-side maps
             # fuse into the probe dispatch, and the needed-columns pass
             # prunes through the join on both sides (a column no
@@ -781,9 +955,11 @@ class TensorFrame:
             return out
 
         def compute() -> List[Block]:
+            if _is_multirank() and (left.is_sharded or right.is_sharded):
+                return [_join_across_ranks(left, right, keys, how, spec)]
             return [_hash_join_cols(
-                _merged_global_columns(left, left.schema.names),
-                _merged_global_columns(right, right.schema.names), spec)]
+                _merged_global_columns(left, left.schema.names, "join"),
+                _merged_global_columns(right, right.schema.names, "join"), spec)]
 
         return TensorFrame(
             None, schema,
@@ -805,7 +981,25 @@ class TensorFrame:
         def compute() -> List[Block]:
             from .ops.keys import group_ids
 
-            cols = _merged_global_columns(parent, names)
+            if _is_multirank():
+                # REPLICATED frames (identical columns on every rank,
+                # proven by one blake2b allgather — a uniform collective)
+                # dedup locally: replicated in, replicated out. Everything
+                # else exchanges: duplicates colocate under the content
+                # hash, so each rank's dedup of its partition is the
+                # global dedup, keep-first in (source rank, local row)
+                # order. A sharded frame is never replicated.
+                from .ops import exchange as xch
+                from .parallel.distributed import process_count
+
+                local = _gathered_local_or_raise(parent, names, "drop_duplicates")
+                if not parent.is_sharded and _replicated_fleetwide(local):
+                    cols = local
+                else:
+                    part = xch.partition_by_hash([local[k] for k in keys], process_count())
+                    cols = xch.exchange_rows(local, part)
+            else:
+                cols = _merged_global_columns(parent, names, "drop_duplicates")
             key_arrs = []
             for k in keys:
                 v = cols[k]
@@ -833,28 +1027,85 @@ class TensorFrame:
         """Spark-name alias for :meth:`drop_duplicates` over every column."""
         return self.drop_duplicates()
 
+    def repartition_by_key(self, on) -> "TensorFrame":
+        """Hash-partition rows by key across the ranks (≙ Spark's
+        ``repartition(col)`` exchange): afterwards every row whose key
+        hashes to rank p lives ON rank p, as a process-local host frame,
+        in (source rank, local row) order. Frames repartitioned on the same
+        key are co-partitioned: joining or aggregating them afterwards runs
+        rank-locally with no further collective. The partitioner is
+        :func:`~tensorframes_tpu_torch.ops.exchange.partition_by_hash`, the
+        over-budget shuffle join's. EAGER (the exchange runs now); alone, a
+        frame returns itself. The result's ``num_rows`` is the local
+        partition's. Do NOT call this on a replicated frame (every rank
+        holding the whole frame) or each row arrives P times; a warning
+        fires when the local rows look identical on every rank."""
+        keys = [on] if isinstance(on, str) else list(on)
+        for k in keys:
+            self.schema[k]
+        if not _is_multirank():
+            return self
+        import zlib
+
+        from .ops import exchange as xch
+        from .parallel.collectives import allgather_bytes
+        from .parallel.distributed import process_count
+
+        names = list(self.schema.names)
+        local = _gathered_local_or_raise(self, names, "repartition_by_key")
+        # replication tripwire: checksum a bounded key sample and compare
+        # across ranks; identical partitions CAN be legitimate, so warn
+        probe = xch.content_hash64([local[k] for k in keys])[:1024]
+        crc = zlib.crc32(probe.tobytes()) if len(probe) else 0
+        crcs = allgather_bytes(str(crc).encode())
+        if len(probe) and len(set(crcs)) == 1:
+            from .utils import get_logger
+
+            get_logger(__name__).warning(
+                "repartition_by_key: every process holds identical-"
+                "looking local rows — if this frame is REPLICATED "
+                "(e.g. an under-budget multi-process sort_values "
+                "result), the exchange will duplicate each row "
+                "process_count times; repartition the original "
+                "sharded frame instead"
+            )
+        t_x = time.perf_counter()
+        part = xch.partition_by_hash([local[k] for k in keys], process_count())
+        recv = xch.exchange_rows(local, part)
+        profiling.record("repartition_by_key", time.perf_counter() - t_x,
+                         _block_num_rows(recv))
+        return TensorFrame([{n: recv[n] for n in names}], self.schema)
+
     def with_column_renamed(self, old: str, new: str) -> "TensorFrame":
         schema = Schema([c.with_name(new) if c.name == old else c for c in self.schema])
         parent = self
-        return TensorFrame(
+        out = TensorFrame(
             None, schema,
             pending=lambda: [{(new if k == old else k): v for k, v in b.items()}
                              for b in parent.blocks()],
         )
+        carry_layout(self, out, rows_changed=False)
+        if old in getattr(self, "_process_local_cols", ()):
+            out._process_local_cols = out._process_local_cols | {new}
+        return out
 
     def alias_column(self, name: str, alias: str) -> "TensorFrame":
         """Duplicate a column under a new name (≙ ``df.select(y,
         y.alias("z"))`` in the README reduce example, README.md:114)."""
         schema = self.schema.append([self.schema[name].with_name(alias)])
         parent = self
-        return TensorFrame(
+        out = TensorFrame(
             None, schema,
             pending=lambda: [dict(b, **{alias: b[name]}) for b in parent.blocks()],
         )
+        carry_layout(self, out, rows_changed=False)
+        if name in getattr(self, "_process_local_cols", ()):
+            out._process_local_cols = out._process_local_cols | {alias}
+        return out
 
     def repartition(self, num_blocks: int) -> "TensorFrame":
         """Re-chunk rows into ``num_blocks`` roughly equal blocks."""
-        merged = _merged_global_columns(self, self.schema.names)
+        merged = _merged_global_columns(self, self.schema.names, "repartition")
         total = len(next(iter(merged.values()))) if merged else 0
         out = TensorFrame(
             [{k: v[lo:hi] for k, v in merged.items()}
@@ -885,13 +1136,91 @@ class TensorFrame:
         over memmap views). Forces a lazy chain."""
         from .blockstore.partitioner import SpilledFrame
 
+        for name in self.schema.names:
+            self._check_global(name)
         refs = []
         for b in self.blocks():
             refs.append(store.put({
-                name: v if isinstance(v, list) else np.asarray(v)
+                name: v if isinstance(v, list) else np.asarray(_host_col(v))
                 for name, v in b.items()
             }))
         return SpilledFrame(store, refs, self.schema)
+
+    # -- device placement -------------------------------------------------
+    @property
+    def is_sharded(self) -> bool:
+        """True when the frame's rows live on the ranks' devices over a mesh."""
+        return getattr(self, "_mesh", None) is not None
+
+    @property
+    def mesh(self):
+        return getattr(self, "_mesh", None)
+
+    def to_device(self, mesh=None, axis: Optional[str] = None) -> "TensorFrame":
+        """Shard the frame over a mesh of ranks (≙ a Spark DataFrame's
+        partitions living on executors): every rank calls this on the same
+        frame, and rank r keeps rows ``[r·n_main/dp, (r+1)·n_main/dp)``
+        of every dense device column as tensors on its device, where
+        ``n_main`` is the row count rounded down to a multiple of the batch
+        axis size ``dp``. The ``n_main < total`` remainder stays a small
+        host tail block every rank holds alike, so no padding touches a
+        reduction. Host-only and ragged columns ride along as each rank's
+        own rows (process-local). Chained map verbs never leave the
+        device."""
+        from .config import resolve_device
+        from .parallel.distributed import process_index, rank_device
+        from .parallel.mesh import make_mesh
+
+        mesh = mesh or make_mesh()
+        axis = axis or get_config().batch_axis
+        dp = mesh.shape[axis]
+        where = np.argwhere(mesh.devices == process_index())
+        if not len(where):
+            raise ValueError(
+                f"to_device: rank {process_index()} is not in the mesh {mesh!r}")
+        pos = int(where[0][mesh.axis_names.index(axis)])
+        dev = resolve_device(rank_device())
+        names = list(self.schema.names)
+        merged = _merged_global_columns(self, names, "to_device")
+        total = _block_num_rows(merged)
+        n_main = (total // dp) * dp
+        lo, hi = pos * (n_main // dp), (pos + 1) * (n_main // dp)
+        main: Block = {}
+        tail: Block = {}
+        host_cols = set()
+        for info in self.schema:
+            v = merged[info.name]
+            if info.is_device and isinstance(v, np.ndarray) and v.dtype != object:
+                main[info.name] = dt.to_torch(np.ascontiguousarray(v[lo:hi]), dev)
+            else:
+                v = list(v)
+                main[info.name] = v[lo:hi]
+                host_cols.add(info.name)
+            if n_main < total:
+                tail[info.name] = v[n_main:]
+        out = TensorFrame([main] + ([tail] if n_main < total else []), self.schema)
+        out._mesh = mesh
+        out._axis = axis
+        out._process_local_cols = frozenset(host_cols)
+        return out
+
+    def to_host(self, num_blocks: Optional[int] = None) -> "TensorFrame":
+        """Materialize device columns back to host numpy blocks. Across
+        ranks a sharded frame comes back as this rank's rows (the host
+        tail on rank 0), a process-local frame: the ranks' results
+        together are the global frame."""
+        from .ops.device_agg import local_blocks
+
+        blocks = local_blocks(self) if _is_multirank() else self.blocks()
+        frame = TensorFrame(
+            [{k: _host_col(v) for k, v in b.items()} for b in blocks], self.schema)
+        if num_blocks:
+            frame = frame.repartition(num_blocks)
+        from .plan import ir as _plan_ir
+
+        # explicit materialization: downstream chains re-root here
+        _plan_ir.mark_barrier(frame, "to_host/to_numpy materialization", self)
+        return frame
 
     # -- verb methods (≙ Implicits.RichDataFrame, dsl/Implicits.scala:25-100)
     def map_blocks(self, fetches, feed_dict=None, trim: bool = False,
@@ -970,13 +1299,20 @@ class GroupedData:
         from . import dsl
         from .ops.verbs import aggregate
 
+        def ones_for(b):
+            on = next((v.device for v in b.values() if torch.is_tensor(v)), None)
+            n = _block_num_rows(b)
+            # a sharded frame's main block counts on its device
+            return (np.ones(n, np.int64) if on is None
+                    else torch.ones(n, dtype=torch.int64, device=on))
+
         ones = TensorFrame(
-            [dict(b, count_tmp=np.ones(_block_num_rows(b), np.int64))
-             for b in self.frame.blocks()],
+            [dict(b, count_tmp=ones_for(b)) for b in self.frame.blocks()],
             self.frame.schema.append(
                 [ColumnInfo("count_tmp", dt.int64, Shape((Unknown,)))]
             ),
         )
+        carry_layout(self.frame, ones, rows_changed=False)
         with dsl.with_graph():
             cnt_in = dsl.block(ones, "count_tmp", tf_name="count_tmp_input")
             cnt = dsl.reduce_sum(cnt_in, axis=0, name="count_tmp")
@@ -985,6 +1321,193 @@ class GroupedData:
 
     def __repr__(self):
         return f"GroupedData(keys={self.keys}, {self.frame!r})"
+
+
+# ---------------------------------------------------------------------------
+# sorts and joins across ranks
+# ---------------------------------------------------------------------------
+
+# crossing config.relational_broadcast_bytes flips the multi-rank
+# sort_values result LAYOUT (replicated under it, each rank's key range
+# over it): programs written against the replicated contract get a
+# runtime signal the first time it happens
+_SORT_LAYOUT_LOCK = threading.Lock()
+_sort_layout_warned = False
+
+
+def _warn_sort_layout_switch(gbytes: int, budget: int) -> None:
+    """One-time (per process) tripwire for the replicated → range-
+    partitioned sort_values layout switch."""
+    global _sort_layout_warned
+    with _SORT_LAYOUT_LOCK:
+        if _sort_layout_warned:
+            return
+        _sort_layout_warned = True
+    from .utils import get_logger
+
+    get_logger(__name__).warning(
+        "sort_values: frame (%s bytes global) exceeds "
+        "config.relational_broadcast_bytes (%s) — switching from the "
+        "REPLICATED plan to the range-partitioned exchange: each "
+        "process now holds only ITS key range (O(global/P) rows), not "
+        "the full sorted frame. collect()/num_rows are per-process "
+        "under this layout; concatenating the processes' results in "
+        "process order is the global sort order. Raise the budget "
+        "(TFTPU_RELATIONAL_BROADCAST_MB) to keep the replicated "
+        "contract. (This tripwire fires once per process.)",
+        f"{gbytes:,}", f"{budget:,}",
+    )
+
+
+def _object_arrays(cols: Dict[str, object]) -> Dict[str, np.ndarray]:
+    return {n: (np.asarray(v, dtype=object) if isinstance(v, list) else v)
+            for n, v in cols.items()}
+
+
+def _sort_exchanged(frame, names, keys, asc) -> Dict[str, object]:
+    """The rows a multi-rank sort_values sorts on this rank: under
+    ``config.relational_broadcast_bytes`` every rank's rows allgathered in
+    rank order (every rank then holds the whole sorted frame); over it the
+    RANGE EXCHANGE: rank p receives only the p-th key range, so the ranks'
+    results in rank order are the global sort order, ties stable (the
+    exchange keeps (source rank, local row) order)."""
+    from .config import get_config
+    from .ops import exchange as xch
+    from .ops.device_agg import _allgather_dicts
+    from .parallel.distributed import process_count
+
+    local = _gathered_local_or_raise(frame, names, "sort_values")
+    cfg = get_config()
+    # the global-bytes estimate is a collective: every rank takes the
+    # same branch
+    gbytes = xch.global_frame_bytes(local)
+    if gbytes > cfg.relational_broadcast_bytes:
+        if not cfg.relational_exchange:
+            raise RuntimeError(
+                f"sort_values: replicating {gbytes:,} bytes "
+                "on every process exceeds "
+                "config.relational_broadcast_bytes "
+                f"({cfg.relational_broadcast_bytes:,}) and "
+                "the exchange path is disabled "
+                "(config.relational_exchange=False / "
+                "TFTPU_RELATIONAL_EXCHANGE=0) — raise the "
+                "budget, re-enable the exchange, or sort a "
+                "projected/filtered frame"
+            )
+        _warn_sort_layout_switch(gbytes, cfg.relational_broadcast_bytes)
+        t_x = time.perf_counter()
+        part = xch.partition_by_range([local[k] for k in keys], process_count(), asc)
+        recv = xch.exchange_rows(local, part)
+        profiling.record("sort_values.exchange", time.perf_counter() - t_x,
+                         _block_num_rows(recv))
+        return recv
+    cols = _object_arrays(local)
+    union, _ = _allgather_dicts([cols[n] for n in names])
+    return {n: (list(v) if v.dtype == object else v) for n, v in zip(names, union)}
+
+
+def _device_key_ok(v) -> bool:
+    """A device sort key: a 1-D bool, integer (not uint64) or float tensor."""
+    return (torch.is_tensor(v) and v.ndim == 1 and v.dtype not in (
+        torch.uint64, torch.complex64, torch.complex128))
+
+
+def _device_sort_codes(a: "torch.Tensor", ascending: bool) -> "torch.Tensor":
+    """One device key column as a monotone int64 code column (the
+    reference's ``_device_sort_codes``): integers and bools pass through
+    widened; floats by the IEEE-754 radix trick in its signed form
+    (negative patterns reflect about INT_MIN, every NaN canonical and last,
+    -0.0 equal to 0.0); descending by bitwise NOT, which keeps ties
+    stable and cannot overflow."""
+    if a.is_floating_point():
+        if a.dtype in (torch.float16, torch.bfloat16):
+            a = a.float()
+        int_dt = torch.int64 if a.dtype == torch.float64 else torch.int32
+        a = torch.where(torch.isnan(a), torch.full_like(a, float("nan")), a)
+        bits = a.view(int_dt)
+        int_min = torch.iinfo(int_dt).min
+        k = torch.where(bits >= 0, bits, int_min - bits).to(torch.int64)
+    else:
+        k = a.to(torch.int64)
+    return k if ascending else ~k
+
+
+def _device_sorted(block: Block, names, keys, asc) -> Block:
+    """Sort one all-device block on its device: stable argsorts of the key
+    codes, the last key first (a lexsort), then one gather per column."""
+    order = None
+    for k, k_asc in zip(reversed(keys), reversed(asc)):
+        codes = _device_sort_codes(block[k], k_asc)
+        if order is None:
+            order = torch.argsort(codes, stable=True)
+        else:
+            order = order[torch.argsort(codes[order], stable=True)]
+    return {n: block[n][order] for n in names}
+
+
+def _join_across_ranks(left, right, keys, how, spec) -> Block:
+    """A join with a sharded side across ranks. Under
+    ``config.relational_broadcast_bytes`` a BROADCAST hash join: every rank
+    allgathers the whole right side (the build side: put the smaller frame
+    on the right) and joins its own left rows against it. Over it, and for
+    every outer join (a broadcast would re-emit unmatched right rows on
+    every rank), the SHUFFLE join: both sides hash-partition on the keys
+    and each rank joins one partition. The result is this rank's share, a
+    process-local host block."""
+    from .config import get_config
+    from .ops import exchange as xch
+    from .ops.device_agg import _allgather_dicts, gather_local_columns, uniform_ok
+    from .parallel.distributed import process_count
+
+    lcols = gather_local_columns(left, left.schema.names)
+    r_names = list(right.schema.names)
+    r_local = gather_local_columns(right, r_names)
+    if not uniform_ok(lcols is not None and r_local is not None):
+        raise RuntimeError(
+            "join: some process holds no addressable shard "
+            "of a column — re-shard so every process holds "
+            "rows of both sides (frame_from_process_local)"
+        )
+    cfg = get_config()
+    # an allgathered estimate: the same on every rank, so the branch is
+    r_bytes = xch.global_frame_bytes(r_local)
+    if r_bytes > cfg.relational_broadcast_bytes or how == "outer":
+        if not cfg.relational_exchange:
+            raise RuntimeError(
+                f"join: broadcasting the {r_bytes:,}-byte "
+                "right side to every process "
+                + (
+                    "cannot implement an outer join "
+                    "(unmatched right rows would duplicate "
+                    "per process)"
+                    if how == "outer"
+                    else "exceeds config."
+                    "relational_broadcast_bytes "
+                    f"({cfg.relational_broadcast_bytes:,})"
+                )
+                + " and the exchange path is disabled "
+                "(config.relational_exchange=False / "
+                "TFTPU_RELATIONAL_EXCHANGE=0) — raise the "
+                "budget, re-enable the exchange, or put "
+                "the smaller frame on the right"
+            )
+        procs = process_count()
+        t_x = time.perf_counter()
+        lpart = xch.partition_by_hash([lcols[k] for k in keys], procs)
+        rpart = xch.partition_by_hash([r_local[k] for k in keys], procs)
+        lrecv = xch.exchange_rows(lcols, lpart)
+        rrecv = xch.exchange_rows(r_local, rpart)
+        profiling.record("join.exchange", time.perf_counter() - t_x,
+                         _block_num_rows(lrecv) + _block_num_rows(rrecv))
+        out = _hash_join_cols(_object_arrays(lrecv), _object_arrays(rrecv), spec)
+    else:
+        union, _ = _allgather_dicts([r_local[n] for n in r_names])
+        out = _hash_join_cols(lcols, dict(zip(r_names, union)), spec)
+    for name in list(out):
+        v = out[name]
+        if isinstance(v, np.ndarray) and v.dtype == object:
+            out[name] = list(v)  # host columns store as lists
+    return out
 
 
 def _partition_bounds(total: int, num_blocks: int) -> List[tuple]:
@@ -1233,7 +1756,9 @@ def analyze(frame: TensorFrame) -> TensorFrame:
             else:
                 nb[info.name] = v
         new_blocks.append(nb)
-    return TensorFrame(new_blocks, new_schema)
+    out = TensorFrame(new_blocks, new_schema)
+    carry_layout(frame, out, rows_changed=False)
+    return out
 
 
 def append_shape(frame: TensorFrame, col: str, shape) -> TensorFrame:
@@ -1258,7 +1783,9 @@ def append_shape(frame: TensorFrame, col: str, shape) -> TensorFrame:
             out.append(dict(b, **{col: v}))
         return out
 
-    return TensorFrame(None, frame.schema.replace(new_info), pending=compute)
+    out = TensorFrame(None, frame.schema.replace(new_info), pending=compute)
+    carry_layout(frame, out, rows_changed=False)
+    return out
 
 
 def explain(frame: TensorFrame, detailed: bool = False,
@@ -1280,9 +1807,11 @@ def explain(frame: TensorFrame, detailed: bool = False,
     lines = [base, ""]
     state = "materialized" if frame.is_materialized else "lazy (forcing)"
     blocks = frame.blocks()
+    where = (f"sharded over {dict(frame.mesh.shape)}" if frame.is_sharded
+             else "host-resident")
     lines.append(
         f"layout: {len(blocks)} block(s), {frame.num_rows} row(s), "
-        f"host-resident [{state}]"
+        f"{where} [{state}]"
     )
     for i, b in enumerate(blocks):
         kinds = []
@@ -1290,6 +1819,8 @@ def explain(frame: TensorFrame, detailed: bool = False,
             v = b[name]
             if isinstance(v, list):
                 kinds.append(f"{name}: list")
+            elif torch.is_tensor(v):
+                kinds.append(f"{name}: {v.device.type}{list(v.shape)}")
             else:
                 kinds.append(f"{name}: np{list(v.shape)}")
         lines.append(f"  block {i}: {_block_num_rows(b)} rows  ({', '.join(kinds)})")
@@ -1313,6 +1844,8 @@ def describe(frame: TensorFrame, columns: Optional[Sequence[str]] = None, device
 
     from .config import resolve_device
 
+    if frame.is_sharded and _is_multirank():
+        raise _spans_error("describe")
     dev = resolve_device(device)
     if columns is None:
         columns = [c.name for c in frame.schema.device_columns if c.cell_shape.rank == 0]
@@ -1327,7 +1860,7 @@ def describe(frame: TensorFrame, columns: Optional[Sequence[str]] = None, device
         return {}
 
     def stats(v):
-        v = dt.to_torch(v, dev).double()
+        v = (v.to(dev) if torch.is_tensor(v) else dt.to_torch(v, dev)).double()
         m = v.mean()
         return torch.stack([m, ((v - m) ** 2).sum(), v.min(), v.max()])
 

@@ -30,8 +30,11 @@ The reference package's ``io.py``:
 
 Each staging copy runs under an optional retry policy, with the
 ``io.prefetch.device_put`` fault site inside the retry scope, and
-``io.save_frame``/``io.load_frame`` sites, as in the reference. Sharded
-placement and the sharded save/load are not ported yet (ROADMAP queue 1).
+``io.save_frame``/``io.load_frame`` sites, as in the reference. A sharded
+frame persists rank by rank: :func:`save_frame_sharded` writes each rank's
+rows to ``part-<rank>`` beside a ``parts.json``, and
+:func:`load_frame_sharded` reassembles the sharded frame on the same
+number of ranks (the reference's layout).
 """
 
 from __future__ import annotations
@@ -309,6 +312,83 @@ def _host_array(v) -> np.ndarray:
     return dt.to_numpy(v) if torch.is_tensor(v) else np.asarray(v)
 
 
+def save_frame_sharded(frame, path: str) -> str:
+    """Multi-rank frame persistence: every rank writes ITS OWN rows.
+
+    A sharded frame spans ranks, so no rank can materialize it
+    (``save_frame`` refuses). Instead each rank writes its rows (a
+    sharded frame's main block, and the host tail on rank 0) to
+    ``path/part-<rank>`` through :func:`save_frame` (atomic per part), and
+    every rank writes the same ``parts.json`` (``{"num_parts": world}``),
+    so a reload on another rank count fails loudly instead of dropping
+    parts. A frame on one rank makes one part. Returns this rank's part
+    directory. Every rank calls it in lockstep; ``path`` is shared
+    storage."""
+    import json
+
+    from .frame import TensorFrame
+    from .ops.device_agg import local_blocks
+    from .parallel.distributed import process_count, process_index
+
+    pid = process_index()
+    blocks = local_blocks(frame)
+    local_block: Dict[str, object] = {}
+    for info in frame.schema:
+        parts = [b[info.name] for b in blocks]
+        if any(isinstance(p, list) for p in parts):
+            flat: list = []
+            for p in parts:
+                flat.extend(list(p))
+            local_block[info.name] = flat
+        else:
+            local_block[info.name] = np.concatenate([_host_array(p) for p in parts], axis=0)
+    part = os.path.join(path, f"part-{pid}")
+    os.makedirs(path, exist_ok=True)
+    save_frame(TensorFrame([local_block], frame.schema), part)
+    meta = os.path.join(path, "parts.json")
+    tmp = f"{meta}.tmp.{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump({"num_parts": process_count()}, f)
+    os.replace(tmp, meta)
+    return part
+
+
+def load_frame_sharded(path: str, mesh=None, axis: Optional[str] = None):
+    """Load this rank's ``part-<rank>`` written by :func:`save_frame_sharded`
+    and reassemble the sharded frame
+    (:func:`~tensorframes_tpu_torch.parallel.frame_from_process_local`).
+    The part count must equal the world size. Host-only columns are not
+    supported across ranks, as in the reference."""
+    import json
+
+    from .parallel.distributed import frame_from_process_local, process_count, process_index
+
+    meta_path = os.path.join(path, "parts.json")
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            num_parts = json.load(f)["num_parts"]
+        if num_parts != process_count():
+            raise ValueError(
+                f"load_frame_sharded: saved with {num_parts} process(es) "
+                f"but loading with {process_count()}; part counts must "
+                "match (repartition via a single-process load_frame of "
+                "each part instead)"
+            )
+    local = load_frame(os.path.join(path, f"part-{process_index()}"), num_blocks=1)
+    [block] = local.blocks()
+    data = {}
+    for info in local.schema:
+        v = block[info.name]
+        if isinstance(v, list):
+            raise TypeError(
+                f"Column {info.name!r}: host-only columns cannot span "
+                "processes; drop them before save_frame_sharded or load "
+                "the part directly with load_frame"
+            )
+        data[info.name] = v
+    return frame_from_process_local(data, mesh=mesh, axis=axis)
+
+
 def save_frame(frame, path: str) -> None:
     """Write a frame to ``path`` (a directory, created if needed).
 
@@ -323,6 +403,9 @@ def save_frame(frame, path: str) -> None:
     import shutil
 
     fault_point("io.save_frame")
+    check = getattr(frame, "_check_global", None)
+    for name in frame.schema.names if check is not None else ():
+        check(name)  # a frame across ranks: save_frame_sharded
     dense: Dict[str, np.ndarray] = {}
     host: Dict[str, list] = {}
     cols = []

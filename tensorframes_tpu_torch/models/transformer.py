@@ -178,7 +178,7 @@ def _attention(cfg: TransformerConfig, p, x, mask):
     if impl in ("ring", "ulysses"):
         raise NotImplementedError(
             f"attention_impl={impl!r} is not ported yet: sequence parallelism comes "
-            "with the multi-device work (ROADMAP queue 1 item 9)"
+            "with the model-parallel half of the multi-device work (ROADMAP queue 1 item 5)"
         )
     if impl not in ("dense", "blockwise", "flash"):
         raise ValueError(f"Unknown attention_impl {impl!r}")

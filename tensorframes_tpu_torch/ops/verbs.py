@@ -25,7 +25,13 @@ Programs may be DSL nodes or plain Python functions over torch tensors
 plan-carrying frame record plan nodes instead of running
 (:mod:`..plan`), and ``reduce_blocks``/``reduce_rows`` fuse a recorded
 chain into their epilogue; ``TFTPU_FUSION=0`` runs every verb eagerly,
-stage by stage, with the same bits. No sharded frames.
+stage by stage, with the same bits.
+
+A sharded frame (``to_device``, ``parallel.frame_from_process_local``)
+holds each rank's rows as tensors on the rank's device: its verbs run
+eagerly on that device, maps leave their outputs there, and the reduces
+and the keyed aggregate cross ranks through the process group
+(``ops/device_agg.py``, :mod:`..parallel.collectives`).
 """
 
 from __future__ import annotations
@@ -42,7 +48,7 @@ import torch
 from .. import dtypes as dt
 from ..config import get_config, resolve_device
 from ..dsl.node import Node, compile_fetches, segment_reduce_info
-from ..frame import Block, GroupedData, TensorFrame, _block_num_rows
+from ..frame import Block, GroupedData, TensorFrame, _block_num_rows, carry_layout
 from ..program import Program, TensorSpec, analyze_program, program_from_function
 from ..schema import ColumnInfo, Schema
 from ..shape import Shape, Unknown
@@ -100,6 +106,40 @@ def _plan_map_result(
     result._plan = node
     result._produced_by_map = True
     return result
+
+
+def _verb_device(frame, device) -> torch.device:
+    """The device a verb runs on: the explicit ``device``, else a sharded
+    frame's rank device, else ``config.device``."""
+    if device is None and getattr(frame, "is_sharded", False):
+        from ..parallel.distributed import rank_device
+
+        device = rank_device()
+    return resolve_device(device)
+
+
+class _OnDevice:
+    """Outputs that stay where they were computed (a sharded frame's main
+    block): ``wait()`` returns them as they are."""
+
+    def __init__(self, outs):
+        self.outs = outs
+
+    def wait(self):
+        return self.outs
+
+
+def _on(v, device) -> torch.Tensor:
+    """A block column as a tensor on ``device`` (host arrays copied up,
+    tensors moved only when elsewhere)."""
+    if torch.is_tensor(v):
+        return v if v.device == device else v.to(device)
+    return dt.to_torch(v, device)
+
+
+def _host_row(v):
+    """Row 0 of a column as a host array."""
+    return dt.to_numpy(v[0]) if torch.is_tensor(v) else np.asarray(v[0])
 
 
 def _is_pandas(obj) -> bool:
@@ -425,7 +465,7 @@ def map_blocks(
     """
     if _is_pandas(frame):
         return _map_pandas(fetches, frame, feed_dict, device, strict=strict)
-    dev = resolve_device(device)
+    dev = _verb_device(frame, device)
     program, _ = _normalize_program(
         fetches, frame.schema, block=True, device=dev, feed_dict=feed_dict
     )
@@ -435,7 +475,8 @@ def map_blocks(
         _strict_lint(program, frame, block_mode=True)
     out_infos = _sorted_output_infos(program, block_mode=True)
     schema = Schema(out_infos if trim else out_infos + frame.schema.columns)
-    if not trim:
+    sharded = frame.is_sharded
+    if not trim and not sharded:
         planned = _plan_map_result(frame, program, schema, False, dev)
         if planned is not None:
             return planned
@@ -451,7 +492,9 @@ def map_blocks(
         # block k+1's copy in and compute overlap block k's copy out; the
         # host waits on a block's own readback event, never on the device
         cfg = get_config()
-        depth = max(0, cfg.map_pipeline_depth)
+        # a sharded frame's main block keeps its outputs on the device:
+        # nothing to read back, no window
+        depth = 0 if sharded else max(0, cfg.map_pipeline_depth)
         in_flight: deque = deque()
 
         def finish(b: Block, n: int, pending) -> None:
@@ -476,18 +519,19 @@ def map_blocks(
         # a worker thread stages upcoming blocks' feeds on the device
         # (pinned memory, a side stream) while this one computes
         feeds_seq = (gather_feeds(b, input_names, program) for b in blocks)
-        prefetch = max(0, cfg.map_prefetch_depth)
+        prefetch = 0 if sharded else max(0, cfg.map_prefetch_depth)
         if prefetch > 0 and len(blocks) > 1:
             from .. import io as _io
 
             feeds_seq = _io.prefetch_to_device(feeds_seq, size=prefetch, device=dev)
         try:
-            for b, feeds in zip(blocks, feeds_seq):
+            for bi, (b, feeds) in enumerate(zip(blocks, feeds_seq)):
                 n = _block_num_rows(b)
                 n_total += n
                 outs = compiled.run_block(feeds, dev, to_numpy=False)
                 del feeds
-                in_flight.append((b, n, Readback(outs)))
+                in_flight.append((b, n, _OnDevice(outs) if sharded and bi == 0
+                                  else Readback(outs)))
                 if len(in_flight) > depth:
                     finish(*in_flight.popleft())
             while in_flight:
@@ -496,11 +540,13 @@ def map_blocks(
             close = getattr(feeds_seq, "close", None)
             if close is not None:
                 close()  # stops the prefetch worker on an early exit
-        profiling.record("map_blocks", time.perf_counter() - t0, n_total)
+        profiling.record("map_blocks.dispatch" if sharded else "map_blocks",
+                         time.perf_counter() - t0, n_total)
         return out_blocks
 
     result = TensorFrame(None, schema, pending=compute)
     result._produced_by_map = True
+    carry_layout(frame, result)
     if trim:
         # a row-count-changing map is a fusion barrier: downstream
         # chains re-root here
@@ -736,7 +782,7 @@ def map_rows(
     """
     if _is_pandas(frame):
         return _map_pandas(fetches, frame, feed_dict, device, strict=strict)
-    dev = resolve_device(device)
+    dev = _verb_device(frame, device)
     program, _ = _normalize_program(
         fetches, frame.schema, block=False, device=dev, feed_dict=feed_dict
     )
@@ -746,9 +792,11 @@ def map_rows(
         _strict_lint(program, frame, block_mode=False)
     out_infos = _sorted_output_infos(program, block_mode=False)
     schema = Schema(out_infos + frame.schema.columns)
-    planned = _plan_map_result(frame, program, schema, True, dev)
-    if planned is not None:
-        return planned
+    sharded = frame.is_sharded
+    if not sharded:
+        planned = _plan_map_result(frame, program, schema, True, dev)
+        if planned is not None:
+            return planned
     compiled = program.compiled()
     parent = frame
     input_names = program.input_names
@@ -778,6 +826,14 @@ def map_rows(
                 ragged_entries.append((bi, b, n))
                 continue
             feeds = gather_feeds(b, input_names, program)
+            if sharded and bi == 0:
+                # a sharded frame's main block: one stable size, outputs
+                # stay on the device
+                outs = compiled.run_rows(feeds, dev, to_numpy=False)
+                nb = {i.name: outs[i.name] for i in out_infos}
+                nb.update(b)
+                results[bi] = nb
+                continue
             # adaptive lead-dim bucketing: the partitioner yields at most
             # two block sizes, so the first few distinct shapes run exactly
             # (zero padded work); once the dispatch cache shows shape
@@ -815,17 +871,31 @@ def map_rows(
                 nb.update(b)
                 results[bi] = nb
                 off += nr
-        profiling.record("map_rows", time.perf_counter() - t0, n_total)
+        profiling.record("map_rows.dispatch" if sharded else "map_rows",
+                         time.perf_counter() - t0, n_total)
         return results
 
     result = TensorFrame(None, schema, pending=compute)
     result._produced_by_map = True
+    carry_layout(frame, result)
     return result
 
 
 # ---------------------------------------------------------------------------
 # reduce_rows
 # ---------------------------------------------------------------------------
+
+def _rank_partials(local: Optional[Dict[str, np.ndarray]]) -> List[Dict[str, np.ndarray]]:
+    """Every rank's partial of a sharded frame's main block, in rank
+    order (one allgather of the pickled partials; a rank with no rows
+    contributes none). Alone, this rank's."""
+    import pickle
+
+    from ..parallel.collectives import allgather_bytes
+
+    got = [pickle.loads(b) for b in allgather_bytes(pickle.dumps(local))]
+    return [p for p in got if p is not None]
+
 
 def _unpack_results(program: Program, finals: Dict[str, np.ndarray]):
     """Return numpy results in fetch order; single fetch unwraps
@@ -846,9 +916,11 @@ def reduce_rows(
 
     Execution: within each block, a sequential fold on the device; block
     partials are folded the same way. Reduction order is unspecified by
-    contract (core.py:186-187); this fold takes the reference's order.
+    contract (core.py:186-187); this fold takes the reference's order. On
+    a sharded frame each rank folds its own rows on its device, the ranks'
+    partials are allgathered in rank order and folded, then the host tail.
     """
-    dev = resolve_device(device)
+    dev = _verb_device(frame, device)
     program, _ = _normalize_program(
         fetches, frame.schema, block=False, device=dev, reduce_mode="rows"
     )
@@ -864,14 +936,15 @@ def reduce_rows(
     # partials then combine exactly as always
     from ..plan.lower import lower_reduce
 
-    planned = lower_reduce(frame, program, out_names, "rows", dev)
+    planned = None if frame.is_sharded else lower_reduce(frame, program, out_names, "rows", dev)
     partials: List[Dict[str, np.ndarray]] = (
         list(planned[0]) if planned is not None else []
     )
-    for b in ([] if planned is not None else frame.blocks()):
+
+    def block_partial(b):
         n = _block_num_rows(b)
         if n == 0:
-            continue
+            return None
         feeds = {}
         for x in out_names:
             v = b[x]
@@ -886,10 +959,18 @@ def reduce_rows(
                     ) from None
             feeds[x] = v
         if n == 1:
-            partials.append({x: np.asarray(feeds[x][0]) for x in out_names})
-        else:
-            res = fold({x: dt.to_torch(feeds[x], dev) for x in out_names})
-            partials.append({x: dt.to_numpy(res[x]) for x in out_names})
+            return {x: _host_row(feeds[x]) for x in out_names}
+        res = fold({x: _on(feeds[x], dev) for x in out_names})
+        return {x: dt.to_numpy(res[x]) for x in out_names}
+
+    blocks = [] if planned is not None else frame.blocks()
+    if frame.is_sharded and blocks:
+        partials.extend(_rank_partials(block_partial(blocks[0])))
+        blocks = blocks[1:]  # the host tail folds in below
+    for b in blocks:
+        p = block_partial(b)
+        if p is not None:
+            partials.append(p)
     if not partials:
         raise ValueError("reduce_rows on an empty frame")
     if len(partials) == 1:
@@ -919,8 +1000,11 @@ def reduce_blocks(
     Execution ≙ performReduceBlock per partition + pairwise merge
     (DebugRowOps.scala:510-533), except partials are stacked and reduced in
     one final program run instead of pairwise merging coordinated by Spark.
+    On a sharded frame each rank runs the program on its own rows on its
+    device; the ranks' partials (allgathered in rank order) and the host
+    tail's stack into the final run.
     """
-    dev = resolve_device(device)
+    dev = _verb_device(frame, device)
     program, _ = _normalize_program(
         fetches, frame.schema, block=True, device=dev, reduce_mode="blocks"
     )
@@ -936,13 +1020,14 @@ def reduce_blocks(
     # as always
     from ..plan.lower import lower_reduce
 
-    planned = lower_reduce(frame, program, out_names, "blocks", dev)
+    planned = None if frame.is_sharded else lower_reduce(frame, program, out_names, "blocks", dev)
     partials: List[Dict[str, np.ndarray]] = (
         list(planned[0]) if planned is not None else []
     )
-    for b in ([] if planned is not None else frame.blocks()):
+
+    def block_partial(b):
         if _block_num_rows(b) == 0:
-            continue
+            return None
         feeds = {}
         for x in out_names:
             v = b[x]
@@ -956,7 +1041,16 @@ def reduce_blocks(
                         "needs dense blocks (run analyze() first)."
                     ) from None
             feeds[f"{x}_input"] = v
-        partials.append(compiled.run_block(feeds, dev))
+        return compiled.run_block(feeds, dev)
+
+    blocks = [] if planned is not None else frame.blocks()
+    if frame.is_sharded and blocks:
+        partials.extend(_rank_partials(block_partial(blocks[0])))
+        blocks = blocks[1:]  # the host tail's partial follows the ranks'
+    for b in blocks:
+        p = block_partial(b)
+        if p is not None:
+            partials.append(p)
     if not partials:
         raise ValueError("reduce_blocks on an empty frame")
     if len(partials) == 1:
@@ -1026,6 +1120,51 @@ def _segment_reduce_device(ops_key, num_groups, vals, sids, device) -> Dict[str,
             device.type == "cpu" and _ksr.eligible(ops_key, vals, num_groups)):
         return _ksr.segment_reduce(ops_key, num_groups, vals, sids)
     return run_segment_fast(ops_key, num_groups, vals, sids)
+
+
+def _segment_tables_device(ops_key, num_groups, vals, sids, device):
+    """The raw per-group tables of a keyed reduction, for a merge across
+    ranks before any finalize: ``({name: table}, counts)`` with sums and
+    means as raw sums in their accumulator (float32 for float32/bfloat16
+    values, the kernel's wrapping int32 for the narrow ints), min/max
+    exact, and int32 row counts per group. Recorded as the same cost-model
+    decision as :func:`_segment_reduce_device` (the counts ride as one more
+    int32 sum): on a CUDA device an eligible feed launches the fused
+    kernel ONCE (``kernels/segment_reduce.segment_reduce_tables``); the
+    rest take ``segment_total`` (the ``segment_sum`` kernel for
+    float32/bfloat16 sums) and PyTorch scatter ops, which on the CPU give
+    the kernel's plain tables."""
+    from ..kernels import segment_reduce as _ksr
+    from ..plan import rules as _prules
+    from ..plan.lower import _note_decision
+    from .segment import segment_minmax, segment_total
+
+    _reject_bool_sum_mean(ops_key, vals)
+    key = tuple(ops_key) + (("__count__", "reduce_sum"),)
+    cols = dict(vals)
+    cols["__count__"] = torch.ones(int(sids.shape[0]), dtype=torch.int32, device=sids.device)
+    decision = _prules.decide_segment_reduce(key, cols, num_groups, device=device)
+    _note_decision(decision)
+    # a rank holding no rows launches nothing: its tables are the
+    # identities the scatter route fills in
+    if decision.kind == _prules.CUDA_SEGMENT_REDUCE and int(sids.shape[0]) > 0:
+        raw, _ = _ksr.segment_reduce_tables(key, num_groups, cols, sids)
+        tables = {}
+        for x, op in ops_key:
+            t = raw[x][:, 0] if vals[x].ndim == 1 else raw[x]
+            if op in ("reduce_min", "reduce_max"):
+                t = t.to(vals[x].dtype)  # exact: the identities or a value
+            tables[x] = t
+        return tables, raw["__count__"][:, 0]
+    tables = {}
+    with torch.inference_mode():
+        for x, op in ops_key:
+            if op in ("reduce_sum", "reduce_mean"):
+                tables[x] = segment_total(vals[x], sids, num_groups)
+            else:
+                tables[x] = segment_minmax(vals[x], sids, num_groups, op)
+        counts = torch.bincount(sids.long(), minlength=num_groups).to(torch.int32)
+    return tables, counts
 
 
 def _segment_reduce_best(ops_key, num_groups, val_cols, seg_ids, device):
@@ -1176,8 +1315,16 @@ def _batched_compaction(program, val_cols, seg_ids, num_groups, out_names, devic
         return nxt
 
     with torch.inference_mode():
-        cur = {x: dt.to_torch(np.asarray(val_cols[x])[order], device)
-               for x in out_names}
+        order_t = None
+        cur = {}
+        for x in out_names:
+            v = val_cols[x]
+            if torch.is_tensor(v):  # a sharded frame's rows, on their device
+                if order_t is None:
+                    order_t = dt.to_torch(order, v.device)
+                cur[x] = v.index_select(0, order_t).to(device)
+            else:
+                cur[x] = dt.to_torch(np.asarray(v)[order], device)
         while int(counts.max(initial=0)) > buf:
             starts = np.concatenate(([0], np.cumsum(counts)[:-1]))
             k, r = counts // buf, counts % buf
@@ -1210,6 +1357,143 @@ def _batched_compaction(program, val_cols, seg_ids, num_groups, out_names, devic
     return Readback(finals).wait()
 
 
+def _allgather_rows(arr: np.ndarray, ks: Optional[np.ndarray] = None) -> np.ndarray:
+    """Every rank's ``[k_r, *cell]`` rows concatenated in rank order (the
+    union order of ``device_agg._allgather_dicts``), through one
+    allgather of the pickled arrays."""
+    import pickle
+
+    from ..blockstore.store import HOSTGATHER_BYTES
+    from ..parallel.collectives import allgather_bytes
+
+    bufs = allgather_bytes(pickle.dumps(np.asarray(arr), protocol=pickle.HIGHEST_PROTOCOL))
+    HOSTGATHER_BYTES.inc(float(len(bufs) * max(len(b) for b in bufs)))
+    return np.concatenate([pickle.loads(b) for b in bufs])
+
+
+def _aggregate_multiprocess_generic(program, frame, keys, out_names, device):
+    """Arbitrary-combiner aggregation across ranks (the UDAF merge at
+    multi-rank scale). Per rank: local group-id encode and level-batched
+    compaction of its own rows on its device to ONE partial row per local
+    group (the program's algebraic contract, the reference UDAF's merge
+    assumption, DebugRowOps.scala:668-683). Then one small allgather of
+    (keys, partial rows) and a final combine of the union — every rank
+    computes the same replicated result — or, with the file shuffle armed,
+    a hash-partitioned merge through spill files. Returns None when
+    ineligible (ragged values, a host tail, outputs with Unknown dims — an
+    empty rank could not shape its partials)."""
+    from .device_agg import (
+        _allgather_dicts,
+        assemble_key_cols,
+        extract_local_rows,
+        uniform_ok,
+    )
+    from .exchange import _file_shuffle_ctx
+    from .keys import group_ids
+    from ..parallel.distributed import process_count
+
+    blocks = frame.blocks()
+    main = blocks[0]
+    tail = blocks[1] if len(blocks) > 1 else None
+    if frame.num_rows == 0:
+        return None
+    ok = True
+    if tail is not None and any(_block_num_rows({c: tail[c]}) for c in tail):
+        ok = False  # host-tail rows are held by every rank
+    if any(d == Unknown for o in program.outputs for d in o.shape.dims):
+        ok = False
+    cols = {}
+    if ok:
+        for c in list(keys) + list(out_names):
+            v = main[c]
+            if c in out_names:
+                if isinstance(v, list):
+                    ok = False  # ragged value cells can't batch
+                    break
+                cols[c] = v
+            else:
+                cols[c] = extract_local_rows(v)
+        if ok:
+            n_local = len(cols[keys[0]])
+            ok = all(len(cols[c]) == n_local for c in cols)
+    fctx = _file_shuffle_ctx()
+    if fctx is not None and fctx.nprocs != process_count():
+        fctx = None  # a stale/foreign shuffle dir must not hijack a fleet
+    if fctx is not None and fctx.nprocs > 1:
+        # the eligibility vote goes through spill files too
+        from ..blockstore import shuffle as _fs
+
+        agree = _fs.vote_all(ok, name="agg.ok")
+    else:
+        agree = uniform_ok(ok)
+    if not agree:
+        return None
+    if len(cols[keys[0]]):
+        ids_local, local_dict, k_local = group_ids([cols[k] for k in keys])
+    else:
+        ids_local = np.zeros(0, np.int64)
+        local_dict = [np.asarray(cols[k])[:0] for k in keys]
+        k_local = 0
+    partials = _batched_compaction(
+        program, {x: cols[x] for x in out_names}, ids_local, k_local, out_names, device,
+    )
+    if fctx is not None and fctx.nprocs > 1:
+        return _merge_partials_shuffled(
+            program, frame, keys, out_names, list(local_dict), partials, device,
+        )
+    union_key_cols, _ = _allgather_dicts(list(local_dict))
+    union_vals = {x: _allgather_rows(partials[x]) for x in out_names}
+    union_ids, group_key_cols, K = group_ids(union_key_cols)
+    out_cols = _batched_compaction(program, union_vals, union_ids, K, out_names, device)
+    return assemble_key_cols(frame, keys, group_key_cols), out_cols
+
+
+def _merge_partials_shuffled(program, frame, keys, out_names, local_dict, partials, device):
+    """Merge per-rank partial tables through the file shuffle
+    (``blockstore.shuffle``) instead of allgathering them: partials
+    hash-partition by group key through spill files, each rank combines
+    only its key partition, and only the small finals are shared back.
+    Returns the same replicated ``(key_cols, out_cols)`` as the allgather
+    path, groups in lexicographic key order."""
+    from ..blockstore import shuffle as _fs
+    from .device_agg import assemble_key_cols
+    from .exchange import partition_by_hash
+    from .keys import group_ids
+
+    key_names = [f"__k{i}" for i in range(len(local_dict))]
+    table = {n: np.asarray(a) for n, a in zip(key_names, local_dict)}
+    for x in out_names:
+        table[x] = np.asarray(partials[x])
+    nprocs = _fs.context().nprocs
+    part = partition_by_hash([table[n] for n in key_names], nprocs)
+    mine = _fs.shuffle_rows(table, part, name="agg.partials")
+    kcols = [np.asarray(mine[n]) for n in key_names]
+    if len(kcols[0]):
+        ids, gk, K = group_ids(kcols)
+        combined = _batched_compaction(
+            program, {x: np.asarray(mine[x]) for x in out_names},
+            ids.astype(np.int64), K, out_names, device,
+        )
+    else:
+        gk = [a[:0] for a in kcols]
+        combined = {x: np.asarray(mine[x])[:0] for x in out_names}
+    final = {n: np.asarray(g) for n, g in zip(key_names, gk)}
+    for x in out_names:
+        final[x] = np.asarray(combined[x])
+    union = _fs.allshare_table(final, name="agg.finals")
+    union_key_cols = [
+        np.asarray(union[n], dtype=object)
+        if isinstance(union[n], list) else np.asarray(union[n])
+        for n in key_names
+    ]
+    union_ids, group_key_cols, K = group_ids(union_key_cols)
+    out_cols = _batched_compaction(
+        program, {x: np.asarray(union[x]) for x in out_names},
+        union_ids.astype(np.int64), K, out_names, device,
+    )
+    return assemble_key_cols(frame, keys, group_key_cols), out_cols
+
+
 def _generic_aggregate(program, frame, keys, out_names, device):
     """The generic (UDAF) route over a non-empty frame: value columns
     gathered, keys encoded on the host as the fast path encodes them, and
@@ -1240,10 +1524,15 @@ def aggregate(
     UNSORTED ids; any other program takes the generic UDAF route
     (:func:`_batched_compaction`), which must be algebraic: re-applying it
     to stacked partials must be valid.
+
+    A sharded frame first tries the device plans (``ops/device_agg.py``:
+    per-rank segment tables and one all-reduce per op and dtype), then,
+    across ranks, the generic merge of per-rank partials; what neither
+    takes runs the host paths (one rank) or raises (ranks).
     """
     frame = grouped.frame
     keys = grouped.keys
-    dev = resolve_device(device)
+    dev = _verb_device(frame, device)
     t0 = time.perf_counter()
     program, seg_info = _normalize_program(
         fetches, frame.schema, block=True, device=dev, reduce_mode="blocks"
@@ -1265,7 +1554,8 @@ def aggregate(
     # path, with the reason recorded.
     from ..plan import ir as plan_ir
 
-    if getattr(frame, "_plan", None) is not None and plan_ir.fusion_enabled():
+    if (getattr(frame, "_plan", None) is not None and plan_ir.fusion_enabled()
+            and not frame.is_sharded):
         if algebraic:
             node = plan_ir.PlanNode(
                 "aggregate",
@@ -1293,6 +1583,30 @@ def aggregate(
             "materializes before the generic UDAF path runs — use "
             "reduce_sum/min/max/mean DSL fetches to fuse the epilogue"
         )
+    def assembled(out_key_cols, out_cols, n):
+        block: Block = dict(out_key_cols)
+        for o in program.outputs:
+            block[o.name] = out_cols[o.name]
+        profiling.record("aggregate", time.perf_counter() - t0, n)
+        return TensorFrame([block], schema)
+
+    if seg_info is not None and frame.is_sharded:
+        from .device_agg import try_aggregate_device
+
+        got = try_aggregate_device(frame, keys, seg_info, out_names, dev)
+        if got is not None:
+            return assembled(got[0], got[1], frame.num_rows)
+    # the multi-rank generic merge re-applies the program to stacked
+    # partials: right for any UDAF and for sum/min/max, not for a mean
+    # (a mean of partial means is not the group mean)
+    mean_free = seg_info is None or all(op != "reduce_mean" for _, op, _ in seg_info)
+    if frame.is_sharded and mean_free:
+        from ..parallel.distributed import process_count
+
+        if process_count() > 1:
+            got = _aggregate_multiprocess_generic(program, frame, keys, out_names, dev)
+            if got is not None:
+                return assembled(got[0], got[1], frame.num_rows)
     if frame.num_rows == 0:
         profiling.record("aggregate", time.perf_counter() - t0, 0)
         return TensorFrame(_empty_agg_blocks(schema), schema)

@@ -17,11 +17,12 @@ The reference package's ``resilience/`` in its single-process subset:
 
 * :mod:`.fleet` — the file-based fleet rendezvous: heartbeats
   (:class:`Heartbeater`), :func:`fleet_status`, the coordinated-abort
-  signal, and the atomic records the serving fleet's replica cards share.
+  signal, and the atomic records the serving fleet's replica cards share;
+  and its deadline half: :func:`run_with_deadline` (the hung-collective
+  watchdog) and the file :func:`barrier`, with the fleet error classes.
 
-The SPMD half of fleet supervision (``FleetMonitor``, ``enroll``,
-``run_with_deadline``, ``barrier``, ``supervise()``) comes with the
-multi-device work. Checkpoint integrity lives in
+``FleetMonitor``, ``enroll`` and ``supervise()`` come with the
+model-parallel slice. Checkpoint integrity lives in
 :mod:`tensorframes_tpu_torch.checkpoint`.
 """
 
@@ -41,7 +42,14 @@ from .faults import (  # noqa: F401
     reset,
 )
 from .fleet import (  # noqa: F401
+    CoordinatedAbortError,
+    DeadRankError,
+    FleetError,
     FleetStatus,
+    HungDispatchError,
+    barrier,
+    dispatch_deadline_s,
+    run_with_deadline,
     Heartbeater,
     abort_requested,
     clear_fleet,

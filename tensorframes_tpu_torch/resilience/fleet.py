@@ -32,7 +32,7 @@ import os
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 from ..config import get_config
 from ..observability import context as _context
@@ -42,10 +42,15 @@ from ..observability.metrics import gauge as _gauge
 from ..observability.metrics import histogram as _histogram
 from ..utils import get_logger
 from . import faults as _faults
+from . import retry as _retry
 
 logger = get_logger(__name__)
 
 __all__ = [
+    "FleetError",
+    "DeadRankError",
+    "HungDispatchError",
+    "CoordinatedAbortError",
     "FleetStatus",
     "Heartbeater",
     "rendezvous_dir",
@@ -57,6 +62,10 @@ __all__ = [
     "signal_abort",
     "abort_requested",
     "clear_fleet",
+    "barrier",
+    "dispatch_deadline_s",
+    "note_deadline_exemption",
+    "run_with_deadline",
 ]
 
 # Fleet telemetry under the reference's names, registered at import so
@@ -122,6 +131,33 @@ _faults.register_site(
     "Heartbeater beat loop — an injected error drops the beat "
     "(drop-heartbeat chaos: peers must detect the silence)",
 )
+_faults.register_site(
+    "fleet.barrier",
+    "fleet.barrier arrival — an injected Delay stalls this rank's "
+    "arrival (hung-collective chaos at a rendezvous point)",
+)
+
+
+class FleetError(RuntimeError):
+    """Base of the fleet-supervision failure family."""
+
+
+class DeadRankError(FleetError):
+    """One or more peer ranks stopped heartbeating (or were reaped)."""
+
+    def __init__(self, ranks: Sequence[int], message: str):
+        super().__init__(message)
+        self.ranks = tuple(sorted(int(r) for r in ranks))
+
+
+class HungDispatchError(FleetError, TimeoutError):
+    """A dispatch/barrier exceeded the dispatch deadline. Subclasses
+    ``TimeoutError`` so the default retry classification treats it as
+    transient (a redial after a fleet restart may succeed)."""
+
+
+class CoordinatedAbortError(FleetError):
+    """A peer signalled the coordinated abort; this rank stops too."""
 
 
 # ---------------------------------------------------------------------------
@@ -420,3 +456,199 @@ class Heartbeater:
                 )
             except OSError as e:  # pragma: no cover - dying filesystem
                 logger.debug("final heartbeat failed: %s", e)
+
+
+# ---------------------------------------------------------------------------
+# hung-dispatch watchdog
+# ---------------------------------------------------------------------------
+
+def dispatch_deadline_s() -> float:
+    """The active dispatch deadline (seconds; 0 = watchdog disabled)."""
+    try:
+        return float(get_config().dispatch_deadline_s or 0.0)
+    except (TypeError, ValueError):
+        return 0.0
+
+
+def note_deadline_exemption(describe: str) -> None:
+    """Record that one call ran unbounded by the watchdog (counted and
+    flight-recorded: a fleet exempting calls in steady state is a fleet
+    the deadline does not protect)."""
+    _DEADLINE_EXEMPTIONS.inc()
+    _flight.record("fleet.deadline_exemption", entry=describe)
+
+
+def _hung(
+    describe: str,
+    deadline: float,
+    directory: Optional[str],
+    *,
+    missing: Optional[List[int]] = None,
+    extra: Optional[dict] = None,
+    signal: bool = True,
+    message: Optional[str] = None,
+) -> HungDispatchError:
+    """Build the hung-dispatch verdict — the one protocol the watchdog
+    and the barrier share: count, flight-record and dump a postmortem
+    naming the stalled call and the unresponsive ranks, and (unless
+    ``signal=False``) the coordinated abort. ``missing`` overrides the
+    heartbeat-inferred unresponsive set when the caller knows it exactly
+    (the barrier does, from arrivals)."""
+    directory = directory or rendezvous_dir()
+    if missing is None:
+        missing = []
+        if directory:
+            try:
+                missing = fleet_status(
+                    directory, run_id=_context.run_id(),
+                    num_processes=_context.num_processes(),
+                ).unresponsive()
+            except Exception:  # pragma: no cover - status is best-effort
+                pass
+    _HUNG_DISPATCHES.inc()
+    _flight.record(
+        "fleet.hung_dispatch", entry=describe, deadline_s=deadline,
+        missing_ranks=missing, **(extra or {}),
+    )
+    _flight.dump(reason="hung_dispatch")
+    if signal and directory:
+        signal_abort(
+            directory,
+            f"hung dispatch {describe!r} (deadline {deadline:g}s, "
+            f"unresponsive ranks {missing})",
+            dead_ranks=missing,
+        )
+    if message is None:
+        message = f"dispatch {describe!r} exceeded the {deadline:g}s deadline"
+        if missing:
+            message += f"; unresponsive rank(s): {missing}"
+        message += (
+            " — aborted by the hung-collective watchdog (see the "
+            "flight-recorder postmortem; the in-flight attempt is "
+            "abandoned, not interrupted)"
+        )
+    return HungDispatchError(message)
+
+
+def run_with_deadline(
+    fn: Callable[[], object],
+    *,
+    describe: str = "dispatch",
+    deadline: Optional[float] = None,
+    directory: Optional[str] = None,
+    signal: bool = True,
+):
+    """Run ``fn()`` bounded by the dispatch deadline (default
+    ``config.dispatch_deadline_s``; disabled → a plain call, no thread).
+    On expiry the attempt is abandoned on its daemon thread (Python
+    cannot interrupt a call blocked in a collective) and
+    :class:`HungDispatchError` raises after the postmortem/abort
+    protocol. ``signal=False`` skips the coordinated-abort write for
+    calls that are retried on timeout (the process-group handshake): an
+    abort record outliving a successful redial would kill every rank."""
+    d = dispatch_deadline_s() if deadline is None else float(deadline or 0)
+    if d <= 0:
+        return fn()
+    try:
+        return _retry.run_abandonable(
+            fn, (), {}, d, thread_name="tfs-dispatch-deadline"
+        )
+    except _retry.WatchdogExpired:
+        raise _hung(describe, d, directory, signal=signal) from None
+
+
+# ---------------------------------------------------------------------------
+# rendezvous barrier
+# ---------------------------------------------------------------------------
+
+# per-(directory, run incarnation, name) call counter: every use of a
+# barrier name is its own generation, agreeing across ranks because every
+# rank calls every barrier in order
+_gen_lock = threading.Lock()
+_barrier_gen: Dict[str, int] = {}
+
+
+def barrier(
+    name: str,
+    *,
+    directory: Optional[str] = None,
+    num_processes: Optional[int] = None,
+    rank: Optional[int] = None,
+    deadline: Optional[float] = None,
+    poll_s: float = 0.01,
+) -> None:
+    """File-based fleet barrier: every rank marks its arrival at ``name``
+    and waits for all ``num_processes`` peers, bounded by ``deadline``
+    (``None`` or ``<= 0``: the dispatch deadline when armed, else
+    ``max(4 × heartbeat_timeout_s, 20 s)``; a barrier is never
+    unbounded). A missing peer raises :class:`HungDispatchError` naming
+    the missing ranks after the postmortem/abort protocol; a peer's abort
+    signal raises :class:`CoordinatedAbortError`. A process outside a
+    rendezvous dir, or alone, returns at once. Reusing a name is fine:
+    each use is a new generation (``TFTPU_FLEET_ATTEMPT`` folded in, so a
+    restarted fleet counts afresh); generations two or more behind are
+    pruned on entry."""
+    directory = directory or rendezvous_dir()
+    if not directory:
+        return
+    n = num_processes if num_processes is not None else _context.num_processes()
+    if not n or int(n) <= 1:
+        return
+    n = int(n)
+    rank = _context.process_index() if rank is None else int(rank)
+    run = _context.run_id()
+    _faults.delay_point("fleet.barrier")
+    attempt = os.environ.get("TFTPU_FLEET_ATTEMPT", "0")
+    with _gen_lock:
+        gen_key = f"{os.path.abspath(directory)}|{run}_a{attempt}_{name}"
+        gen = _barrier_gen.get(gen_key, 0)
+        _barrier_gen[gen_key] = gen + 1
+    base = f"barrier_{run}_a{attempt}_{name}"
+    tag = f"{base}.g{gen}"
+    os.makedirs(directory, exist_ok=True)
+    # being AT generation g proves every rank observed all of g-2's
+    # arrivals: those files can go (g-1's must stay for slower peers)
+    for path in _glob.glob(os.path.join(directory, f"{base}.g*")):
+        try:
+            old_gen = int(os.path.basename(path)[len(base) + 2:].split("_p", 1)[0])
+        except (IndexError, ValueError):
+            continue
+        if old_gen <= gen - 2:
+            try:
+                os.remove(path)
+            except OSError:
+                pass  # a peer pruned it first
+    with open(os.path.join(directory, f"{tag}_p{rank}"), "w") as f:
+        f.write(str(time.time()))
+    d = deadline
+    if d is None or d <= 0:
+        d = dispatch_deadline_s() or max(4.0 * get_config().heartbeat_timeout_s, 20.0)
+    t0 = time.monotonic()
+    while True:
+        arrived = set()
+        for path in _glob.glob(os.path.join(directory, f"{tag}_p*")):
+            try:
+                arrived.add(int(path.rsplit("_p", 1)[1]))
+            except (IndexError, ValueError):
+                continue
+        if len(arrived) >= n:
+            return
+        ab = abort_requested(directory, run)
+        if ab is not None:
+            raise CoordinatedAbortError(
+                f"barrier {name!r}: coordinated abort from rank "
+                f"{ab.get('by')}: {ab.get('reason')}"
+            )
+        if time.monotonic() - t0 > d:
+            missing = sorted(set(range(n)) - arrived)
+            raise _hung(
+                f"fleet.barrier[{name}]", d, directory,
+                missing=missing, extra={"arrived": sorted(arrived)},
+                message=(
+                    f"barrier {name!r}: rank(s) {missing} missing after "
+                    f"the {d:g}s deadline (arrived: {sorted(arrived)}) — "
+                    "aborted by the hung-collective watchdog (see the "
+                    "flight-recorder postmortem)"
+                ),
+            )
+        time.sleep(poll_s)

@@ -90,9 +90,10 @@ def run_resumable(
     if os.environ.get("TFTPU_FLEET_DIR"):
         raise RuntimeError(
             "run_resumable: TFTPU_FLEET_DIR is set, but fleet supervision (heartbeats, "
-            "peer watch, coordinated abort: resilience/fleet.py) is not ported yet; it "
-            "comes with the multi-device work (ROADMAP queue 1 item 9). Unset "
-            "TFTPU_FLEET_DIR to train one process.")
+            "peer watch, coordinated abort: resilience/fleet.py's FleetMonitor and "
+            "enroll) is not ported yet; it comes with the model-parallel half of the "
+            "multi-device work (ROADMAP queue 1 item 5). Unset TFTPU_FLEET_DIR to "
+            "train one process.")
     if guard is not None:
         guard = StepGuard.coerce(guard)
     start_step = 0

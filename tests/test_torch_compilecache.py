@@ -122,8 +122,21 @@ def test_fingerprint_moves_with_bucket_dtype_constant_and_device(prog_module):
     on_meta = program_fingerprint(plain, components=True)
     assert sorted(k for k in on_cpu if on_cpu[k] != on_meta[k]) == ["env"]
     assert program_fingerprint(base) != program_fingerprint(base, kind="vmap")
-    with pytest.raises(NotImplementedError):
-        program_fingerprint(base, mesh=object())
+    # a sharded layout adds the shardings slot alone; meshes of two sizes
+    # key differently
+    from tensorframes_tpu_torch.parallel.mesh import batch_sharding, make_mesh
+
+    inputs = [spec.name for spec in base.inputs]
+    m1, m2 = make_mesh({"dp": 1}), make_mesh({"dp": 2}, devices=[0, 1])
+    sh1 = program_fingerprint(base, mesh=m1, shardings={n: batch_sharding(m1, 1) for n in inputs},
+                              components=True)
+    sh2 = program_fingerprint(base, mesh=m2, shardings={n: batch_sharding(m2, 1) for n in inputs},
+                              components=True)
+    assert sorted(k for k in comps if comps[k] != sh1[k]) == []
+    assert set(sh1["shardings"]) == {"__mesh__", *inputs}
+    assert sh1["shardings"] != sh2["shardings"]
+    assert program_fingerprint(base, mesh=m1) != program_fingerprint(base, mesh=m2)
+    assert program_fingerprint(base, mesh=m1) != program_fingerprint(base)
 
 
 def test_unfingerprintable_program_is_counted_and_dispatches(store_dir, monkeypatch):

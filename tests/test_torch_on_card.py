@@ -1007,3 +1007,103 @@ def test_guarded_step_on_card_skips_a_nan_step_bit_for_bit(cuda_device):
     assert guard.skipped == 1
     fa, fb = dict(flatten_with_keys(s)), dict(flatten_with_keys(r))
     assert list(fa) == list(fb) and all(torch.equal(fa[k], fb[k]) for k in fa)
+
+
+# ---------------------------------------------------------------------------
+# the data-parallel frame on the card
+# ---------------------------------------------------------------------------
+
+def _sharded_agg_inputs(rng, n=200_000, groups=512):
+    return {"k": rng.integers(0, groups, n).astype(np.int32),
+            "v": rng.standard_normal(n).astype(np.float32),
+            "u": rng.standard_normal((n, 4)).astype(np.float32),
+            "c": rng.integers(-1000, 1000, n).astype(np.int32)}
+
+
+def _sharded_fetches(frame):
+    with tft.with_graph():
+        b = lambda col: tft.block(frame, col, tf_name=f"{col}_input")  # noqa: E731
+        return [tft.reduce_sum(b("v"), name="v"), tft.reduce_mean(b("u"), name="u"),
+                tft.reduce_max(b("c"), name="c")]
+
+
+def _free_port():
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    return port
+
+
+def test_world_of_one_nccl_aggregate_matches_unsharded_on_card(cuda_device):
+    """A world of one under NCCL: the dense-span aggregate of a sharded
+    frame equals the unsharded port's (int max exact, float sum and mean
+    within the float tolerance) and launches segment_reduce once."""
+    from tensorframes_tpu_torch.parallel import distributed, init_distributed
+
+    data = _sharded_agg_inputs(np.random.default_rng(5))
+    host = tft.frame_from_arrays(data)
+    init_distributed(f"localhost:{_free_port()}", 1, 0, backend="nccl", device=cuda_device)
+    try:
+        sh = host.to_device()
+        tft.kernels.LAUNCHES.reset()
+        got = sh.group_by("k").aggregate(_sharded_fetches(sh))
+        launches = tft.kernels.LAUNCHES.snapshot()["segment_reduce"]
+    finally:
+        distributed.shutdown_distributed()
+    want = tft.aggregate(_sharded_fetches(host), host.group_by("k"), device=cuda_device)
+    assert launches == 1
+    np.testing.assert_array_equal(got.column_values("k"), want.column_values("k"))
+    np.testing.assert_array_equal(got.column_values("c"), want.column_values("c"))
+    counts = torch.from_numpy(np.bincount(data["k"])[want.column_values("k")])
+    vmax = float(np.abs(data["v"]).max())
+    _float_close(torch.from_numpy(got.column_values("v")), torch.from_numpy(want.column_values("v")),
+                 1e-5, vmax, counts, mean=False)
+    _float_close(torch.from_numpy(got.column_values("u")), torch.from_numpy(want.column_values("u")),
+                 1e-5, float(np.abs(data["u"]).max()), counts, mean=True)
+
+
+_RANK_SCRIPT = r"""
+import sys
+import numpy as np
+import torch
+import tensorframes_tpu_torch as tft
+from tensorframes_tpu_torch.parallel import distributed, frame_from_process_local, init_distributed
+
+rank, port = int(sys.argv[1]), sys.argv[2]
+init_distributed(f"localhost:{port}", 2, rank, backend="gloo", device="cuda:0")
+rng = np.random.default_rng(5)
+n = 200_000
+data = {"k": rng.integers(0, 512, n).astype(np.int32), "v": rng.standard_normal(n).astype(np.float32)}
+lo, hi = rank * n // 2, (rank + 1) * n // 2
+fr = frame_from_process_local({c: data[c][lo:hi] for c in data})
+with tft.with_graph():
+    fetch = tft.reduce_sum(tft.block(fr, "v", tf_name="v_input"), name="v")
+tft.kernels.LAUNCHES.reset()
+res = fr.group_by("k").aggregate(fetch)
+print("LAUNCHES", tft.kernels.LAUNCHES.snapshot()["segment_reduce"], len(res.column_values("k")))
+distributed.shutdown_distributed()
+"""
+
+
+def test_segment_reduce_launches_once_a_rank_on_card(cuda_device):
+    """Two gloo ranks sharing the card: each rank's dense table comes from
+    one segment_reduce launch, and both hold every group."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    port = str(_free_port())
+    env = dict(os.environ, PYTHONPATH=str(root))
+    procs = [subprocess.Popen([sys.executable, "-c", _RANK_SCRIPT, str(r), port], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs = [p.communicate(timeout=180)[0] for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], outs
+    for out in outs:
+        line = [ln for ln in out.splitlines() if ln.startswith("LAUNCHES")][-1]
+        assert line.split()[1:] == ["1", "512"]

@@ -180,7 +180,8 @@ def test_fault_sites_registered_and_documented():
                           "io.prefetch.device_put", "io.save_frame", "io.load_frame",
                           "checkpoint.save", "checkpoint.restore",
                           "fleet.rank.kill", "serving.flush", "blockstore.spill",
-                          "fleet.heartbeat", "router.dispatch", "serving.replica"}
+                          "fleet.heartbeat", "router.dispatch", "serving.replica",
+                          "fleet.barrier", "distributed.init", "shuffle.exchange"}
     with pytest.raises(ValueError):
         faults_mod.register_site("", "nowhere")
 
@@ -705,6 +706,6 @@ def test_run_resumable_guard_skips_poison_batch(tmp_path):
 
 def test_run_resumable_refuses_a_fleet(tmp_path, monkeypatch):
     monkeypatch.setenv("TFTPU_FLEET_DIR", str(tmp_path / "fleet"))
-    with pytest.raises(RuntimeError, match="ROADMAP queue 1 item 9"):
+    with pytest.raises(RuntimeError, match="ROADMAP queue 1 item 5"):
         run_resumable(_add_step, _init(), Checkpointer(str(tmp_path / "run")),
                       _plain_batches(2), num_steps=2)
