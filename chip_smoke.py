@@ -241,6 +241,22 @@ Phases:
    emergency checkpoint), ``accum_steps=2`` agrees with 1 and the version
    without the division does not; save/restore MB/s, peak memory and
    the warm step times of the plain loop, the guard and the telemetry.
+   Then model parallelism (``model_parallel_leg``) on the same model and
+   batch: a world of one under NCCL (mesh ``{"dp": 1}``, flash) takes two
+   sharded steps bit for bit equal to ``make_train_step``'s, launching
+   each flash kernel 12 times a step on the tensor cores; four ranks of
+   this script (``--mp-rank``) share the card over gloo and take two
+   AdamW steps each with ring attention in mixed precision, Ulysses and
+   flash on ``{"tp": 2, "sp": 2}`` and flash on ``{"dp": 2, "tp": 2}``,
+   the first step's loss and every gathered gradient leaf within
+   MP_LOSS_ATOL / MP_GRAD_RTOL of the single-process step of the same
+   impl family (dense, dense in mixed precision, flash); ``moe_ffn_ep``
+   on ``{"ep": 4}`` (768 / 3,072, 8 experts, 8,192 tokens a rank, none
+   dropped) within MP_MOE_RTOL of ``moe_ffn`` on the whole batch; a
+   ``{"pp": 4}`` pipeline of three layers a stage over 8 microbatches
+   against the 12 layers in order (output, loss and one step's
+   gradients); step ms, launches, bytes through each collective kind and
+   each rank's peak memory printed; the leg within 150 s.
    Then Inception-v3 at full width (299x299, bf16, weights from seed 0,
    each conv's folded-BN scale and bias drawn at random):
    1,024 synthetic images in two host blocks of 512 through
@@ -296,6 +312,7 @@ Phases:
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import re
 import shutil
@@ -6001,6 +6018,604 @@ def training_path(tft, dev) -> dict:
             "batch": received[0]}
 
 
+# The model-parallel leg: gpt_small's sharded train step at a world of one
+# under NCCL, then four gloo ranks sharing cuda:0 (NCCL refuses two ranks
+# on one card) through the tp/sp modes, expert parallelism and the pp
+# pipeline, each held against the single-process computation.
+MP_RANKS = 4
+MP_LEG_LIMIT_S = 150.0
+MP_RANK_CMD = [sys.executable, str(ROOT / "chip_smoke.py"), "--mp-rank"]
+MP_MODES = (  # name, mesh, attention_impl, mixed_precision, the single-process reference
+    ("ring_mixed", {"tp": 2, "sp": 2}, "ring", True, "dense_mixed"),
+    ("ulysses", {"tp": 2, "sp": 2}, "ulysses", False, "dense"),
+    ("flash_tp_sp", {"tp": 2, "sp": 2}, "flash", False, "flash"),
+    ("flash_dp_tp", {"dp": 2, "tp": 2}, "flash", False, "flash"),
+)
+MP_MOE = {"hidden": 768, "mlp_hidden": 3072, "num_experts": 8, "capacity_factor": 1.25}
+MP_MOE_TOKENS = 8192   # a rank's tokens
+MP_MOE_RTOL = 1e-5     # of max |moe_ffn|: f32 products, each expert's rows in another batch
+MP_PP_MICRO = 8
+# one step's loss and each gradient leaf (of its max) against the
+# single-process step of the same impl family: ~3x the worst gap of a sound
+# run (1.34e-4 and 0.0191 of a leaf's max, PERF.md)
+MP_LOSS_ATOL = 4e-4
+MP_GRAD_RTOL = 6e-2
+
+
+def mp_setup(tr, dev):
+    """gpt_small's config, seed-0 weights (on ``dev``) and seed-0 batch."""
+    from tensorframes_tpu_torch.models import generation as gen
+
+    cfg = gen.gpt_small(attention_impl="flash")
+    tokens, targets = tr.synthetic_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED)
+    return cfg, tr.init_params(cfg, seed=SEED, device=dev), tokens, targets
+
+
+def mp_stage_tree(tr, cfg, params, stages: int):
+    """The layers' leaves stacked ``[stages, layers a stage, ...]``: one
+    stage of the pipeline is a run of consecutive layers."""
+    import torch
+
+    per = cfg.num_layers // stages
+    first = params["layers"][0]
+
+    def stack(path):
+        leaves = []
+        for layer in params["layers"]:
+            for k in path:
+                layer = layer[k]
+            leaves.append(layer)
+        t = torch.stack(leaves)
+        return t.reshape(stages, per, *t.shape[1:])
+
+    return {a: {b: stack((a, b)) for b in first[a]} for a in first}
+
+
+def mp_stage_fn(tr, cfg):
+    def stage(p, h):
+        for j in range(next(iter(p["attn"].values())).shape[0]):
+            h = tr.layer_forward(cfg, {a: {b: v[j] for b, v in d.items()} for a, d in p.items()},
+                                 h)
+        return h
+
+    return stage
+
+
+def mp_loss_head(tr, params):
+    """The LM head on a pipeline's output: the final norm, the f32 logits
+    against the tied embedding, the mean cross entropy (the weights held
+    fixed)."""
+    import torch
+    import torch.nn.functional as F
+
+    ln = {k: v.detach() for k, v in params["final_ln"].items()}
+    tok = params["embed"]["tok"].detach()
+
+    def head(out, targets):
+        hs = tr._layer_norm(out, **ln)
+        logp = F.log_softmax(hs.float() @ tok.T, dim=-1)
+        return -torch.gather(logp, -1, targets.long()[..., None]).mean()
+
+    return head
+
+
+def mp_embed(cfg, params, tokens, dev):
+    import torch
+
+    with torch.no_grad():
+        t = torch.from_numpy(tokens).to(dev).long()
+        x = params["embed"]["tok"][t].to(cfg.dtype)
+        return x + params["embed"]["pos"][: t.shape[1]].to(cfg.dtype)
+
+
+def mp_references(tft, dev, work: Path) -> dict:
+    """The single-process computations the ranks are held against, saved
+    under ``work`` on the host: one step's loss and every leaf's gradient
+    with dense attention (f32 layers and, as ``mixed_precision=True``
+    casts them, bf16 layers), and the 12 layers in order (flash) on the
+    embedded batch: the output and one LM-head step's layer gradients."""
+    import torch
+    from tensorframes_tpu_torch.models import transformer as tr
+    from tensorframes_tpu_torch.training import cast_float_leaves
+
+    cfg, params, tokens, targets = mp_setup(tr, dev)
+    tb, gb = torch.from_numpy(tokens).to(dev), torch.from_numpy(targets).to(dev)
+    leaves = tr.tree_leaves(params)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    walls = {}
+    for name, mixed in (("dense", False), ("dense_mixed", True)):
+        t0 = time.perf_counter()
+        dcfg = dataclasses.replace(cfg, attention_impl="dense")
+        p = params
+        if mixed:
+            p = {**params, "layers": cast_float_leaves(params["layers"], cfg.dtype),
+                 "final_ln": cast_float_leaves(params["final_ln"], cfg.dtype)}
+        loss = tr.loss_fn(dcfg, p, tb, gb)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.save({"loss": float(loss.detach()), "grads": [g.cpu() for g in grads]},
+                   work / f"ref_{name}.pt")
+        del loss, grads
+        walls[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stages = mp_stage_tree(tr, cfg, params, MP_RANKS)
+    stage_leaves = tr.tree_leaves(stages)
+    stage = mp_stage_fn(tr, cfg)
+    flat = {a: {b: v.reshape(cfg.num_layers, *v.shape[2:]) for b, v in d.items()}
+            for a, d in stages.items()}
+    h = mp_embed(cfg, params, tokens, dev)
+    for i in range(cfg.num_layers):
+        h = stage({a: {b: v[i:i + 1] for b, v in d.items()} for a, d in flat.items()}, h)
+    loss = mp_loss_head(tr, params)(h, gb)
+    grads = torch.autograd.grad(loss, stage_leaves)
+    torch.save({"loss": float(loss.detach()), "out": h.detach().cpu(), "grads": [g.cpu() for g in grads]},
+               work / "ref_pp.pt")
+    walls["pp"] = time.perf_counter() - t0
+    del params, leaves, stages, stage_leaves, flat, h, loss, grads
+    torch.cuda.empty_cache()
+    return walls
+
+
+def mp_world_of_one(tft, dev, work: Path) -> dict:
+    """A world of one under NCCL, mesh ``{"dp": 1}``: two steps of
+    ``make_sharded_train_step`` (flash, AdamW) against two of
+    ``make_train_step`` on the same weights and batch, bit for bit:
+    losses, every gradient and every updated leaf. The plain step's first
+    loss and gradients are the flash modes' reference (``ref_flash.pt``).
+    Launch counts are read around the sharded steps alone."""
+    import functools
+
+    import torch
+    from tensorframes_tpu_torch.models import transformer as tr
+    from tensorframes_tpu_torch.parallel import distributed, init_distributed, make_mesh
+
+    init_distributed(f"localhost:{free_port()}", 1, 0, backend="nccl", device=dev)
+    try:
+        if distributed.backend() != "nccl":
+            fail("model-parallel leg: the world of one is not on NCCL")
+        cfg, plain, tokens, targets = mp_setup(tr, dev)
+        opt = tr.adamw(plain, TRAIN_LR)
+        plain_step = tr.make_train_step(cfg, opt)
+        mesh = make_mesh({"dp": 1})
+        step, _, _, init_opt = tr.make_sharded_train_step(
+            cfg, mesh, functools.partial(tr.adamw, learning_rate=TRAIN_LR))
+        local = tr.shard_params(cfg, tr.init_params(cfg, seed=SEED, device=dev), mesh)
+        sopt = init_opt(local)
+        tb, gb = tr.shard_batch(mesh, tokens, targets)
+        pb, pg = torch.from_numpy(tokens).to(dev), torch.from_numpy(targets).to(dev)
+        launches = {k: 0 for k in TRAINING_BUILDS}
+        step_ms = []
+        for i in range(2):
+            _, _, want = plain_step(plain, opt.state, pb, pg)
+            if i == 0:
+                torch.save({"loss": float(want),
+                            "grads": [leaf.grad.cpu() for leaf in tr.tree_leaves(plain)]},
+                           work / "ref_flash.pt")
+            torch.cuda.synchronize()
+            tft.kernels.LAUNCHES.reset()
+            t0 = time.perf_counter()
+            _, _, got = step(local, sopt, tb, gb)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            counts = launch_counts(tft)
+            for k in launches:
+                launches[k] += counts[k]
+            if not torch.equal(got, want):
+                fail(f"model-parallel leg: world of one step {i + 1} loss {float(got)!r} "
+                     f"against make_train_step's {float(want)!r}")
+            for (path, a), b in zip(mp_paths(local), tr.tree_leaves(plain)):
+                if not torch.equal(a.grad, b.grad):
+                    fail(f"model-parallel leg: world of one step {i + 1} gradient {path}")
+                if not torch.equal(a, b):
+                    fail(f"model-parallel leg: world of one step {i + 1} updated leaf {path}")
+        want_launches = {k: 2 * cfg.num_layers for k in TRAINING_BUILDS}
+        if launches != want_launches:
+            fail(f"model-parallel leg: the world of one's two sharded steps launched "
+                 f"{launches} (want {want_launches}: every flash kernel 12 times a step on "
+                 "the tensor cores)")
+        return {"step_ms": step_ms, "launches": launches, "losses": [float(want)],
+                "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+    finally:
+        distributed.shutdown_distributed()
+        torch.cuda.empty_cache()
+
+
+def mp_paths(tr, tree):
+    out = []
+    from tensorframes_tpu_torch.ops.quantize import _tree_map
+
+    _tree_map(lambda path, leaf: out.append((".".join(map(str, path)), leaf)), tree)
+    return out
+
+
+def mp_grad_gaps(tr, cfg, local, ref_grads, ref_max, mesh) -> list:
+    """Per leaf ``(path, d, r)``: this rank's max |grad - reference| over its
+    shard and the whole reference leaf's max |grad| (the parent takes the
+    worst rank of each leaf)."""
+    import torch
+
+    ref_local = tr.shard_params(cfg, mp_unflatten(local, ref_grads), mesh)
+    out = [(path, float((leaf.grad.float() - r.float()).abs().max()), m)
+           for (path, leaf), (_, r), m in zip(mp_paths(local), mp_paths(ref_local), ref_max)]
+    del ref_local
+    torch.cuda.empty_cache()
+    return out
+
+
+def mp_paths(tree):
+    from tensorframes_tpu_torch.ops.quantize import _tree_map
+
+    out = []
+    _tree_map(lambda path, leaf: out.append((".".join(map(str, path)), leaf)), tree)
+    return out
+
+
+def mp_unflatten(like, leaves):
+    from tensorframes_tpu_torch.ops.quantize import _tree_map
+
+    it = iter(leaves)
+    return _tree_map(lambda _, __: next(it), like)
+
+
+def mp_moe_tokens(dev, n: int):
+    """``n`` ranks' tokens ``[n · MP_MOE_TOKENS, hidden]``, N(0, 1) from the
+    seed."""
+    import torch
+
+    g = torch.Generator().manual_seed(SEED)
+    return torch.randn((n * MP_MOE_TOKENS, MP_MOE["hidden"]), generator=g).to(dev)
+
+
+def mp_rank(tft, dev, rank: int, world: int, port: int, work: Path) -> dict:
+    """One gloo rank of the model-parallel leg on cuda:0: each of MP_MODES
+    for two AdamW steps (the first's loss and gradients against the
+    single-process reference the parent saved, its launches and the bytes
+    each collective kind sent), then ``moe_ffn_ep`` on ``{"ep": 4}``
+    (MP_MOE, MP_MOE_TOKENS a rank: its output and whether every token
+    kept a slot), then the pipeline on ``{"pp": 4}``: three layers a
+    stage, MP_PP_MICRO microbatches, its output against the 12 layers in
+    order and one SGD step's gradients against theirs."""
+    import functools
+
+    import torch
+    from tensorframes_tpu_torch.models import moe
+    from tensorframes_tpu_torch.models import transformer as tr
+    from tensorframes_tpu_torch.parallel import (collectives, init_distributed, make_mesh,
+                                                 make_pp_train_step, pipeline_apply)
+    from tensorframes_tpu_torch.parallel.mesh import PartitionSpec as P, shard_tensor
+    from tensorframes_tpu_torch.parallel.pipeline import shard_stage_params
+
+    init_distributed(f"localhost:{port}", world, rank, backend="gloo", device=dev)
+    cfg, full, tokens, targets = mp_setup(tr, dev)
+    t0 = time.perf_counter()
+    while not (work / "refs.ready").exists():  # the parent's world of one and references
+        if time.perf_counter() - t0 > MP_LEG_LIMIT_S:
+            fail("model-parallel rank: the references never came")
+        time.sleep(0.1)
+    report = {"rank": rank, "wait_s": time.perf_counter() - t0, "modes": {}}
+    refs = {}
+
+    def sent(before):
+        after = collectives.collective_bytes()
+        return {k: after[k] - before[k] for k in after}
+
+    for name, axes, impl, mixed, ref in MP_MODES:
+        if ref not in refs:
+            r = torch.load(work / f"ref_{ref}.pt")
+            refs[ref] = (r, [float(g.abs().max()) for g in r["grads"]])
+        (r, ref_max) = refs[ref]
+        mcfg = dataclasses.replace(cfg, attention_impl=impl)
+        mesh = make_mesh(axes)
+        step, _, _, init_opt = tr.make_sharded_train_step(
+            mcfg, mesh, functools.partial(tr.adamw, learning_rate=TRAIN_LR),
+            mixed_precision=mixed)
+        local = tr.shard_params(mcfg, full, mesh)
+        opt = init_opt(local)
+        tb, gb = tr.shard_batch(mesh, tokens, targets)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = collectives.collective_bytes()
+        tft.kernels.LAUNCHES.reset()
+        out = {"losses": [], "step_ms": []}
+        for i in range(2):
+            t1 = time.perf_counter()
+            _, _, loss = step(local, opt, tb, gb)
+            torch.cuda.synchronize()
+            out["step_ms"].append((time.perf_counter() - t1) * 1e3)
+            out["losses"].append(float(loss))
+            if i == 0:
+                out["launches"] = launch_counts(tft)
+                out["bytes"] = sent(before)
+                out["gaps"] = mp_grad_gaps(tr, mcfg, local, r["grads"], ref_max, mesh)
+        out["launches_total"] = launch_counts(tft)
+        out["ref_loss"] = r["loss"]
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        out["local_qkv"] = tuple(local["layers"][0]["attn"]["qkv"].shape)
+        report["modes"][name] = out
+        del step, local, opt, init_opt
+        torch.cuda.empty_cache()
+    del refs
+
+    # (c) experts over 'ep'
+    mcfg = moe.MoEConfig(**MP_MOE)
+    mesh = make_mesh({"ep": world})
+    local = moe.shard_moe_params(moe.init_moe_params(mcfg, seed=SEED, device=dev), mesh)
+    x = shard_tensor(mp_moe_tokens(dev, world), P("ep", None), mesh)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad():
+        dispatch = moe._route(mcfg, local["router"], x, mcfg.capacity(x.shape[0]))[0]
+        kept = int(dispatch.sum())
+        del dispatch
+        moe.moe_ffn_ep(mcfg, local, x, mesh)  # warm-up
+        torch.cuda.synchronize()
+        before = collectives.collective_bytes()
+        t1 = time.perf_counter()
+        y = moe.moe_ffn_ep(mcfg, local, x, mesh)
+        torch.cuda.synchronize()
+        report["ep"] = {"ms": (time.perf_counter() - t1) * 1e3, "kept": kept,
+                        "tokens": int(x.shape[0]), "bytes": sent(before), "y": y.cpu(),
+                        "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+    del local, x, y
+    torch.cuda.empty_cache()
+
+    # (d) the pipeline over 'pp': three layers a stage
+    ref = torch.load(work / "ref_pp.pt")
+    mesh = make_mesh({"pp": world})
+    stage = mesh.axis_index("pp")
+    local = shard_stage_params(mp_stage_tree(tr, cfg, full, world), mesh)
+    x0 = mp_embed(cfg, full, tokens, dev)
+    gb = torch.from_numpy(targets).to(dev)
+    stage_fn = mp_stage_fn(tr, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tft.kernels.LAUNCHES.reset()
+    with torch.no_grad():
+        got = pipeline_apply(stage_fn, local, x0, mesh, num_microbatches=MP_PP_MICRO)
+    fwd_launches = launch_counts(tft)
+    want = ref["out"].to(dev)
+    out_gap = float((got.float() - want.float()).abs().max())
+    out_max = float(want.float().abs().max())
+    del got, want
+    jit_for = make_pp_train_step(stage_fn, mp_loss_head(tr, full), mesh,
+                                 lambda p: torch.optim.SGD(tr.tree_leaves(p), lr=TRAIN_LR),
+                                 num_microbatches=MP_PP_MICRO)
+    step, init_opt, _ = jit_for(local)
+    opt = init_opt(local)
+    before = collectives.collective_bytes()
+    tft.kernels.LAUNCHES.reset()
+    t1 = time.perf_counter()
+    _, _, loss = step(local, opt, x0, gb)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t1) * 1e3
+    gaps = [(path, float((leaf.grad[0].float() - g[stage].to(dev).float()).abs().max()),
+             float(g.abs().max()))
+            for (path, leaf), g in zip(mp_paths(local), ref["grads"])]
+    report["pp"] = {"out_gap": out_gap, "out_max": out_max, "loss": float(loss),
+                    "ref_loss": ref["loss"], "ms": ms, "fwd_launches": fwd_launches,
+                    "launches": launch_counts(tft), "bytes": sent(before), "gaps": gaps,
+                    "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+    return report
+
+
+def mp_rank_main() -> int:
+    """``python3 chip_smoke.py --mp-rank RANK WORLD PORT WORKDIR``: one rank
+    of the model-parallel leg; pickles its report to WORKDIR."""
+    import pickle
+
+    import torch
+
+    why = refusal(torch)
+    if why:
+        print(f"chip_smoke: {why}", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import tensorframes_tpu_torch as tft
+
+    rank, world, port, work = (int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
+                               Path(sys.argv[5]))
+    dev = torch.device("cuda", 0)
+    tft.kernels.library()
+    report = mp_rank(tft, dev, rank, world, port, work)
+    with open(work / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(report, f)
+    from tensorframes_tpu_torch.parallel.distributed import shutdown_distributed
+
+    shutdown_distributed()
+    return 0
+
+
+def mp_bytes(cfg, tp: int) -> dict:
+    """The leg's sizes reckoned before it runs: gpt_small's parameters, a
+    tp-split rank's f32 parameters alone and with gradients and AdamW's
+    two moments, and a tp x sp rank's f32 logits."""
+    h, m, L = cfg.hidden, cfg.mlp_hidden, cfg.num_layers
+    replicated = cfg.vocab_size * h + cfg.max_seq_len * h + 2 * h + L * (5 * h)
+    split = L * (3 * h * h + h * h + h * m + m + m * h)
+    per_rank = 4 * (replicated + split // tp)
+    return {"params": replicated + split, "rank_param_bytes": per_rank,
+            "rank_train_bytes": 4 * per_rank,
+            "logits_bytes": 4 * TRAIN_BATCH * (TRAIN_SEQ // 2) * cfg.vocab_size}
+
+
+def mp_worst(reports, mode: str) -> tuple:
+    """The worst leaf's max |grad diff| over every rank / max |ref grad|."""
+    worst, leaf = 0.0, None
+    rows = [rep["modes"][mode]["gaps"] if mode != "pp" else rep["pp"]["gaps"] for rep in reports]
+    for i, (path, _, r) in enumerate(rows[0]):
+        ratio = max(row[i][1] for row in rows) / max(r, 1e-30)
+        if ratio > worst:
+            worst, leaf = ratio, path
+    return worst, leaf
+
+
+def model_parallel_leg(tft, dev) -> dict:
+    """Model parallelism on the card, within MP_LEG_LIMIT_S.
+
+    (a) A world of one under NCCL (:func:`mp_world_of_one`), bit for bit
+        against ``make_train_step``, then the single-process references
+        (:func:`mp_references`).
+    (b) Four gloo ranks of this script (``--mp-rank``) sharing cuda:0,
+        started first so their start-up overlaps (a): each of MP_MODES for
+        two steps, the first's loss within MP_LOSS_ATOL and every gathered
+        gradient leaf within MP_GRAD_RTOL of its max against the reference
+        of its impl family (dense for ring/Ulysses, flash for flash), the
+        flash modes launching each flash kernel 12 times a step on every
+        rank, the others none.
+    (c) ``moe_ffn_ep`` on ``{"ep": 4}`` against ``moe_ffn`` on the whole
+        batch here, within MP_MOE_RTOL, with every token in a slot.
+    (d) The pipeline on ``{"pp": 4}`` against the 12 layers in order: its
+        output and one step's loss and layer gradients within the gates,
+        each flash kernel launched 24 times a rank (8 microbatches, 3
+        layers).
+    A failed rank fails the leg."""
+    import os
+    import pickle
+    import shutil
+    import tempfile
+
+    import torch
+    from tensorframes_tpu_torch.models import generation as gen
+    from tensorframes_tpu_torch.models import moe
+
+    t_leg = time.perf_counter()
+    cfg = gen.gpt_small(attention_impl="flash")
+    sizes = mp_bytes(cfg, 2)
+    log(f"# model-parallel bytes reckoned: gpt_small {sizes['params']} params; a tp=2 rank "
+        f"holds {sizes['rank_param_bytes']} bytes of f32 params, {sizes['rank_train_bytes']} "
+        f"with gradients and AdamW's moments; a tp x sp rank's f32 logits [{TRAIN_BATCH}, "
+        f"{TRAIN_SEQ // 2}, {cfg.vocab_size}] {sizes['logits_bytes']} bytes")
+    work = Path(tempfile.mkdtemp(prefix="mp_", dir=str(ROOT / "build")))
+    port = free_port()
+    procs = [subprocess.Popen(MP_RANK_CMD + [str(r), str(MP_RANKS), str(port), str(work)],
+                              cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True, env=dict(os.environ, TFTPU_RUN_ID="model_parallel"))
+             for r in range(MP_RANKS)]
+    logs = []
+    try:
+        t0 = time.perf_counter()
+        one = mp_world_of_one(tft, dev, work)
+        one_s = time.perf_counter() - t0
+        ref_walls = mp_references(tft, dev, work)
+        (work / "refs.ready").touch()
+        for p in procs:
+            left = max(1.0, MP_LEG_LIMIT_S - (time.perf_counter() - t_leg))
+            logs.append(p.communicate(timeout=left)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode != 0 for p in procs):
+        fail("model-parallel leg: a rank failed: " + " | ".join(
+            f"rank {r} rc {p.returncode}: {logs[r][-2000:] if r < len(logs) else ''}"
+            for r, p in enumerate(procs)))
+    reports = []
+    for r in range(MP_RANKS):
+        with open(work / f"rank{r}.pkl", "rb") as f:
+            reports.append(pickle.load(f))
+    log(f"# model-parallel world of one (NCCL, mesh dp=1, flash): steps "
+        + ", ".join(f"{ms:.3f}" for ms in one["step_ms"]) + f" ms host wall, bit for bit "
+        f"against make_train_step (losses, every gradient and updated leaf); launches "
+        f"{one['launches']}; peak memory {one['peak_bytes']} bytes; {one_s:.1f} s; references "
+        f"{json.dumps({k: round(v, 2) for k, v in ref_walls.items()})} s")
+
+    gates = {}
+    total = dict(one["launches"])
+    for name, axes, impl, mixed, ref in MP_MODES:
+        modes = [rep["modes"][name] for rep in reports]
+        losses = {m["losses"][0] for m in modes}
+        if len(losses) != 1:
+            fail(f"model-parallel leg: {name}'s ranks disagree on the loss: {losses}")
+        loss, ref_loss = modes[0]["losses"][0], modes[0]["ref_loss"]
+        worst, leaf = mp_worst(reports, name)
+        gates[name] = (abs(loss - ref_loss), worst)
+        flash = impl == "flash"
+        for rep, m in zip(reports, modes):
+            want = cfg.num_layers if flash else 0
+            got = {k: m["launches"][k] for k in TRAINING_BUILDS}
+            if set(got.values()) != {want}:
+                fail(f"model-parallel leg: {name} rank {rep['rank']} launched {got} in a step "
+                     f"(want {want} of each flash kernel, on the tensor cores)")
+            if not all(np.isfinite(m["losses"])):
+                fail(f"model-parallel leg: {name} rank {rep['rank']} losses {m['losses']}")
+            for k in TRAINING_BUILDS:
+                total[k] = total.get(k, 0) + m["launches_total"][k]
+        log(f"# model-parallel {name} mesh {axes} ({impl}{', mixed precision' if mixed else ''}"
+            f"; {cfg.num_heads // axes['tp']} heads a rank, local qkv {modes[0]['local_qkv']}): "
+            f"loss {loss:.6f} against {ref} {ref_loss:.6f} (|diff| {abs(loss - ref_loss):.6g}, "
+            f"gate {MP_LOSS_ATOL}); worst leaf {leaf} max|grad diff| / max|grad| {worst:.6g} "
+            f"(gate {MP_GRAD_RTOL}); second loss {modes[0]['losses'][1]:.6f}; step ms "
+            + "; ".join(f"rank {rep['rank']} " + ", ".join(f"{x:.1f}" for x in m["step_ms"])
+                        for rep, m in zip(reports, modes))
+            + "; launches in step 1 a rank (forward, dK/dV, dQ) "
+            + json.dumps([[m["launches"][k] for k in TRAINING_KERNELS] for m in modes])
+            + f", in both steps {[m['launches_total']['flash_attention'] for m in modes]}; "
+            f"bytes sent in step 1 by rank 0 {json.dumps(modes[0]['bytes'])}; peak memory "
+            f"{[m['peak_bytes'] for m in modes]}")
+        if abs(loss - ref_loss) > MP_LOSS_ATOL:
+            fail(f"model-parallel leg: {name}'s loss {loss} off {ref}'s {ref_loss} by more "
+                 f"than {MP_LOSS_ATOL}")
+        if worst > MP_GRAD_RTOL:
+            fail(f"model-parallel leg: {name}'s gradient {leaf} off {ref}'s by {worst} of its "
+                 f"max (gate {MP_GRAD_RTOL})")
+
+    # (c) against moe_ffn on the whole batch, in this process
+    mcfg = moe.MoEConfig(**MP_MOE)
+    for rep in reports:
+        if rep["ep"]["kept"] != rep["ep"]["tokens"]:
+            fail(f"model-parallel leg: rank {rep['rank']} dropped "
+                 f"{rep['ep']['tokens'] - rep['ep']['kept']} tokens over capacity")
+    with torch.no_grad():
+        params = moe.init_moe_params(mcfg, seed=SEED, device=dev)
+        x = mp_moe_tokens(dev, MP_RANKS)
+        full = moe.moe_ffn(mcfg, params, x)
+        got = torch.cat([rep["ep"]["y"].to(dev) for rep in reports])
+        moe_gap = float((got - full).abs().max()) / float(full.abs().max())
+    del params, x, full, got
+    torch.cuda.empty_cache()
+    log(f"# model-parallel ep mesh {{'ep': {MP_RANKS}}}: moe_ffn_ep {MP_MOE}, "
+        f"{MP_MOE_TOKENS} tokens a rank, every token in a slot; max|diff| / max|moe_ffn| on "
+        f"the whole batch {moe_gap:.6g} (gate {MP_MOE_RTOL}); ms "
+        f"{[round(rep['ep']['ms'], 3) for rep in reports]}; bytes sent by rank 0 "
+        f"{json.dumps(reports[0]['ep']['bytes'])}; peak memory "
+        f"{[rep['ep']['peak_bytes'] for rep in reports]}")
+    if moe_gap > MP_MOE_RTOL:
+        fail(f"model-parallel leg: moe_ffn_ep off moe_ffn by {moe_gap} of its max")
+
+    # (d) the pipeline
+    pps = [rep["pp"] for rep in reports]
+    worst, leaf = mp_worst(reports, "pp")
+    out_gap = max(p["out_gap"] / p["out_max"] for p in pps)
+    loss_gap = abs(pps[0]["loss"] - pps[0]["ref_loss"])
+    want = MP_PP_MICRO * cfg.num_layers // MP_RANKS
+    for rep, p in zip(reports, pps):
+        if p["fwd_launches"]["flash_attention"] != want or {
+                p["launches"][k] for k in TRAINING_BUILDS} != {want}:
+            fail(f"model-parallel leg: pp rank {rep['rank']} launched {p['fwd_launches']} "
+                 f"forward, {p['launches']} a step (want {want} of each, on the tensor cores)")
+        for k in TRAINING_BUILDS:
+            total[k] = total.get(k, 0) + p["launches"][k] + p["fwd_launches"][k]
+    log(f"# model-parallel pp mesh {{'pp': {MP_RANKS}}} (3 layers a stage, {MP_PP_MICRO} "
+        f"microbatches, flash): output max|diff| / max|ref| {out_gap:.6g}, loss "
+        f"{pps[0]['loss']:.6f} against {pps[0]['ref_loss']:.6f} (|diff| {loss_gap:.6g}); worst "
+        f"leaf {leaf} {worst:.6g}; step ms {[round(p['ms'], 1) for p in pps]}; launches a rank "
+        f"(forward, dK/dV, dQ): the forward alone "
+        f"{[[p['fwd_launches'][k] for k in TRAINING_KERNELS] for p in pps]}, a step "
+        f"{[[p['launches'][k] for k in TRAINING_KERNELS] for p in pps]}; bytes sent a step "
+        f"{[p['bytes'] for p in pps]}; peak memory {[p['peak_bytes'] for p in pps]}")
+    if out_gap > MP_GRAD_RTOL or loss_gap > MP_LOSS_ATOL or worst > MP_GRAD_RTOL:
+        fail(f"model-parallel leg: the pipeline off the layers in order (output {out_gap}, "
+             f"loss {loss_gap}, gradient {leaf} {worst})")
+    log("# model-parallel ranks: waited " + ", ".join(
+        f"{rep['wait_s']:.1f}" for rep in reports) + " s for the references after start-up")
+    shutil.rmtree(work, ignore_errors=True)
+    leg_s = time.perf_counter() - t_leg
+    log(f"# model-parallel leg: {leg_s:.1f} s (limit {MP_LEG_LIMIT_S:g} s)")
+    if leg_s > MP_LEG_LIMIT_S:
+        fail(f"model-parallel leg: took {leg_s:.1f} s (limit {MP_LEG_LIMIT_S:g} s)")
+    total = {k: total.get(k, 0) for k in set(total) | set(launch_counts(tft))}
+    return {"launches": total, "leg_s": leg_s, "gates": gates, "world_of_one": one}
+
 # The resumable_training leg: gpt_small's checkpointed resume, a kill -9
 # drill, a NaN step and gradient accumulation. A resume equals the
 # uninterrupted run bit for bit only when every step is deterministic: on
@@ -7132,6 +7747,12 @@ def main() -> int:
     missing = [k for k in TRAINING_KERNELS if resumable["launches"][k] <= 0]
     if missing:
         fail(f"kernels never launched on the resumable_training leg: {missing}")
+    t_mp = time.perf_counter()
+    mp = model_parallel_leg(tft, dev)
+    log(f"# model-parallel leg: {time.perf_counter() - t_mp:.1f} s")
+    missing = [k for k in TRAINING_KERNELS if mp["launches"][k] <= 0]
+    if missing:
+        fail(f"kernels never launched on the model-parallel leg: {missing}")
 
     t5 = time.perf_counter()
     incep = inception_path(tft, dev)
@@ -7196,6 +7817,7 @@ def main() -> int:
              (infra, ("segment_reduce", "flash_attention")),
              (sharded, ("segment_reduce", "segment_sum", "ragged_gather")),
              (train, TRAINING_KERNELS), (resumable, TRAINING_KERNELS),
+             (mp, TRAINING_KERNELS),
              (imported["int8"], ("int8_matmul",)),
              (vggr["int8"], ("int8_matmul",)))
     for name, info in tft.kernels.KERNELS.items():
@@ -7250,4 +7872,6 @@ if __name__ == "__main__":
         sys.exit(fleet_replica_main())
     if sys.argv[1:2] == ["--sharded-rank"]:
         sys.exit(sharded_rank_main())
+    if sys.argv[1:2] == ["--mp-rank"]:
+        sys.exit(mp_rank_main())
     sys.exit(infra_warm_main() if sys.argv[1:2] == ["--infra-warm"] else main())

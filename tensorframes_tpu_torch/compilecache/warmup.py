@@ -35,7 +35,14 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
-__all__ = ["WarmupReport", "warmup", "warm_program", "partitioner_row_counts"]
+# the bucket ladders live in the package (they need no warmup machinery);
+# this module re-exports them under the reference's names
+from . import decode_slot_buckets, decode_warmup_grid, serving_row_buckets  # noqa: E402,F401
+
+__all__ = [
+    "WarmupReport", "warmup", "warm_program", "partitioner_row_counts",
+    "serving_row_buckets", "decode_slot_buckets", "decode_warmup_grid",
+]
 
 
 @dataclasses.dataclass

@@ -109,6 +109,12 @@ def init_kv_cache(
     }
 
 
+def kv_cache_nbytes(cache: Dict) -> int:
+    """The cache's device footprint in bytes, summed over its tensors (the
+    number int8 KV quantization exists to shrink)."""
+    return sum(int(a.numel()) * a.element_size() for a in cache.values())
+
+
 def _quantize_slots(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 per-slot quantization over the trailing head_dim:
     ``[b, nh, t, hd]`` → (int8 values, f32 scales ``[b, nh, t, 1]``), by the

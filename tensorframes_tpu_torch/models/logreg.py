@@ -74,6 +74,30 @@ def scoring_program(params: Dict[str, torch.Tensor]):
     return program
 
 
+def loss_fn(params, features, labels) -> torch.Tensor:
+    """Mean negative log-likelihood of ``labels`` under the softmax of
+    ``features @ w + b``, as the reference: ``log_softmax``, the labels'
+    entries gathered, their mean negated."""
+    logits = features @ params["w"] + params["b"]
+    logp = torch.log_softmax(logits, dim=-1)
+    labels = torch.as_tensor(labels, device=logits.device).long()
+    return -torch.gather(logp, -1, labels[:, None]).mean()
+
+
+def train_step(params, opt_state, features, labels, tx: torch.optim.Optimizer):
+    """One optimizer step on :func:`loss_fn`, the reference's signature:
+    ``tx`` is an optimizer over ``params``' tensors (``torch.optim``, where
+    the reference takes an optax transformation), so the step works in
+    place and returns ``(params, opt_state, loss)`` with ``params`` and
+    ``opt_state`` the objects passed in and ``loss`` the pre-update loss,
+    detached."""
+    tx.zero_grad(set_to_none=True)
+    loss = loss_fn(params, features, labels)
+    loss.backward()
+    tx.step()
+    return params, opt_state, loss.detach()
+
+
 def make_synthetic_mnist(
     n: int = 10_000, num_features: int = 784, seed: int = 0
 ) -> Tuple[np.ndarray, np.ndarray]:

@@ -16,8 +16,15 @@ reference's names and layouts (``embed.tok [vocab, h]``,
 ``layers[i].attn.qkv [h, 3h]``, ...); activations run in ``cfg.dtype``
 (bf16 by default) and the parameters stay f32 unless quantized.
 
-The sharded train step and sequence-parallel attention wait for the
-multi-device work (ROADMAP queue 1).
+Across ranks (a :class:`..parallel.mesh.Mesh` over ``torch.distributed``,
+one device a rank): :func:`param_shardings` is the reference's
+Megatron layout over ``tp`` (qkv and the MLP's input column-parallel,
+their outputs row-parallel), :func:`shard_params` / :func:`gather_params`
+cut a whole tree into this rank's shards and back, :func:`shard_batch`
+splits tokens over ``dp`` × ``sp``, ``forward``/``loss_fn`` take
+``mesh=`` (ring or Ulysses sequence parallelism, or the other impls on
+the sequence gathered over ``sp``), and :func:`make_sharded_train_step`
+trains the shards with the optimizer state split like them.
 """
 
 from __future__ import annotations
@@ -44,8 +51,9 @@ class TransformerConfig:
     max_seq_len: int = 512
     dtype: Any = torch.bfloat16  # activations/compute; params stay f32
     # attention implementation: 'dense' | 'blockwise' | 'flash' (the
-    # hand-written kernel on the card); the reference's 'ring' | 'ulysses'
-    # (sequence parallelism) wait for the multi-device work
+    # hand-written kernel on the card) | 'ring' | 'ulysses' (sequence
+    # parallelism over the mesh's 'sp' axis: a ring of k/v shards or an
+    # all-to-all head exchange; see ops/attention.py)
     attention_impl: str = "dense"
     causal: bool = False
     # recompute each layer's activations in the backward pass (a
@@ -165,10 +173,19 @@ def _layer_norm(x, scale, bias, eps=1e-6):
     return y.to(x.dtype)
 
 
-def _attention(cfg: TransformerConfig, p, x, mask):
-    from ..ops import attention as att
+def _group(mesh, axis: str):
+    """The process group of ``mesh``'s ``axis`` (None without a mesh, without
+    the axis, or when the axis is this rank alone)."""
+    if mesh is None or axis not in mesh.shape:
+        return None
+    return mesh.group(axis)
 
-    b, s, h = x.shape
+
+def _attention(cfg: TransformerConfig, p, x, mask, mesh=None):
+    from ..ops import attention as att
+    from ..parallel.collectives import copy_to_group, gather_along, reduce_from_group
+
+    b, s, _ = x.shape
     impl = cfg.attention_impl
     if mask is not None and impl != "dense":
         raise NotImplementedError(
@@ -176,30 +193,65 @@ def _attention(cfg: TransformerConfig, p, x, mask):
             "use attention_impl='dense' for padded batches"
         )
     if impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attention_impl={impl!r} is not ported yet: sequence parallelism comes "
-            "with the model-parallel half of the multi-device work (ROADMAP queue 1 item 5)"
-        )
-    if impl not in ("dense", "blockwise", "flash"):
+        if mesh is None or "sp" not in mesh.shape:
+            raise ValueError(
+                f"attention_impl={impl!r} requires a mesh with an 'sp' axis "
+                "passed to forward(...); got "
+                f"{None if mesh is None else dict(mesh.shape)}"
+            )
+    elif impl not in ("dense", "blockwise", "flash"):
         raise ValueError(f"Unknown attention_impl {impl!r}")
-    qkv = _mm(x, p["qkv"]).reshape(b, s, 3, cfg.num_heads, cfg.head_dim)
+    tp = _group(mesh, "tp")
+    heads = cfg.num_heads // (mesh.shape["tp"] if tp is not None else 1)
+    x = copy_to_group(x, tp)
+    qkv = _mm(x, p["qkv"]).reshape(b, s, 3, heads, cfg.head_dim)
     q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
-    if impl == "dense":
-        ctx = att.dense_attention(q, k, v, causal=cfg.causal, padding_mask=mask)
-    elif impl == "blockwise":
-        ctx = att.blockwise_attention(q, k, v, causal=cfg.causal)
+    if impl == "ring":
+        ctx = att.ring_attention(q, k, v, mesh, axis="sp", causal=cfg.causal)
+    elif impl == "ulysses":
+        ctx = att.ulysses_attention(q, k, v, mesh, axis="sp", causal=cfg.causal)
     else:
-        ctx = att.flash_attention(q, k, v, causal=cfg.causal)
-    ctx = ctx.permute(0, 2, 1, 3).reshape(b, s, h)
-    return _mm(ctx, p["out"])
+        sp = _group(mesh, "sp")
+        if sp is not None:
+            # the k/v all-gathers XLA inserts, here of q too: the impl
+            # runs unchanged on the whole sequence, this rank keeps its rows
+            q, k, v = gather_along(torch.stack([q, k, v]), sp, dim=3).unbind(0)
+            if mask is not None:
+                mask = gather_along(mask.to(torch.uint8), sp, dim=1).bool()
+        if impl == "dense":
+            ctx = att.dense_attention(q, k, v, causal=cfg.causal, padding_mask=mask)
+        elif impl == "blockwise":
+            ctx = att.blockwise_attention(q, k, v, causal=cfg.causal)
+        else:
+            ctx = att.flash_attention(q, k, v, causal=cfg.causal)
+        if sp is not None:
+            me = mesh.axis_index("sp")
+            ctx = ctx[:, :, me * s:(me + 1) * s]
+    ctx = ctx.permute(0, 2, 1, 3).reshape(b, s, heads * cfg.head_dim)
+    return reduce_from_group(_mm(ctx, p["out"]), tp)
 
 
-def _mlp(p, x, mm=_mm):
+def _mlp(p, x, mm=_mm, tp=None):
     """The MLP block; ``mm`` is the weight product (the decode step's
-    plain path passes the int8 kernel's plain version)."""
+    plain path passes the int8 kernel's plain version). ``tp``: the
+    tensor-parallel group whose ranks each hold a column block of ``in``
+    and a row block of ``out`` (Megatron's f first, g before the
+    replicated ``out_bias``)."""
+    from ..parallel.collectives import copy_to_group, reduce_from_group
+
+    x = copy_to_group(x, tp)
     y = mm(x, p["in"]) + p["in_bias"].to(x.dtype)
     y = F.gelu(y, approximate="tanh")  # jax.nn.gelu's default
-    return mm(y, p["out"]) + p["out_bias"].to(x.dtype)
+    return reduce_from_group(mm(y, p["out"]), tp) + p["out_bias"].to(x.dtype)
+
+
+def layer_forward(cfg: TransformerConfig, p: Dict, x: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None, mesh=None) -> torch.Tensor:
+    """One pre-norm layer (attention, then the MLP, each on the residual
+    path) of :func:`forward`, on ``x [b, s, h]``: the stage a pipeline
+    runs a few of (``parallel.pipeline_apply``)."""
+    x = x + _attention(cfg, p["attn"], _layer_norm(x, **p["ln1"]), mask, mesh)
+    return x + _mlp(p["mlp"], _layer_norm(x, **p["ln2"]), tp=_group(mesh, "tp"))
 
 
 def forward(
@@ -207,20 +259,29 @@ def forward(
     params: Dict,
     tokens: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Encoder forward: int tokens ``[b, s]`` → hidden states ``[b, s, h]``
     in ``cfg.dtype``. ``mask`` (bool ``[b, s]``) is the padding mask. With
     ``cfg.remat`` each layer runs under ``torch.utils.checkpoint``
     (non-reentrant), as the reference wraps it in ``jax.checkpoint``: its
-    activations are recomputed in the backward pass, not kept."""
+    activations are recomputed in the backward pass, not kept.
+
+    ``mesh``: run as one rank of a model-parallel mesh, on this rank's
+    shards (:func:`shard_params`, :func:`shard_batch`): ``tokens`` are its
+    block of the batch and sequence, positions start at its ``sp``
+    offset, each layer runs ``num_heads/tp`` heads and its MLP column
+    block between Megatron's f and g over ``tp``. ``attention_impl``
+    ``"ring"``/``"ulysses"`` need the mesh's ``sp`` axis; the other impls
+    run on q/k/v gathered over ``sp``."""
     tokens = torch.as_tensor(tokens, device=params["embed"]["tok"].device).long()
     x = params["embed"]["tok"][tokens].to(cfg.dtype)
     s = tokens.shape[1]
-    x = x + params["embed"]["pos"][:s].to(cfg.dtype)
+    off = mesh.axis_index("sp") * s if mesh is not None and "sp" in mesh.shape else 0
+    x = x + params["embed"]["pos"][off:off + s].to(cfg.dtype)
 
     def layer(x, p):
-        x = x + _attention(cfg, p["attn"], _layer_norm(x, **p["ln1"]), mask)
-        return x + _mlp(p["mlp"], _layer_norm(x, **p["ln2"]))
+        return layer_forward(cfg, p, x, mask, mesh)
 
     remat = cfg.remat and torch.is_grad_enabled()  # nothing to recompute without a graph
     for p in params["layers"]:
@@ -275,19 +336,30 @@ def quantize_params(params: Dict) -> Dict:
 # Training
 # ---------------------------------------------------------------------------
 
-def loss_fn(cfg: TransformerConfig, params: Dict, tokens, targets) -> torch.Tensor:
+def loss_fn(cfg: TransformerConfig, params: Dict, tokens, targets, mesh=None) -> torch.Tensor:
     """Causal-LM-style cross entropy against the token embedding matrix,
     as the reference: the hidden states widened to f32 times ``embed.tok``
     transposed, an f32 product (this function sets no ``torch.backends``
     flag: on the card it relies on PyTorch's default of no TF32 for f32
     matmuls), ``log_softmax``, the targets' entries gathered, their mean
-    negated. Returns an f32 scalar."""
-    hs = forward(cfg, params, tokens)
+    negated. Returns an f32 scalar.
+
+    With ``mesh`` (one rank's shards, :func:`forward`) it is the global
+    token mean: this rank's mean divided by the ranks of ``dp`` × ``sp``
+    and summed over them (Megatron's g: each rank's gradient is that of
+    its own term, and the train step sums them). With one data rank that
+    is the local mean itself, bit for bit."""
+    hs = forward(cfg, params, tokens, mesh=mesh)
     logits = hs.float() @ params["embed"]["tok"].T
     logp = F.log_softmax(logits, dim=-1)
     targets = torch.as_tensor(targets, device=logits.device).long()
     nll = -torch.gather(logp, -1, targets[..., None])
-    return nll.mean()
+    if mesh is None:
+        return nll.mean()
+    from ..parallel.collectives import reduce_from_group
+
+    axes = _data_axes(mesh)
+    return reduce_from_group(nll.mean() / mesh.axis_size(axes), mesh.group(axes))
 
 
 def adamw(params: Dict, learning_rate: float, b1: float = 0.9, b2: float = 0.999,
@@ -325,3 +397,189 @@ def make_train_step(cfg: TransformerConfig, opt: torch.optim.Optimizer):
         return params, opt_state, loss.detach()
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# Across ranks: the Megatron layout, shards, and the sharded train step
+# ---------------------------------------------------------------------------
+
+def _data_axes(mesh, seq_axis: Optional[str] = "sp") -> tuple:
+    """The mesh axes the batch and sequence split over (dp, then sp)."""
+    return tuple(a for a in ("dp", seq_axis) if a and a in mesh.shape)
+
+
+def param_shardings(cfg: TransformerConfig, mesh) -> Dict:
+    """The reference's sharding tree: Megatron-style tensor parallelism
+    over ``tp`` (degraded to replicated on a mesh without it). qkv and
+    the MLP's ``in`` are column-parallel (``P(None, tp)``, ``in_bias``
+    ``P(tp)``), ``attn.out`` and the MLP's ``out`` row-parallel
+    (``P(tp, None)``), the rest replicated. Each leaf is a
+    :class:`..parallel.mesh.NamedSharding`. The port splits qkv per head
+    within each of q, k and v (:func:`shard_params`), where the spec's
+    contiguous column split would hand rank 0 all of q."""
+    from ..parallel.mesh import NamedSharding, PartitionSpec as P
+
+    tp = "tp" if "tp" in mesh.shape else None
+
+    def ns(*spec):
+        return NamedSharding(mesh, P(*spec))
+
+    layer = {
+        "ln1": {"scale": ns(), "bias": ns()},
+        "ln2": {"scale": ns(), "bias": ns()},
+        "attn": {"qkv": ns(None, tp), "out": ns(tp, None)},
+        "mlp": {
+            "in": ns(None, tp),
+            "in_bias": ns(tp),
+            "out": ns(tp, None),
+            "out_bias": ns(),
+        },
+    }
+    return {
+        "embed": {"tok": ns(), "pos": ns()},
+        "final_ln": {"scale": ns(), "bias": ns()},
+        "layers": [layer for _ in range(cfg.num_layers)],
+    }
+
+
+def _qkv_by_rank(qkv, tp: int, inverse: bool = False):
+    """qkv's columns ``(3, heads, hd)`` reordered ``(tp, 3, heads/tp, hd)``
+    so a contiguous split over ``tp`` gives each rank its heads of q, k
+    and v (``inverse``: back)."""
+    h = qkv.shape[0]
+    if inverse:
+        return qkv.reshape(h, tp, 3, -1).permute(0, 2, 1, 3).reshape(h, -1)
+    return qkv.reshape(h, 3, tp, -1).permute(0, 2, 1, 3).reshape(h, -1)
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def shard_params(cfg: TransformerConfig, params: Dict, mesh, device=None) -> Dict:
+    """This rank's shards of a whole parameter tree (tensors or numpy
+    arrays, as :func:`params_from_jax` takes them) under
+    :func:`param_shardings`, each a fresh tensor on ``device`` (default:
+    this rank's), the counterpart of ``jax.device_put(params,
+    shardings)``. qkv splits per head within each of q, k and v."""
+    from ..ops.quantize import _tree_map
+    from ..parallel.mesh import shard_tensor
+
+    tp = mesh.shape.get("tp", 1)
+    sh = param_shardings(cfg, mesh)
+
+    def cut(path, leaf):
+        if isinstance(leaf, QuantizedTensor):
+            raise ValueError("shard_params: quantized leaves are not sharded")
+        t = leaf if torch.is_tensor(leaf) else torch.tensor(np.asarray(leaf))
+        if path[-1] == "qkv":
+            t = _qkv_by_rank(t, tp)
+        return shard_tensor(t, _at(sh, path), mesh, device=device,
+                            what=".".join(map(str, path)))
+
+    return _tree_map(cut, params)
+
+
+def gather_params(cfg: TransformerConfig, local: Dict, mesh) -> Dict:
+    """The whole parameter tree from every rank's shards (the inverse of
+    :func:`shard_params`, bit for bit), on this rank's device. Collective:
+    every rank calls it."""
+    from ..ops.quantize import _tree_map
+    from ..parallel.mesh import gather_tensor
+
+    tp = mesh.shape.get("tp", 1)
+    sh = param_shardings(cfg, mesh)
+
+    def join(path, leaf):
+        whole = gather_tensor(leaf.detach(), _at(sh, path), mesh)
+        return _qkv_by_rank(whole, tp, inverse=True) if path[-1] == "qkv" else whole
+
+    return _tree_map(join, local)
+
+
+def shard_batch(mesh, tokens, targets, seq_axis: Optional[str] = "sp", device=None):
+    """This rank's block of ``tokens`` and ``targets`` (``[b, s]`` each)
+    under the train step's data sharding ``P("dp", seq_axis)``, on
+    ``device`` (default: this rank's). A batch or sequence that does not
+    divide raises."""
+    from ..parallel.mesh import PartitionSpec as P, shard_tensor
+
+    seq_axis = seq_axis if seq_axis in mesh.shape else None
+    spec = P("dp" if "dp" in mesh.shape else None, seq_axis)
+    return tuple(shard_tensor(a if torch.is_tensor(a) else np.asarray(a), spec, mesh,
+                              device=device, what=name)
+                 for name, a in (("tokens", tokens), ("targets", targets)))
+
+
+def make_sharded_train_step(
+    cfg: TransformerConfig,
+    mesh,
+    tx,
+    seq_axis: Optional[str] = "sp",
+    mixed_precision: bool = False,
+):
+    """The train step of one rank of ``mesh`` (dp / tp / sp), as the
+    reference's: returns ``(step, data_sharding, shardings,
+    init_opt_state)``.
+
+    * ``data_sharding``: tokens and targets ``P("dp", seq_axis)`` (an axis
+      the mesh lacks stays whole: a pure-dp mesh needs no ``sp``);
+      :func:`shard_batch` cuts them.
+    * ``shardings``: :func:`param_shardings`; :func:`shard_params` cuts a
+      whole tree into this rank's shards.
+    * ``tx``: an optimizer factory over a tree's leaves (e.g.
+      ``functools.partial(adamw, learning_rate=1e-3)``) where the
+      reference takes an optax transformation; ``init_opt_state(local)``
+      builds it over this rank's shards, so its state is split like the
+      parameters.
+    * ``step(local_params, opt, tokens, targets) -> (local_params, opt,
+      loss)`` takes this rank's shards and the optimizer, updates both in
+      place, and returns the global loss (detached, the pre-update value,
+      equal on every rank). Gradients are summed over ``dp`` × ``sp``; a
+      replicated leaf's gradient is whole on every ``tp`` rank already
+      (Megatron's f and g), so every rank applies the same update to it.
+
+    ``mixed_precision=True`` casts ``layers`` and ``final_ln`` to
+    ``cfg.dtype`` inside the differentiated function; ``embed`` stays f32
+    (the f32 logits head), and the optimizer updates the f32 leaves.
+    Every rank builds the step at the same point: the mesh's process
+    groups are made here."""
+    from ..parallel.collectives import allreduce_grads
+    from ..parallel.mesh import NamedSharding, PartitionSpec as P
+
+    if seq_axis is not None and seq_axis not in mesh.shape:
+        seq_axis = None  # e.g. a pure-dp mesh: the sequence stays whole
+    if seq_axis is None and "sp" in mesh.shape:
+        raise ValueError("make_sharded_train_step: a mesh with 'sp' needs seq_axis='sp'")
+    data_sharding = NamedSharding(mesh, P("dp" if "dp" in mesh.shape else None, seq_axis))
+    shardings = param_shardings(cfg, mesh)
+    grad_group = mesh.group(_data_axes(mesh, seq_axis))
+    for axis in ("tp", "sp"):  # made now, in one order on every rank
+        if axis in mesh.shape:
+            mesh.group(axis)
+
+    def run_loss(p, tokens, targets):
+        if mixed_precision:
+            from ..training import cast_float_leaves
+
+            # embed stays f32: the large-vocab logits product stays f32
+            p = {**p, "layers": cast_float_leaves(p["layers"], cfg.dtype),
+                 "final_ln": cast_float_leaves(p["final_ln"], cfg.dtype)}
+        return loss_fn(cfg, p, tokens, targets, mesh=mesh)
+
+    def step(params, opt, tokens, targets):
+        opt.zero_grad(set_to_none=True)
+        loss = run_loss(params, tokens, targets)
+        loss.backward()
+        allreduce_grads(tree_leaves(params), grad_group)
+        opt.step()
+        return params, opt, loss.detach()
+
+    def init_opt_state(local_params):
+        for leaf in tree_leaves(local_params):
+            leaf.requires_grad_(True)
+        return tx(local_params)
+
+    return step, data_sharding, shardings, init_opt_state

@@ -1,9 +1,10 @@
 """Multi-process execution over ``torch.distributed``: meshes over ranks
-(:mod:`.mesh`), process-group initialization and the sharded frame's
-constructor (:mod:`.distributed`), and the collectives the verbs cross
-ranks with (:mod:`.collectives`). A rank is one process with one device.
-The reference's pipeline helpers (``make_pp_train_step``,
-``pipeline_apply``) come with the model-parallel slice."""
+and the process groups of their axes (:mod:`.mesh`), process-group
+initialization and the sharded frame's constructor (:mod:`.distributed`),
+the collectives the verbs and the model-parallel code cross ranks with
+(:mod:`.collectives`), and pipeline parallelism over a ``pp`` axis
+(:mod:`.pipeline`: ``pipeline_apply``, ``make_pp_train_step``). A rank is
+one process with one device."""
 
 from .distributed import (
     fleet_barrier,
@@ -22,8 +23,11 @@ from .mesh import (
     replicated,
     sharding_descriptor,
 )
+from .pipeline import make_pp_train_step, pipeline_apply
 
 __all__ = [
+    "make_pp_train_step",
+    "pipeline_apply",
     "BATCH_AXIS",
     "batch_sharding",
     "device_count",

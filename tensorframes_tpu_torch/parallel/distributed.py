@@ -33,6 +33,7 @@ __all__ = [
     "init_distributed", "fleet_barrier", "is_multiprocess", "process_index",
     "process_count", "process_topology", "frame_from_process_local",
     "rank_device", "backend", "group_initialized", "shutdown_distributed",
+    "axis_groups", "new_group",
 ]
 
 # this process's rank device and fleet topology once init_distributed ran
@@ -174,6 +175,25 @@ def init_distributed(
         "init_distributed: process %d/%d on %s via %s (%s)",
         process_id, num_processes, dev, coordinator_address, backend,
     )
+
+
+def axis_groups() -> dict:
+    """The process groups made for mesh axes in this process group's
+    life, keyed by their global ranks (``mesh.Mesh.group``); emptied with
+    the process group."""
+    return _STATE.setdefault("groups", {})
+
+
+def new_group(ranks):
+    """A process group over global ``ranks`` on the default backend (the
+    whole world's group when ``ranks`` is every rank). Collective over
+    the world: every rank makes every group, in the same order."""
+    import torch.distributed as dist
+
+    ranks = [int(r) for r in ranks]
+    if ranks == list(range(process_count())):
+        return dist.group.WORLD
+    return dist.new_group(ranks)
 
 
 def shutdown_distributed() -> None:

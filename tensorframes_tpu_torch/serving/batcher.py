@@ -47,6 +47,7 @@ import numpy as np
 from ..observability import context as _context
 from ..observability import events as _events
 from ..observability import flight as _flight
+from ..observability.latency import LATENCY_BUCKETS  # noqa: F401 (the reference's name here)
 from ..observability.metrics import Histogram
 from ..ops.executor import bucket_rows
 from ..resilience.faults import delay_point, fault_point, register_site

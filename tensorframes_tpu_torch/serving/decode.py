@@ -52,7 +52,8 @@ KV memory hierarchy, both tiers off by default:
 Joins, steps, preemptions, swaps, prefix hits and finishes leave
 ``serving.decode.*`` flight records and, with the tracer on,
 ``decode.join``/``decode.step``/``decode.finish`` spans carrying the
-requests' trace ids. CUDA graphs for the step wait in ROADMAP queue 1.
+requests' trace ids. Capturing the step in a CUDA graph is a speed item
+(ROADMAP), not yet done.
 """
 
 from __future__ import annotations

@@ -38,8 +38,8 @@ CSV or Parquet directory, or a frame), answered from a result cache keyed
 by (plan fingerprint, content digest), refreshed by folding per-chunk
 aggregate partials when the plan allows it (:mod:`.query`). ``start()``
 warms each query by executing it once; a restarted server over the same
-``compilation_cache_dir`` warms from the persistent result store. The
-router and the fleet wait in ROADMAP queue 1.
+``compilation_cache_dir`` warms from the persistent result store. Replicas
+of a server behind a router make a fleet (:mod:`.router`, :mod:`.fleet`).
 """
 
 from __future__ import annotations

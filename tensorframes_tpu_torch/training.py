@@ -21,7 +21,7 @@ The port's train steps update their tensors in place, so a train state
 holds the ``torch.optim.Optimizer`` itself, e.g. ``(params, opt)``: the
 checkpoint saves and restores it in place, the guard snapshots it on the
 device (:mod:`.utils.tree`). Fleet supervision (``TFTPU_FLEET_DIR``) is
-not ported (ROADMAP queue 1 item 9).
+not ported yet: it is the fleet-supervision slice of ROADMAP queue 1.
 """
 
 from __future__ import annotations
@@ -91,9 +91,8 @@ def run_resumable(
         raise RuntimeError(
             "run_resumable: TFTPU_FLEET_DIR is set, but fleet supervision (heartbeats, "
             "peer watch, coordinated abort: resilience/fleet.py's FleetMonitor and "
-            "enroll) is not ported yet; it comes with the model-parallel half of the "
-            "multi-device work (ROADMAP queue 1 item 5). Unset TFTPU_FLEET_DIR to "
-            "train one process.")
+            "enroll) is not ported yet; it comes with the fleet-supervision slice "
+            "(ROADMAP queue 1). Unset TFTPU_FLEET_DIR to train one process.")
     if guard is not None:
         guard = StepGuard.coerce(guard)
     start_step = 0

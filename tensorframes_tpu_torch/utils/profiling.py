@@ -134,6 +134,18 @@ def report() -> str:
 
 
 @contextlib.contextmanager
+def annotate(name: str) -> Iterator[None]:
+    """Name a region in the device trace (a ``torch.profiler``
+    ``record_function`` range, shown in a :func:`trace`) and accumulate
+    its wall-clock span, as :func:`span` does. Exceptions from the body
+    propagate untouched."""
+    import torch
+
+    with torch.profiler.record_function(name), span(name):
+        yield
+
+
+@contextlib.contextmanager
 def trace(logdir: str) -> Iterator[None]:
     """Capture a ``torch.profiler`` trace (CPU, plus CUDA when a GPU is
     present) and write it as ``<logdir>/trace.json``."""

@@ -332,8 +332,8 @@ def test_parallel_all_is_the_references_but_pipeline():
     import tensorframes_tpu.parallel as ref
     import tensorframes_tpu_torch.parallel as port
 
-    assert sorted(port.__all__) == sorted(
-        n for n in ref.__all__ if n not in ("make_pp_train_step", "pipeline_apply"))
+    # the pipeline helpers are ported too now: the lists are equal
+    assert sorted(port.__all__) == sorted(ref.__all__)
 
 
 def test_run_with_deadline_text_is_the_references(tmp_path):

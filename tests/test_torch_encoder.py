@@ -78,13 +78,14 @@ def test_forward_matches_jax_768_wide_bf16(w768, impl):
 @pytest.mark.parametrize("impl,err,match", [
     ("blockwise", NotImplementedError, "padding mask"),
     ("flash", NotImplementedError, "padding mask"),
-    ("ring", NotImplementedError, "ROADMAP"),
-    ("ulysses", NotImplementedError, "ROADMAP"),
+    ("ring", ValueError, "requires a mesh with an 'sp' axis"),
+    ("ulysses", ValueError, "requires a mesh with an 'sp' axis"),
     ("sparse", ValueError, "Unknown attention_impl"),
 ])
 def test_attention_impl_errors(impl, err, match):
     """A padding mask needs dense attention (as the reference); sequence
-    parallelism is not ported; an unknown impl is refused."""
+    parallelism needs a mesh with an 'sp' axis (as the reference); an
+    unknown impl is refused."""
     cfg = ttr.tiny(dtype=torch.float32, attention_impl=impl)
     params = ttr.init_params(cfg, seed=0, device=CPU)
     toks = torch.zeros((2, 5), dtype=torch.long)

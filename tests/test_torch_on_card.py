@@ -1107,3 +1107,55 @@ def test_segment_reduce_launches_once_a_rank_on_card(cuda_device):
     for out in outs:
         line = [ln for ln in out.splitlines() if ln.startswith("LAUNCHES")][-1]
         assert line.split()[1:] == ["1", "512"]
+
+
+def test_world_of_one_sharded_step_is_make_train_step_bit_for_bit_on_card(cuda_device):
+    """A world of one under NCCL, mesh ``{"dp": 1}``: two steps of the
+    sharded train step with flash attention equal two of
+    ``make_train_step`` on the same weights, bit for bit (losses, every
+    gradient, every updated leaf), and launch the three flash kernels
+    once a layer a step."""
+    import functools
+
+    from tensorframes_tpu_torch.parallel import distributed, init_distributed, make_mesh
+
+    cfg = tgen.gpt_small(attention_impl="flash", num_layers=2, vocab_size=4096)
+    tokens, targets = ttr.synthetic_batch(cfg, 2, 256, seed=1)
+    plain = ttr.init_params(cfg, seed=1, device=cuda_device)
+    opt = ttr.adamw(plain, 1e-3)
+    plain_step = ttr.make_train_step(cfg, opt)
+    init_distributed(f"localhost:{_free_port()}", 1, 0, backend="nccl", device=cuda_device)
+    try:
+        mesh = make_mesh({"dp": 1})
+        step, _, _, init_opt = ttr.make_sharded_train_step(
+            cfg, mesh, functools.partial(ttr.adamw, learning_rate=1e-3))
+        local = ttr.shard_params(cfg, ttr.init_params(cfg, seed=1, device=cuda_device), mesh)
+        sopt = init_opt(local)
+        tb, gb = ttr.shard_batch(mesh, tokens, targets)
+        for _ in range(2):
+            _, _, want = plain_step(plain, opt.state, torch.from_numpy(tokens).to(cuda_device),
+                                    torch.from_numpy(targets).to(cuda_device))
+            tft.kernels.LAUNCHES.reset()
+            _, _, got = step(local, sopt, tb, gb)
+            counts = tft.kernels.LAUNCHES.snapshot()
+            assert torch.equal(got, want)
+            for a, b in zip(ttr.tree_leaves(local), ttr.tree_leaves(plain)):
+                assert torch.equal(a.grad, b.grad) and torch.equal(a, b)
+            assert [counts[k] for k in ("flash_attention", "flash_attention_bwd_dkv",
+                                        "flash_attention_bwd_dq")] == [2, 2, 2]
+    finally:
+        distributed.shutdown_distributed()
+
+
+def test_paged_decode_attention_public_face_is_the_kernel_on_card(cuda_device):
+    """``ops.attention.paged_decode_attention`` launches the hand kernel
+    once and returns its bits."""
+    from tensorframes_tpu_torch.ops import attention as tatt
+
+    rng = np.random.default_rng(21)
+    args = _paged_inputs(rng, 16, 40, 3, 12, 16, 64, 12, cuda_device, torch.bfloat16)
+    q, kp, vp, ks, vs, tables, pos = args
+    tft.kernels.LAUNCHES.reset()
+    got = tatt.paged_decode_attention(q, kp, vp, ks, vs, 1, tables, pos)
+    assert tft.kernels.LAUNCHES.snapshot()["decode_attention"] == 1
+    assert torch.equal(got, kda.paged_decode_attention(q, kp, vp, ks, vs, 1, tables, pos))

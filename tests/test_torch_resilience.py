@@ -706,6 +706,6 @@ def test_run_resumable_guard_skips_poison_batch(tmp_path):
 
 def test_run_resumable_refuses_a_fleet(tmp_path, monkeypatch):
     monkeypatch.setenv("TFTPU_FLEET_DIR", str(tmp_path / "fleet"))
-    with pytest.raises(RuntimeError, match="ROADMAP queue 1 item 5"):
+    with pytest.raises(RuntimeError, match="fleet-supervision slice"):
         run_resumable(_add_step, _init(), Checkpointer(str(tmp_path / "run")),
                       _plain_batches(2), num_steps=2)
