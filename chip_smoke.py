@@ -257,6 +257,22 @@ Phases:
    against the 12 layers in order (output, loss and one step's
    gradients); step ms, launches, bytes through each collective kind and
    each rank's peak memory printed; the leg within 150 s.
+   Then fleet supervision (``fleet_training_leg``): one BERT-base
+   ``map_blocks`` under a 30 s dispatch deadline equals the call without
+   one bit for bit with no deadline exemption, and the same call delayed
+   60 s at ``executor.dispatch`` raises ``HungDispatchError`` within 35 s
+   with a postmortem naming ``executor.run_block``; meanwhile two fleets
+   of two ranks of this script (``--fleet-train-rank``) run under
+   ``supervise`` over gloo on the card, each ``run_resumable`` over a
+   ``{"dp": 2}`` sharded step of gpt_small at 2 layers (full width,
+   flash, AdamW, 8 steps, a checkpoint every 2): the drill's rank 1 is
+   killed between saves, then wedged by SIGSTOP, and the fleet restarts
+   twice, every incarnation starting with both ranks on one checkpoint
+   step, the survivor ending by the coordinated abort (exit 43), the
+   final state of every rank bit-equal to the uninterrupted fleet's;
+   ``recovery_seconds``, detection to the first step after a restart,
+   the steps replayed and a step's gloo bytes printed; the leg within
+   150 s.
    Then Inception-v3 at full width (299x299, bf16, weights from seed 0,
    each conv's folded-BN scale and bias drawn at random):
    1,024 synthetic images in two host blocks of 512 through
@@ -7104,6 +7120,428 @@ def resumable_training_leg(tft, dev) -> dict:
     return out
 
 
+# The fleet-training leg: a supervised data-parallel fleet of gpt_small
+# ranks (KILL_LAYERS deep, the kill drill's ~475 MB checkpoints) on cuda:0
+# over gloo (NCCL refuses two ranks on one card), through a kill -9 between
+# saves and a wedged (SIGSTOPped) rank, against an uninterrupted fleet run
+# beside it on other ports.
+FLEET_TRAIN_RANKS = 2
+FLEET_TRAIN_STEPS, FLEET_TRAIN_SAVE_EVERY = 8, 2
+FLEET_TRAIN_KILL_AFTER = 3   # rank 1's loop edge in the first incarnation: between saves
+FLEET_TRAIN_STOP_AFTER = 5   # rank 1 stops itself after this step in the second
+FLEET_TRAIN_TIMEOUT_S = 5.0  # supervise()'s heartbeat timeout: the stall's detector
+FLEET_TRAIN_MAX_RESTARTS = 2
+FLEET_TRAIN_DEADLINE_S = 30.0  # the parent's BERT-base dispatch deadline
+FLEET_TRAIN_LEG_LIMIT_S = 150.0
+FLEET_TRAIN_RANK_CMD = [sys.executable, str(ROOT / "chip_smoke.py"), "--fleet-train-rank"]
+
+
+def state_digests(state) -> dict:
+    """sha256 of every leaf's bytes (parameters, the optimizer's moments,
+    step counts and hyperparameters), keyed as the checkpoint keys them."""
+    import hashlib
+
+    import torch
+    from tensorframes_tpu_torch.utils.tree import flatten_with_keys
+
+    out = {}
+    for key, leaf in flatten_with_keys(state):
+        if torch.is_tensor(leaf):
+            data = leaf.detach().reshape(-1).contiguous().cpu().view(torch.uint8).numpy()
+            out[key] = f"{leaf.dtype}{tuple(leaf.shape)}:{hashlib.sha256(data).hexdigest()}"
+        else:
+            out[key] = repr(leaf)
+    return out
+
+
+def fleet_train_rank(tft, dev, work: Path, ports: list, drill: bool) -> None:
+    """One rank of the fleet-training leg, under ``supervise``: gpt_small
+    at KILL_LAYERS layers (flash), AdamW at TRAIN_LR, seed 0, on a
+    ``{"dp": 2}`` mesh over gloo (``ports[attempt]``), ``run_resumable``
+    over the training row's 16-row frame in batches of TRAIN_BATCH (the
+    resumable leg's epoch-cycling, shuffled batches; each rank its half),
+    checkpointing every FLEET_TRAIN_SAVE_EVERY steps into its own dir. With
+    ``drill``, rank 1 is killed at the loop edge after
+    FLEET_TRAIN_KILL_AFTER steps of the first incarnation and SIGSTOPs
+    itself after step FLEET_TRAIN_STOP_AFTER of the second. Appends JSON
+    lines to ``work/log<rank>.jsonl``: its newest checkpoint at start,
+    every completed step (time, its own wall, loss, cumulative launches
+    and all-reduce bytes) and the final state's digests."""
+    import contextlib
+    import functools
+    import os
+    import signal
+
+    import torch
+    from tensorframes_tpu_torch.checkpoint import Checkpointer
+    from tensorframes_tpu_torch.models import generation as gen
+    from tensorframes_tpu_torch.models import transformer as tr
+    from tensorframes_tpu_torch.parallel import collectives, distributed, init_distributed, make_mesh
+    from tensorframes_tpu_torch.resilience import KillRank, inject
+
+    rank = int(os.environ["TFTPU_PROCESS_INDEX"])
+    attempt = int(os.environ["TFTPU_FLEET_ATTEMPT"])
+
+    def note(**rec):
+        with open(work / f"log{rank}.jsonl", "a") as f:
+            f.write(json.dumps({"rank": rank, "attempt": attempt, "t": time.time(), **rec}) + "\n")
+
+    init_distributed(f"localhost:{ports[attempt]}", FLEET_TRAIN_RANKS, rank, backend="gloo",
+                     device=dev)
+    cfg = gen.gpt_small(attention_impl="flash", num_layers=KILL_LAYERS)
+    tokens, targets = tr.synthetic_batch(cfg, TRAIN_ROWS, TRAIN_SEQ, seed=SEED)
+    frame = tft.frame_from_arrays({"tokens": tokens, "targets": targets})
+    batches = []
+    for epoch in range(FLEET_TRAIN_STEPS):
+        batches += list(tft.io.iterate_batches(frame, ["tokens", "targets"], TRAIN_BATCH,
+                                               shuffle=True, seed=SEED + epoch,
+                                               drop_remainder=True))
+    mesh = make_mesh({"dp": FLEET_TRAIN_RANKS})
+    step, _, _, init_opt = tr.make_sharded_train_step(
+        cfg, mesh, functools.partial(tr.adamw, learning_rate=TRAIN_LR))
+    params = tr.shard_params(cfg, tr.init_params(cfg, seed=SEED, device=dev), mesh)
+    opt = init_opt(params)
+    shards = [tr.shard_batch(mesh, b["tokens"], b["targets"])
+              for b in batches[:FLEET_TRAIN_STEPS]]
+
+    began = {}
+
+    def step_fn(state, b):
+        began["t"] = time.perf_counter()
+        p, o = state
+        _, _, loss = step(p, o, *b)
+        return (p, o), loss
+
+    def on_step(i, loss):
+        loss = float(loss)  # waits for the step
+        note(step=i, loss=loss, step_s=time.perf_counter() - began["t"],
+             launches=launch_counts(tft),
+             allreduce_bytes=collectives.collective_bytes()["all_reduce"])
+        if drill and rank == 1 and attempt == 1 and i == FLEET_TRAIN_STOP_AFTER:
+            os.kill(os.getpid(), signal.SIGSTOP)  # wedged: no beat, no collective
+
+    ck = Checkpointer(str(work / f"ck{rank}"), keep=2)
+    note(latest=ck.latest_step())
+    tft.kernels.LAUNCHES.reset()
+    with contextlib.ExitStack() as stack:
+        if drill and rank == 1 and attempt == 0:
+            stack.enter_context(inject("fleet.rank.kill", KillRank(),
+                                       after=FLEET_TRAIN_KILL_AFTER))
+        state, ran = tft.training.run_resumable(
+            step_fn, (params, opt), ck, shards, num_steps=FLEET_TRAIN_STEPS,
+            save_every=FLEET_TRAIN_SAVE_EVERY, on_step=on_step)
+    torch.cuda.synchronize()
+    note(final=state_digests(state), ran=ran, launches=launch_counts(tft))
+    distributed.shutdown_distributed()
+
+
+def fleet_train_rank_main() -> int:
+    """``python3 chip_smoke.py --fleet-train-rank WORKDIR PORTS DRILL``:
+    one rank of the fleet-training leg (its identity from ``supervise``'s
+    environment); both streams go to ``WORKDIR/rank<r>_a<attempt>.out``."""
+    import os
+
+    work = Path(sys.argv[2])
+    out = os.open(work / (f"rank{os.environ.get('TFTPU_PROCESS_INDEX')}_a"
+                          f"{os.environ.get('TFTPU_FLEET_ATTEMPT')}.out"),
+                  os.O_WRONLY | os.O_CREAT | os.O_APPEND)
+    os.dup2(out, 1)
+    os.dup2(out, 2)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import torch
+
+    why = refusal(torch)
+    if why:
+        print(f"chip_smoke: {why}", file=sys.stderr)
+        return 2
+    torch.use_deterministic_algorithms(True)
+    sys.path.insert(0, str(ROOT))
+    import tensorframes_tpu_torch as tft
+
+    tft.kernels.library()  # built by the parent: a load
+    fleet_train_rank(tft, torch.device("cuda", 0), work, sys.argv[3].split(","),
+                     sys.argv[4] == "1")
+    return 0
+
+
+def fleet_deadline_drill(tft, dev, encoder, spool: Path) -> dict:
+    """The executor's dispatch deadline on the card: one BERT-base
+    ``map_blocks`` (1,024 rows x 128 tokens, flash) under
+    ``dispatch_deadline_s`` = FLEET_TRAIN_DEADLINE_S equals the same call
+    without a deadline bit for bit, with no deadline exemption; the same
+    call with ``Delay(60)`` at ``executor.dispatch`` raises
+    ``HungDispatchError`` within the deadline plus 5 s, its postmortem
+    (spooled under ``spool``) naming ``executor.run_block``. The
+    abandoned attempt wakes 60 s later and finishes its call: the caller
+    joins it before reading launch counts."""
+    from tensorframes_tpu_torch.models import transformer as tr
+    from tensorframes_tpu_torch.observability import flight
+    from tensorframes_tpu_torch.resilience import faults, fleet
+
+    cfg, params, frame = encoder["cfg"], encoder["params"], encoder["frame"]
+    prog = tft.compile_program(tr.embed_program(cfg, params), frame, device=dev)
+    plain = tft.map_blocks(prog, frame, device=dev).column_values("embedding")
+    exempt = fleet._DEADLINE_EXEMPTIONS.value
+    hung0 = fleet._HUNG_DISPATCHES.value
+    prev_spool = flight.RECORDER.spool_dir
+    tft.configure(dispatch_deadline_s=FLEET_TRAIN_DEADLINE_S)
+    try:
+        t0 = time.perf_counter()
+        bounded = tft.map_blocks(prog, frame, device=dev).column_values("embedding")
+        bounded_s = time.perf_counter() - t0
+        flight.set_spool_dir(str(spool))
+        t0 = time.perf_counter()
+        try:
+            with faults.inject("executor.dispatch", faults.Delay(60.0), max_times=1):
+                tft.map_blocks(prog, frame, device=dev).collect()
+        except fleet.HungDispatchError as e:
+            hung_s, message = time.perf_counter() - t0, str(e)
+        else:
+            fail("fleet training leg: a dispatch delayed 60 s under a 30 s deadline returned")
+    finally:
+        tft.configure(dispatch_deadline_s=0.0)
+        flight.set_spool_dir(prev_spool)
+    if not np.array_equal(plain, bounded):
+        fail("fleet training leg: BERT-base map_blocks under the dispatch deadline is not "
+             "bit-equal to the call without one")
+    if fleet._DEADLINE_EXEMPTIONS.value != exempt:
+        fail(f"fleet training leg: {fleet._DEADLINE_EXEMPTIONS.value - exempt} dispatch(es) "
+             "ran exempt from the deadline (want 0: the kernel library loads outside it)")
+    if hung_s > FLEET_TRAIN_DEADLINE_S + 5 or fleet._HUNG_DISPATCHES.value != hung0 + 1:
+        fail(f"fleet training leg: the hung dispatch raised after {hung_s:.2f} s (limit "
+             f"{FLEET_TRAIN_DEADLINE_S + 5:g} s), hung dispatches counted "
+             f"{fleet._HUNG_DISPATCHES.value - hung0}")
+    posts = sorted(spool.glob("postmortem_*.jsonl"))
+    lines = [json.loads(x) for x in posts[-1].read_text().splitlines()] if posts else []
+    entries = [r.get("entry", "") for r in lines if r.get("kind") == "fleet.hung_dispatch"]
+    if not lines or lines[0].get("reason") != "hung_dispatch" or not entries \
+            or not entries[0].startswith("executor.run_block"):
+        fail(f"fleet training leg: no hung_dispatch postmortem naming executor.run_block "
+             f"({[p.name for p in posts]}, entries {entries})")
+    return {"bounded_s": bounded_s, "hung_s": hung_s, "entry": entries[0], "message": message}
+
+
+def fleet_rank_logs(work: Path) -> list:
+    return [json.loads(x) for r in range(FLEET_TRAIN_RANKS) if (work / f"log{r}.jsonl").exists()
+            for x in (work / f"log{r}.jsonl").read_text().splitlines()]
+
+
+def fleet_out_tails(work: Path, n: int = 2000) -> str:
+    return "\n".join(f"== {p.name}\n{p.read_text(errors='replace')[-n:]}"
+                     for p in sorted(work.glob("rank*_a*.out")))
+
+
+def fleet_training_leg(tft, dev, encoder) -> dict:
+    """Fleet supervision on the card. Two fleets of FLEET_TRAIN_RANKS ranks
+    of this script (``--fleet-train-rank``, :func:`fleet_train_rank`) run
+    at once under ``supervise`` on other ports: the drill (rank 1 killed
+    between saves in the first incarnation, wedged by SIGSTOP in the
+    second, the third finishing) and an uninterrupted fleet whose final
+    state is the reference; meanwhile the parent runs
+    :func:`fleet_deadline_drill`. The ranks' own monitors time out at twice
+    the supervisor's FLEET_TRAIN_TIMEOUT_S: the supervisor detects the
+    wedged rank, its peer's monitor is the backstop. The kernel library is
+    built before (``main``), so no rank's first step waits on ``nvcc``.
+    Gates: the drill ok in 3 attempts with 2 restarts; rank 1's exit -9
+    first; failures naming rank 1, by signal or abort, then by heartbeat;
+    the survivor's exit ABORT_EXIT_CODE in both failed incarnations; both
+    ranks' newest checkpoints on one step at every incarnation's start;
+    the final state of every rank of both fleets equal bit for bit (leaf
+    digests); the merged black box holding ``fault.kill_rank``, a
+    ``fleet.abort_seen`` naming rank 1 and rank 0's postmortem; every
+    rank's every incarnation launching each flash kernel KILL_LAYERS times
+    a step, all on the tensor cores; the leg within
+    FLEET_TRAIN_LEG_LIMIT_S. Prints each incarnation's exit codes and
+    failure, ``recovery_seconds`` per restart and in total, detection to
+    the first step after each restart, the steps replayed, a step's gloo
+    bytes and wall, and the leg's wall."""
+    import logging
+
+    from tensorframes_tpu_torch.observability import flight
+    from tensorframes_tpu_torch.resilience import ABORT_EXIT_CODE, supervisor
+
+    t_leg = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_fleet_train_"))
+    seq0 = max([r["seq"] for r in flight.RECORDER.records()] or [0])
+    respawned = []  # (thread id, seconds): the supervisor's recovery per restart
+
+    class Respawns(logging.Handler):
+        def emit(self, record):
+            if record.getMessage().startswith("supervise: fleet respawned"):
+                respawned.append((record.thread, float(record.args[0])))
+
+    sup_log = logging.getLogger(supervisor.__name__)
+    handler = Respawns(level=logging.WARNING)
+    sup_log.addHandler(handler)
+    results, idents = {}, {}
+
+    def run(name: str, drill: bool) -> None:
+        idents[name] = threading.get_ident()
+        work = root / name
+        ports = ",".join(str(free_port()) for _ in range(FLEET_TRAIN_MAX_RESTARTS + 1))
+        try:
+            results[name] = supervisor.supervise(
+                [*FLEET_TRAIN_RANK_CMD, str(work), ports, "1" if drill else "0"],
+                FLEET_TRAIN_RANKS, rendezvous_dir=str(work / "fleet"),
+                flight_dir=str(work / "blackbox"), max_restarts=FLEET_TRAIN_MAX_RESTARTS,
+                heartbeat_timeout_s=FLEET_TRAIN_TIMEOUT_S,
+                env={"TFTPU_HEARTBEAT_TIMEOUT_S": str(2 * FLEET_TRAIN_TIMEOUT_S)})
+        except Exception as e:  # reported with the ranks' logs below
+            results[name] = e
+
+    try:
+        for name in ("drill", "plain"):
+            (root / name).mkdir()
+        fleets = [threading.Thread(target=run, args=(n, n == "drill"), name=f"fleet-{n}")
+                  for n in ("drill", "plain")]
+        for t in fleets:
+            t.start()
+        tft.kernels.LAUNCHES.reset()
+        deadline = fleet_deadline_drill(tft, dev, encoder, root / "parent_flight")
+        for t in fleets:
+            t.join(timeout=FLEET_TRAIN_LEG_LIMIT_S * 3)
+        for t in threading.enumerate():  # the abandoned hung dispatch finishes its call
+            if t.name == "tfs-dispatch-deadline":
+                t.join(timeout=90)
+        import torch
+
+        torch.cuda.synchronize()
+        parent_launches = launch_counts(tft)
+        wall = time.perf_counter() - t_leg
+        for name in ("drill", "plain"):
+            r = results.get(name)
+            if not isinstance(r, supervisor.SuperviseResult):
+                fail(f"fleet training leg: the {name} fleet failed: {r!r}\n"
+                     f"{fleet_out_tails(root / name)}")
+        drill, plain = results["drill"], results["plain"]
+        logs = {name: fleet_rank_logs(root / name) for name in ("drill", "plain")}
+
+        for k, codes in enumerate(drill.exit_codes):
+            why = drill.failures[k] if k < len(drill.failures) else None
+            log(f"# fleet training incarnation {k}: exit codes {codes}; failure "
+                + (f"rank {why.rank} ({why.kind}): {why.reason}" if why else "none"))
+        bad = []
+        if not (drill.ok and drill.attempts == 3 and drill.restarts == 2):
+            bad.append(f"ok {drill.ok}, attempts {drill.attempts}, restarts {drill.restarts} "
+                       "(want True, 3, 2)")
+        elif drill.exit_codes[0].get(1) != -9:
+            bad.append(f"rank 1 exited {drill.exit_codes[0].get(1)} in incarnation 0 (want -9)")
+        elif (drill.failures[0].rank, drill.failures[1].rank) != (1, 1) \
+                or drill.failures[0].kind not in ("signal", "abort") \
+                or drill.failures[1].kind != "heartbeat":
+            bad.append(f"failures {drill.failures} (want rank 1 by signal or abort, then rank 1 "
+                       "by heartbeat)")
+        elif [drill.exit_codes[k].get(0) for k in (0, 1)] != [ABORT_EXIT_CODE] * 2:
+            bad.append(f"the survivor exited {[drill.exit_codes[k].get(0) for k in (0, 1)]} "
+                       f"(want {ABORT_EXIT_CODE} twice: the coordinated abort)")
+        if not (plain.ok and plain.attempts == 1):
+            bad.append(f"the uninterrupted fleet took {plain.attempts} attempts")
+        if bad:
+            fail(f"fleet training leg: {'; '.join(bad)}\n{fleet_out_tails(root / 'drill')}")
+
+        starts = {}
+        for name, recs in logs.items():
+            for r in recs:
+                if "latest" in r:
+                    starts.setdefault((name, r["attempt"]), {})[r["rank"]] = r["latest"]
+        for (name, attempt), by_rank in sorted(starts.items()):
+            if len(by_rank) != FLEET_TRAIN_RANKS or len(set(by_rank.values())) != 1:
+                fail(f"fleet training leg: {name} incarnation {attempt} started from newest "
+                     f"checkpoints {by_rank} (want one step on every rank)")
+        log("# fleet training starts (newest checkpoint a rank): "
+            + "; ".join(f"{n} {a}: {b}" for (n, a), b in sorted(starts.items())))
+
+        finals = {(name, r["rank"]): r["final"] for name, recs in logs.items() for r in recs
+                  if "final" in r}
+        want = finals.get(("plain", 0))
+        if want is None or len(finals) != 2 * FLEET_TRAIN_RANKS:
+            fail(f"fleet training leg: final states from {sorted(finals)} (want all four ranks)")
+        for key, got in finals.items():
+            if got != want:
+                diff = sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))
+                fail(f"fleet training leg: {key}'s state at step {FLEET_TRAIN_STEPS} differs from "
+                     f"the uninterrupted fleet's rank 0 in {len(diff)} leaves: {diff[:8]}")
+
+        records = flight.read_blackbox(str(root / "drill" / "blackbox"))
+        kinds = {r.get("kind") for r in records}
+        seen = [r for r in records if r.get("kind") == "fleet.abort_seen"]
+        posts = sorted((root / "drill" / "blackbox").glob("postmortem_*_p0_*"))
+        if "fault.kill_rank" not in kinds or not seen or any(r.get("ranks") != [1] for r in seen) \
+                or not posts:
+            fail(f"fleet training leg: the black box holds kinds {sorted(kinds)}, abort_seen "
+                 f"{[r.get('ranks') for r in seen]}, rank 0 postmortems {len(posts)} (want "
+                 "fault.kill_rank, abort_seen naming [1], a postmortem)")
+
+        launches = {k: parent_launches.get(k, 0) for k in TRAINING_BUILDS}
+        per_process = {}
+        for name, recs in logs.items():
+            for r in recs:
+                if "launches" in r:  # cumulative: the process's last record holds its total
+                    per_process[(name, r["attempt"], r["rank"])] = (
+                        r["launches"], r.get("ran") or sum(
+                            1 for x in recs if "step" in x and x["attempt"] == r["attempt"]
+                            and x["rank"] == r["rank"]))
+        for (name, attempt, rank), (counts, ran) in sorted(per_process.items()):
+            for k in TRAINING_BUILDS:
+                launches[k] += counts.get(k, 0)
+            want_n = KILL_LAYERS * ran
+            off = [(k, counts.get(k), counts.get(b))
+                   for k, b in zip(TRAINING_KERNELS, TRAINING_BUILDS[len(TRAINING_KERNELS):])
+                   if not (counts.get(k) == counts.get(b) == want_n)]
+            if off:
+                fail(f"fleet training leg: {name} incarnation {attempt} rank {rank} ran {ran} "
+                     f"steps and launched {off} (want {want_n} of each, all on the tensor cores)")
+        log("# fleet training launches a process (flash forward, dK/dV, dQ; all on the tensor "
+            "cores): " + "; ".join(
+                f"{n} {a} rank {r}: {c['flash_attention']}/{c['flash_attention_bwd_dkv']}/"
+                f"{c['flash_attention_bwd_dq']} in {ran} steps"
+                for (n, a, r), (c, ran) in sorted(per_process.items())))
+
+        detect = sorted(r["ts"] for r in flight.RECORDER.records()
+                        if r["seq"] > seq0 and r["kind"] == "fleet.rank_dead")
+        per_restart = [s for tid, s in respawned if tid == idents["drill"]]
+        steps = [r for r in logs["drill"] if "step" in r]
+        first_after, replayed = [], []
+        for k in range(1, drill.attempts):
+            mine = [r for r in steps if r["attempt"] == k]
+            firsts = [min(r["t"] for r in mine if r["rank"] == rk) for rk in range(FLEET_TRAIN_RANKS)]
+            first_after.append(max(firsts) - detect[k - 1])
+            done = max(r["step"] for r in steps if r["attempt"] == k - 1)
+            replayed.append(done - starts[("drill", k)][0])
+        kill_ts = [r["ts"] for r in records if r.get("kind") == "fault.kill_rank"]
+        stop_ts = max(r["t"] for r in steps if r["attempt"] == 1 and r["rank"] == 1)
+        log(f"# fleet training detection: the kill {detect[0] - kill_ts[0]:.4f} s after it, "
+            f"the stall {detect[1] - stop_ts:.4f} s after rank 1's last step (its SIGSTOP)")
+        log(f"# fleet training recovery: recovery_seconds per restart "
+            f"{[round(s, 4) for s in per_restart]}, total {drill.recovery_seconds:.4f} s; "
+            f"detection to the first step completed after each restart "
+            f"{[round(s, 3) for s in first_after]} s; steps replayed after each failure "
+            f"{replayed}")
+        plain0 = sorted((r for r in logs["plain"] if "step" in r and r["rank"] == 0),
+                        key=lambda r: r["step"])
+        step_s = [r["step_s"] for r in plain0]
+        step_bytes = [b["allreduce_bytes"] - a["allreduce_bytes"] for a, b in zip(plain0, plain0[1:])]
+        log(f"# fleet training steps (uninterrupted fleet, rank 0): wall a step "
+            f"{[round(s, 4) for s in step_s]} s (median {float(np.median(step_s)):.4f}; each "
+            f"from its start to its loss on the host; saves fall between steps); gloo "
+            f"all-reduce bytes a step {sorted(set(step_bytes))}; losses "
+            f"{[round(r['loss'], 5) for r in plain0]}")
+        log(f"# fleet training deadline: BERT-base map_blocks under {FLEET_TRAIN_DEADLINE_S:g} s "
+            f"bit-equal to the call without ({deadline['bounded_s']:.4f} s), no exemption; a "
+            f"Delay(60) dispatch raised HungDispatchError after {deadline['hung_s']:.3f} s, "
+            f"postmortem entry {deadline['entry']}")
+        log(f"# fleet training leg: {wall:.1f} s (limit {FLEET_TRAIN_LEG_LIMIT_S:g} s)")
+        if wall > FLEET_TRAIN_LEG_LIMIT_S:
+            fail(f"fleet training leg took {wall:.1f} s (limit {FLEET_TRAIN_LEG_LIMIT_S:g} s)")
+        return {"launches": launches, "seconds": wall, "recovery_s": per_restart,
+                "recovery_total_s": drill.recovery_seconds, "first_step_after_s": first_after,
+                "replayed": replayed, "step_s": step_s, "step_bytes": step_bytes,
+                "deadline": deadline}
+    finally:
+        sup_log.removeHandler(handler)
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def step_inputs(cfg, params, prompts, dev):
     """A 16-slot decode step's state: each prompt prefilled (kernel path)
     into its own pages of a fresh pool; returns (pool, step args)."""
@@ -7753,6 +8191,10 @@ def main() -> int:
     missing = [k for k in TRAINING_KERNELS if mp["launches"][k] <= 0]
     if missing:
         fail(f"kernels never launched on the model-parallel leg: {missing}")
+    fleet_train = fleet_training_leg(tft, dev, encoder)
+    missing = [k for k in TRAINING_KERNELS if fleet_train["launches"][k] <= 0]
+    if missing:
+        fail(f"kernels never launched on the fleet-training leg: {missing}")
 
     t5 = time.perf_counter()
     incep = inception_path(tft, dev)
@@ -7817,7 +8259,7 @@ def main() -> int:
              (infra, ("segment_reduce", "flash_attention")),
              (sharded, ("segment_reduce", "segment_sum", "ragged_gather")),
              (train, TRAINING_KERNELS), (resumable, TRAINING_KERNELS),
-             (mp, TRAINING_KERNELS),
+             (mp, TRAINING_KERNELS), (fleet_train, TRAINING_KERNELS),
              (imported["int8"], ("int8_matmul",)),
              (vggr["int8"], ("int8_matmul",)))
     for name, info in tft.kernels.KERNELS.items():
@@ -7874,4 +8316,6 @@ if __name__ == "__main__":
         sys.exit(sharded_rank_main())
     if sys.argv[1:2] == ["--mp-rank"]:
         sys.exit(mp_rank_main())
+    if sys.argv[1:2] == ["--fleet-train-rank"]:
+        sys.exit(fleet_train_rank_main())
     sys.exit(infra_warm_main() if sys.argv[1:2] == ["--infra-warm"] else main())

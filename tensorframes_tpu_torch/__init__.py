@@ -18,7 +18,9 @@ and train it straight off a frame (:func:`training.train_on_frame` over
 :func:`models.transformer.make_train_step`, batches staged by
 :mod:`.io`), resumably: verified checkpoints (:class:`Checkpointer`,
 the JAX package's npz format), :func:`run_resumable`, step guards,
-retries and fault sites (:mod:`.resilience`), step telemetry and a
+retries and fault sites (:mod:`.resilience`), fleet supervision
+(:func:`supervise`: a fleet of training ranks restarted through a kill or
+a wedged rank, each resuming from its checkpoint), step telemetry and a
 flight recorder (:mod:`.observability`). Frozen TF graphs and SavedModels import as programs
 (:func:`load_graphdef`, :func:`load_saved_model`, :mod:`.graphdef`,
 with no TensorFlow), and programs serialize through ``torch.export``
@@ -163,7 +165,7 @@ from .bundle import restore_variables  # noqa: F401
 from .checkpoint import CheckpointCorruptionError, Checkpointer  # noqa: F401
 from . import resilience  # noqa: F401
 from . import parallel  # noqa: F401  (the process group, meshes, collectives)
-from .resilience import RetryPolicy, StepGuard  # noqa: F401
+from .resilience import RetryPolicy, StepGuard, supervise  # noqa: F401
 from .observability import StepTelemetry  # noqa: F401
 from .training import run_resumable  # noqa: F401
 from . import compilecache  # noqa: F401  (registers tftpu_compilecache_* metrics)
@@ -212,6 +214,7 @@ __all__ = [
     "resilience",
     "RetryPolicy",
     "StepGuard",
+    "supervise",
     "StepTelemetry",
     # serving
     "Server",

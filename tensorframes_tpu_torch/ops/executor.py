@@ -18,6 +18,9 @@ manifest row that ``warmup`` replays in a later process. Each
 dispatch passes the reference's fault sites (``executor.run_block`` /
 ``executor.run_rows``, and the ``executor.dispatch`` delay site around
 the call) and leaves a ``dispatch`` or ``dispatch.error`` flight record.
+Under ``config.dispatch_deadline_s`` the call, and on a CUDA device a
+synchronize after it, run inside the hung-dispatch watchdog
+(:func:`..resilience.fleet.run_with_deadline`), as in the reference.
 Row counts still bucket to powers of two (:func:`bucket_rows`), so padded
 rows match the reference row for row.
 """
@@ -37,6 +40,7 @@ from ..observability import flight as _flight
 from ..observability import latency as _latency
 from ..observability.metrics import counter as _counter
 from ..program import Program
+from ..resilience import fleet as _fleet
 from ..resilience.faults import delay_point, fault_point, register_site
 from ..utils import get_logger
 
@@ -233,10 +237,34 @@ class CompiledProgram:
             key = self._feeds_key(kind, tensors)
             fresh = key not in self._dispatched
             self._note_dispatch(key, device)
+            deadline = _fleet.dispatch_deadline_s()
+            sync = bool(deadline) and device.type == "cuda"
+            if sync:
+                # the kernel library's first load is an nvcc build of
+                # minutes: it happens here, outside the watchdog, so no
+                # dispatch needs the reference's lazy-compile exemption
+                from .. import kernels
+
+                kernels.library()
+
+            def invoke():
+                delay_point("executor.dispatch")
+                with torch.inference_mode():
+                    r = fn(tensors)
+                if sync:
+                    # a collective wedged on a dead peer must hang inside
+                    # the watchdog's scope, not at a later readback
+                    torch.cuda.synchronize(device)
+                return r
+
             t0 = time.perf_counter()
-            delay_point("executor.dispatch")
-            with torch.inference_mode():
-                out = fn(tensors)
+            if deadline:
+                out = _fleet.run_with_deadline(
+                    invoke, deadline=deadline,
+                    describe=f"{site}[{','.join(self.program.fetch_order[:4])}]",
+                )
+            else:
+                out = invoke()
             wall = time.perf_counter() - t0
         except BaseException as e:
             _flight.record("dispatch.error", error=type(e).__name__, message=str(e), **summary)

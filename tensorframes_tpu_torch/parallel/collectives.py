@@ -17,7 +17,9 @@ where it is: host payloads stay on the host, and a CUDA table goes to
 gloo as it is (PyTorch's gloo carries CUDA ``all_reduce``,
 ``all_gather``, ``all_to_all_single`` and ``broadcast``; a probe on the
 H100's torch 2.11 ran all of them between two ranks on one card). Every call is bounded by the dispatch deadline
-(``config.dispatch_deadline_s``, :func:`..resilience.fleet.run_with_deadline`).
+(``config.dispatch_deadline_s``, :func:`..resilience.fleet.run_with_deadline`),
+and one that raises because a peer is gone ends an enrolled rank through
+the coordinated abort (:func:`..resilience.fleet.abort_on_lost_peer`).
 With no process group initialized the world is one rank and each
 function returns its input.
 
@@ -95,7 +97,13 @@ def _ops(op: str):
 
 
 def _bounded(fn, describe: str):
-    return _fleet.run_with_deadline(fn, describe=describe)
+    try:
+        return _fleet.run_with_deadline(fn, describe=describe)
+    except RuntimeError as e:
+        # gloo raises where a peer died: an enrolled rank takes the
+        # coordinated abort (no return), anyone else gets the error
+        _fleet.abort_on_lost_peer(describe, e)
+        raise
 
 
 def all_reduce(t: torch.Tensor, op: str = "sum") -> torch.Tensor:

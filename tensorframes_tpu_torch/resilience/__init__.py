@@ -15,15 +15,17 @@ The reference package's ``resilience/`` in its single-process subset:
   states and skip the step, roll back to the last good state, or raise;
   plugged into ``training.run_resumable(guard=...)``.
 
-* :mod:`.fleet` — the file-based fleet rendezvous: heartbeats
-  (:class:`Heartbeater`), :func:`fleet_status`, the coordinated-abort
-  signal, and the atomic records the serving fleet's replica cards share;
-  and its deadline half: :func:`run_with_deadline` (the hung-collective
+* :mod:`.fleet` — fleet supervision over a rendezvous dir: heartbeats
+  (:class:`Heartbeater`), :func:`fleet_status`, the peer monitor
+  (:class:`FleetMonitor`), enrolment (:func:`enroll`), the coordinated
+  abort (:data:`ABORT_EXIT_CODE`), the atomic records the serving fleet's
+  replica cards share, :func:`run_with_deadline` (the hung-collective
   watchdog) and the file :func:`barrier`, with the fleet error classes.
+* :mod:`.supervisor` — :func:`supervise`: spawn a fleet of ranks, reap a
+  crash or a stale heartbeat, tear the survivors down and restart the
+  fleet, which resumes through ``run_resumable``.
 
-``FleetMonitor``, ``enroll`` and ``supervise()`` come with the
-model-parallel slice. Checkpoint integrity lives in
-:mod:`tensorframes_tpu_torch.checkpoint`.
+Checkpoint integrity lives in :mod:`tensorframes_tpu_torch.checkpoint`.
 """
 
 from __future__ import annotations
@@ -42,13 +44,18 @@ from .faults import (  # noqa: F401
     reset,
 )
 from .fleet import (  # noqa: F401
+    ABORT_EXIT_CODE,
     CoordinatedAbortError,
     DeadRankError,
     FleetError,
+    FleetMember,
+    FleetMonitor,
     FleetStatus,
     HungDispatchError,
     barrier,
+    current_member,
     dispatch_deadline_s,
+    enroll,
     run_with_deadline,
     Heartbeater,
     abort_requested,
@@ -66,6 +73,12 @@ from .retry import (  # noqa: F401
     RetryPolicy,
     retry_call,
     retryable,
+)
+from .supervisor import (  # noqa: F401
+    RankFailure,
+    SuperviseError,
+    SuperviseResult,
+    supervise,
 )
 
 __all__ = [
@@ -88,8 +101,23 @@ __all__ = [
     "NonFiniteError",
     "StepGuard",
     "tree_all_finite",
+    "ABORT_EXIT_CODE",
+    "FleetError",
+    "DeadRankError",
+    "HungDispatchError",
+    "CoordinatedAbortError",
     "FleetStatus",
     "Heartbeater",
+    "FleetMonitor",
+    "FleetMember",
+    "current_member",
+    "enroll",
+    "barrier",
+    "run_with_deadline",
+    "supervise",
+    "SuperviseResult",
+    "SuperviseError",
+    "RankFailure",
     "rendezvous_dir",
     "write_beat",
     "read_heartbeats",

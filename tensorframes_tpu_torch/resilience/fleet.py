@@ -1,27 +1,43 @@
-"""Fleet rendezvous: heartbeats, replica liveness and the coordinated-abort
-signal, over files in a shared directory.
+"""Fleet supervision: heartbeats, dead-rank detection, the hung-dispatch
+watchdog and the coordinated abort, over files in a shared directory.
 
-The reference package's ``resilience/fleet.py`` in its file-based half —
-what the serving fleet (:mod:`tensorframes_tpu_torch.serving.fleet`) runs
-on:
+The reference package's ``resilience/fleet.py``:
 
 * **Heartbeats** — every process in a fleet publishes a small JSON beat
   (stamped with the observability ``run_id``/``process_index`` context)
-  into a shared **rendezvous dir** (``TFTPU_FLEET_DIR``) every
+  into a shared **rendezvous dir** (``TFTPU_FLEET_DIR``;
+  :func:`~.supervisor.supervise` arms it for its children) every
   ``heartbeat_interval_s``. A clean exit leaves a final ``stopped`` beat,
   so a finished process is never mistaken for a dead one.
-* **Status** — :func:`fleet_status` classifies every rank from its newest
-  beat: *stopped*, *dead* past ``heartbeat_timeout_s``, *straggler* past
-  half of it, else *alive*.
+* **Monitoring** — :func:`fleet_status` classifies every rank from its
+  newest beat: *stopped*, *dead* past ``heartbeat_timeout_s``,
+  *straggler* past half of it, else *alive*. :class:`FleetMonitor` (a
+  daemon thread) scans it and fires callbacks once per new verdict;
+  :func:`enroll` wires the default policy: a dead peer, or a peer's abort
+  signal, dumps a flight-recorder postmortem naming the missing rank,
+  signals the **coordinated abort** and exits with
+  :data:`ABORT_EXIT_CODE`.
 * **Coordinated abort** — :func:`signal_abort` publishes one abort record
   (first writer wins), :func:`abort_requested` reads it, and
   :func:`clear_fleet` removes a run's state between incarnations.
+* **Hung-dispatch watchdog** — :func:`run_with_deadline` bounds a call by
+  ``config.dispatch_deadline_s``; on expiry it dumps a
+  ``fleet.hung_dispatch`` postmortem naming the stalled call and the
+  unresponsive ranks, signals the abort and raises
+  :class:`HungDispatchError`. The executor's dispatches and every
+  collective of :mod:`..parallel.collectives` run under it.
+* **Lost peers** — gloo raises in a collective whose peer died, where
+  XLA's collectives hang; :func:`abort_on_lost_peer` turns that error into
+  the coordinated abort of an enrolled rank, so a survivor never writes a
+  checkpoint newer than its dead peer's.
+* **Rendezvous barrier** — :func:`barrier`, a file-based fleet barrier
+  with the same deadline semantics, for host-side lockstep points.
 
 File names and JSON fields are the reference's, byte for byte, so either
-package reads the other's rendezvous dir. The drop-heartbeat chaos site
-``fleet.heartbeat`` sits in :class:`Heartbeater`'s loop. The SPMD half
-(``FleetMonitor``, ``enroll``, ``run_with_deadline``, ``barrier``) comes
-with the multi-device work.
+package reads the other's rendezvous dir. The chaos sites:
+``fleet.heartbeat`` (drop-heartbeat) in :class:`Heartbeater`'s loop,
+``fleet.barrier`` (delay-collective), ``executor.dispatch`` and
+``fleet.rank.kill`` (kill-rank).
 """
 
 from __future__ import annotations
@@ -32,7 +48,7 @@ import os
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Set
 
 from ..config import get_config
 from ..observability import context as _context
@@ -47,12 +63,15 @@ from . import retry as _retry
 logger = get_logger(__name__)
 
 __all__ = [
+    "ABORT_EXIT_CODE",
     "FleetError",
     "DeadRankError",
     "HungDispatchError",
     "CoordinatedAbortError",
     "FleetStatus",
     "Heartbeater",
+    "FleetMonitor",
+    "FleetMember",
     "rendezvous_dir",
     "write_beat",
     "read_heartbeats",
@@ -62,11 +81,19 @@ __all__ = [
     "signal_abort",
     "abort_requested",
     "clear_fleet",
+    "enroll",
+    "current_member",
+    "abort_on_lost_peer",
     "barrier",
     "dispatch_deadline_s",
     "note_deadline_exemption",
     "run_with_deadline",
 ]
+
+#: Exit code of a coordinated abort: a rank that detected a dead peer (or
+#: saw the abort signal) and exited on purpose; the supervisor tells it
+#: from the crash that caused it.
+ABORT_EXIT_CODE = 43
 
 # Fleet telemetry under the reference's names, registered at import so
 # an exposition always carries the family: a run that never lost a rank
@@ -459,6 +486,289 @@ class Heartbeater:
 
 
 # ---------------------------------------------------------------------------
+# monitor
+# ---------------------------------------------------------------------------
+
+class FleetMonitor:
+    """Daemon thread classifying peers from their beats. Callbacks fire
+    once per newly detected condition: ``on_dead(ranks, status)``,
+    ``on_straggler(ranks, status)``, ``on_abort(record)``. The monitor
+    never judges its own rank (a wedged self cannot usefully self-report;
+    peers and the supervisor own that verdict). When ``num_processes`` is
+    known, a rank that never publishes a beat within ``startup_grace_s``
+    of the monitor's start (default ``max(4 × timeout_s, 20 s)``: peers
+    may still be importing torch or loading a model before they enroll)
+    is declared dead too: a rank that crashed before its first beat must
+    not stay invisible."""
+
+    def __init__(
+        self,
+        directory: str,
+        *,
+        run_id: Optional[str] = None,
+        num_processes: Optional[int] = None,
+        timeout_s: Optional[float] = None,
+        straggler_s: Optional[float] = None,
+        poll_s: Optional[float] = None,
+        self_rank: Optional[int] = None,
+        startup_grace_s: Optional[float] = None,
+        on_dead: Optional[Callable[[List[int], FleetStatus], None]] = None,
+        on_straggler: Optional[Callable[[List[int], FleetStatus], None]] = None,
+        on_abort: Optional[Callable[[dict], None]] = None,
+    ):
+        cfg = get_config()
+        self.directory = directory
+        self.run_id = run_id or _context.run_id()
+        self.num_processes = num_processes
+        self.timeout_s = cfg.heartbeat_timeout_s if timeout_s is None else timeout_s
+        self.straggler_s = self.timeout_s / 2.0 if straggler_s is None else straggler_s
+        self.poll_s = cfg.heartbeat_interval_s if poll_s is None else poll_s
+        self.self_rank = _context.process_index() if self_rank is None else self_rank
+        self.startup_grace_s = (
+            max(4.0 * self.timeout_s, 20.0) if startup_grace_s is None else startup_grace_s
+        )
+        self._t0 = time.monotonic()
+        self.on_dead = on_dead
+        self.on_straggler = on_straggler
+        self.on_abort = on_abort
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        # the monitor thread scans, and so does a rank that lost a peer in
+        # a collective (abort_on_lost_peer): each verdict is reported once
+        self._lock = threading.Lock()
+        self._reported_dead: Set[int] = set()
+        self._reported_straggler: Set[int] = set()
+        self._abort_seen = False
+
+    def start(self) -> "FleetMonitor":
+        if self._thread is None:
+            self._thread = threading.Thread(
+                target=self._loop, daemon=True, name=f"tfs-fleet-monitor-p{self.self_rank}",
+            )
+            self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=self.poll_s * 4 + 1.0)
+            self._thread = None
+
+    def status(self) -> FleetStatus:
+        return fleet_status(
+            self.directory, run_id=self.run_id, num_processes=self.num_processes,
+            timeout_s=self.timeout_s, straggler_s=self.straggler_s,
+        )
+
+    def check_once(self) -> FleetStatus:
+        """One scan (the loop body; callable directly from tests)."""
+        ab = abort_requested(self.directory, self.run_id)
+        with self._lock:
+            first_abort = ab is not None and not self._abort_seen
+            self._abort_seen = self._abort_seen or ab is not None
+        if first_abort:
+            _flight.record(
+                "fleet.abort_seen", reason=ab.get("reason"), ranks=ab.get("ranks"),
+                by=ab.get("by"),
+            )
+            if self.on_abort is not None:
+                self.on_abort(ab)
+        st = self.status()
+        with self._lock:
+            new_stragglers = [r for r in st.stragglers
+                              if r != self.self_rank and r not in self._reported_straggler]
+            self._reported_straggler.update(new_stragglers)
+        if new_stragglers:
+            _STRAGGLERS.inc(len(new_stragglers))
+            MISSED_BEATS.inc(len(new_stragglers))
+            for r in new_stragglers:
+                _flight.record(
+                    "fleet.straggler", rank=r, age_s=round(st.ages.get(r, -1.0), 3),
+                    straggler_s=self.straggler_s,
+                )
+            logger.warning(
+                "fleet: straggler rank(s) %s (beat age > %.3gs)", new_stragglers, self.straggler_s,
+            )
+            if self.on_straggler is not None:
+                self.on_straggler(new_stragglers, st)
+        dead_now = list(st.dead)
+        if st.missing and time.monotonic() - self._t0 > self.startup_grace_s:
+            # expected ranks that never published a beat: after the
+            # startup grace they are dead, not "not yet here"
+            dead_now.extend(st.missing)
+        with self._lock:
+            new_dead = [r for r in dead_now
+                        if r != self.self_rank and r not in self._reported_dead]
+            self._reported_dead.update(new_dead)
+        if new_dead:
+            DEAD_RANKS.inc(len(new_dead))
+            MISSED_BEATS.inc(len(new_dead))
+            for r in new_dead:
+                _flight.record(
+                    "fleet.heartbeat_lost", rank=r, age_s=round(st.ages.get(r, -1.0), 3),
+                    timeout_s=self.timeout_s, never_started=r in st.missing,
+                )
+            logger.error(
+                "fleet: dead rank(s) %s (no heartbeat for > %.3gs)", new_dead, self.timeout_s,
+            )
+            if self.on_dead is not None:
+                self.on_dead(new_dead, st)
+        return st
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.poll_s):
+            try:
+                self.check_once()
+            except Exception as e:  # pragma: no cover - must keep watching
+                logger.debug("fleet monitor scan failed: %s", e)
+
+
+# ---------------------------------------------------------------------------
+# enrollment (the worker-side default policy)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class FleetMember:
+    """This process's fleet membership: its heartbeater and monitor.
+    ``abort_on_dead`` is :func:`enroll`'s policy: exit on a dead peer."""
+
+    directory: str
+    heartbeater: Heartbeater
+    monitor: Optional[FleetMonitor]
+    abort_on_dead: bool = True
+
+    def leave(self, graceful: bool = True) -> None:
+        if self.monitor is not None:
+            self.monitor.stop()
+        self.heartbeater.stop(graceful=graceful)
+
+
+_member_lock = threading.Lock()
+_member: Optional[FleetMember] = None
+# the first thread into _abort_self exits the process; a second one (the
+# monitor and a collective's lost peer, say) waits for that exit
+_abort_lock = threading.Lock()
+
+
+def current_member() -> Optional[FleetMember]:
+    with _member_lock:
+        return _member
+
+
+def _abort_self(reason: str, ranks: Sequence[int], directory: str, signal_peers: bool) -> None:
+    """The coordinated-abort exit: postmortem first (the black box must
+    name the missing rank), signal peers, a graceful final beat, then
+    ``os._exit``: a main thread blocked inside a collective cannot be
+    unwound politely, and a bounded, diagnosable death is the contract."""
+    if not _abort_lock.acquire(blocking=False):
+        threading.Event().wait()  # another thread is already exiting
+    _flight.record("fleet.self_abort", reason=reason, ranks=list(ranks))
+    _flight.dump(reason="fleet_abort")
+    if signal_peers:
+        signal_abort(directory, reason, dead_ranks=ranks)
+    member = current_member()
+    if member is not None:
+        member.heartbeater.stop(graceful=True)
+    logger.error("fleet: aborting (exit %d): %s", ABORT_EXIT_CODE, reason)
+    os._exit(ABORT_EXIT_CODE)
+
+
+def enroll(
+    directory: Optional[str] = None,
+    *,
+    monitor: bool = True,
+    abort_on_dead: bool = True,
+    num_processes: Optional[int] = None,
+    timeout_s: Optional[float] = None,
+    interval_s: Optional[float] = None,
+) -> Optional[FleetMember]:
+    """Join the fleet rooted at ``directory`` (default ``TFTPU_FLEET_DIR``;
+    a no-op returning None when unset: a single-process run pays
+    nothing). Starts the heartbeat publisher and, with ``monitor=True``,
+    the peer monitor under the default policy: a dead peer or a peer's
+    abort signal → flight postmortem naming the rank → coordinated abort
+    → ``os._exit(ABORT_EXIT_CODE)`` (``abort_on_dead=False`` records
+    without exiting). Idempotent per process; ``training.run_resumable``
+    calls it, so a training loop launched under ``supervise()`` is
+    fleet-aware."""
+    global _member
+    directory = directory or rendezvous_dir()
+    if not directory:
+        return None
+    # creation happens under the lock: two concurrent first enrollments
+    # would otherwise each start a Heartbeater, and the loser's orphan
+    # would publish fresh beats for this rank after the member left
+    with _member_lock:
+        if _member is not None:
+            return _member
+        member = _enroll_locked(
+            directory, monitor=monitor, abort_on_dead=abort_on_dead,
+            num_processes=num_processes, timeout_s=timeout_s, interval_s=interval_s,
+        )
+        _member = member
+    import atexit
+
+    atexit.register(member.leave)
+    logger.info(
+        "fleet: enrolled rank %d in %s (interval %.3gs)",
+        member.heartbeater.rank, directory, member.heartbeater.interval_s,
+    )
+    return member
+
+
+def _enroll_locked(
+    directory: str,
+    *,
+    monitor: bool,
+    abort_on_dead: bool,
+    num_processes: Optional[int],
+    timeout_s: Optional[float],
+    interval_s: Optional[float],
+) -> FleetMember:
+    num_processes = _context.num_processes() if num_processes is None else num_processes
+    hb = Heartbeater(directory, interval_s=interval_s).start()
+    mon = None
+    if monitor:
+        def _on_dead(ranks: List[int], st: FleetStatus) -> None:
+            reason = f"rank(s) {ranks} stopped heartbeating (timeout {mon.timeout_s:g}s)"
+            if abort_on_dead:
+                _abort_self(reason, ranks, directory, signal_peers=True)
+
+        def _on_abort(rec: dict) -> None:
+            reason = f"coordinated abort from rank {rec.get('by')}: {rec.get('reason')}"
+            if abort_on_dead:
+                _abort_self(reason, rec.get("ranks") or [], directory, signal_peers=False)
+
+        mon = FleetMonitor(
+            directory, num_processes=num_processes, timeout_s=timeout_s,
+            on_dead=_on_dead, on_abort=_on_abort,
+        )
+        mon.start()
+    return FleetMember(directory, hb, mon, abort_on_dead)
+
+
+def _reset_member_for_tests() -> None:
+    """Forget the enrollment singleton (test hygiene only)."""
+    global _member
+    with _member_lock:
+        m, _member = _member, None
+    if m is not None:
+        m.leave(graceful=False)
+
+
+def _after_fork_in_child() -> None:
+    # a forked child inherits the parent's membership object but not its
+    # threads: drop it so the child can enroll under its own rank. No
+    # lock: the child is single-threaded here.
+    global _member
+    _member = None
+
+
+if hasattr(os, "register_at_fork"):  # pragma: no branch - posix
+    os.register_at_fork(after_in_child=_after_fork_in_child)
+
+
+# ---------------------------------------------------------------------------
 # hung-dispatch watchdog
 # ---------------------------------------------------------------------------
 
@@ -555,6 +865,57 @@ def run_with_deadline(
         )
     except _retry.WatchdogExpired:
         raise _hung(describe, d, directory, signal=signal) from None
+
+
+# gloo's words for a peer that is gone (its TCP pair closed or reset under
+# a collective) and NCCL's for a communicator whose peer exited
+_PEER_LOST = ("closed by peer", "reset by peer", "Broken pipe", "remote process exited",
+              "communicator was aborted")
+
+
+def _peer_lost(error: BaseException) -> bool:
+    """Whether a collective's ``error`` says that a peer rank is gone."""
+    return type(error).__name__ == "DistNetworkError" or any(m in str(error) for m in _PEER_LOST)
+
+
+def abort_on_lost_peer(describe: str, error: BaseException) -> None:
+    """End this rank through the coordinated abort when its collective
+    ``describe`` raised ``error`` because a peer is gone, and it is
+    enrolled (:func:`enroll`, default policy) in a fleet of more than one
+    rank. Otherwise return, and the caller re-raises.
+
+    Gloo raises where the reference's XLA collectives hang, and the
+    reference's survivor is then ended by its monitor with no checkpoint
+    written. Without this the survivor's ``run_resumable`` would write an
+    emergency checkpoint newer than its dead peer's, and the restarted
+    data-parallel fleet would pair the wrong steps' collectives. The lost
+    rank named is the abort record's when one appears within the
+    heartbeat timeout (the supervisor's, first writer wins), else the
+    rendezvous dir's unresponsive ranks, as a hung dispatch names them."""
+    member = current_member()
+    n = _context.num_processes() or 1
+    if member is None or not member.abort_on_dead or n <= 1 or not _peer_lost(error):
+        return
+    mon = member.monitor
+    timeout = mon.timeout_s if mon is not None else get_config().heartbeat_timeout_s
+    me = _context.process_index()
+    _flight.record("fleet.peer_lost", entry=describe, error=type(error).__name__,
+                   message=str(error)[:300])
+    until = time.monotonic() + timeout
+    while True:
+        ab = abort_requested(member.directory)
+        if ab is not None:
+            if mon is not None:
+                mon.check_once()  # records fleet.abort_seen; its on_abort exits
+            _abort_self(f"coordinated abort from rank {ab.get('by')}: {ab.get('reason')}",
+                        ab.get("ranks") or [], member.directory, signal_peers=False)
+        ranks = [r for r in fleet_status(member.directory, run_id=_context.run_id(),
+                                         num_processes=n, timeout_s=timeout).unresponsive()
+                 if r != me]
+        if ranks or time.monotonic() > until:
+            _abort_self(f"collective {describe!r} lost a peer (unresponsive rank(s) {ranks}): "
+                        f"{error}", ranks, member.directory, signal_peers=True)
+        time.sleep(0.02)
 
 
 # ---------------------------------------------------------------------------

@@ -20,14 +20,16 @@ The reference package's ``training.py``:
 The port's train steps update their tensors in place, so a train state
 holds the ``torch.optim.Optimizer`` itself, e.g. ``(params, opt)``: the
 checkpoint saves and restores it in place, the guard snapshots it on the
-device (:mod:`.utils.tree`). Fleet supervision (``TFTPU_FLEET_DIR``) is
-not ported yet: it is the fleet-supervision slice of ROADMAP queue 1.
+device (:mod:`.utils.tree`). Under a supervised fleet
+(``TFTPU_FLEET_DIR``, which :func:`~.resilience.supervise` arms for its
+children) :func:`run_resumable` enrolls: it heartbeats and watches its
+peers, and a dead peer ends the rank through the coordinated abort, so
+the supervisor restarts the fleet from its checkpoints.
 """
 
 from __future__ import annotations
 
 import itertools
-import os
 from typing import Any, Callable, Iterable, Optional, Tuple, Union
 
 import torch
@@ -38,6 +40,7 @@ from .io import iterate_batches, prefetch_to_device, to_device
 from .observability import flight as _flight
 from .observability.steps import StepTelemetry
 from .ops.quantize import _tree_map
+from .resilience import fleet as _fleet
 from .resilience.faults import kill_point
 from .resilience.guards import StepGuard
 from .utils import get_logger
@@ -86,13 +89,11 @@ def run_resumable(
     ``fleet.rank.kill`` kill point. ``resume_from=(step, state)`` skips
     the restore (the caller restored already). ``checkpointer=None``
     (the port's addition, :func:`train_on_frame`'s plain loop) runs the
-    same loop with no restore and no save."""
-    if os.environ.get("TFTPU_FLEET_DIR"):
-        raise RuntimeError(
-            "run_resumable: TFTPU_FLEET_DIR is set, but fleet supervision (heartbeats, "
-            "peer watch, coordinated abort: resilience/fleet.py's FleetMonitor and "
-            "enroll) is not ported yet; it comes with the fleet-supervision slice "
-            "(ROADMAP queue 1). Unset TFTPU_FLEET_DIR to train one process.")
+    same loop with no restore and no save. Under ``TFTPU_FLEET_DIR`` the
+    process first enrolls in the fleet (:func:`~.resilience.fleet.enroll`)."""
+    # fleet awareness: under a supervised fleet (TFTPU_FLEET_DIR) this
+    # loop heartbeats and watches its peers; a plain run pays one env read
+    _fleet.enroll()
     if guard is not None:
         guard = StepGuard.coerce(guard)
     start_step = 0

@@ -56,16 +56,8 @@ LOGGERS = {
     "ops.attention": {"logger"},
     "parallel.pipeline": {"logger"},
 }
-# fleet supervision, the next slice
-FLEET_SUPERVISION = {
-    "": {"supervise"},
-    "resilience": {"supervise", "RankFailure", "SuperviseResult", "SuperviseError",
-                   "FleetMonitor", "enroll", "ABORT_EXIT_CODE"},
-    "resilience.fleet": {"FleetMonitor", "FleetMember", "current_member", "enroll",
-                         "ABORT_EXIT_CODE"},
-}
 EXCEPTIONS = {}
-for table in (JAX_ONLY, RECORDED, LOGGERS, FLEET_SUPERVISION):
+for table in (JAX_ONLY, RECORDED, LOGGERS):
     for mod, names in table.items():
         EXCEPTIONS.setdefault(mod, set()).update(names)
 

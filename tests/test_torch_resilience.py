@@ -702,10 +702,3 @@ def test_run_resumable_guard_skips_poison_batch(tmp_path):
                              num_steps=6, save_every=0, guard=guard)
     assert ran == 6 and guard.skipped == 1
     assert got["w"].tolist() == [float(sum(i for i in range(6) if i != 3))] * 2
-
-
-def test_run_resumable_refuses_a_fleet(tmp_path, monkeypatch):
-    monkeypatch.setenv("TFTPU_FLEET_DIR", str(tmp_path / "fleet"))
-    with pytest.raises(RuntimeError, match="fleet-supervision slice"):
-        run_resumable(_add_step, _init(), Checkpointer(str(tmp_path / "run")),
-                      _plain_batches(2), num_steps=2)
